@@ -14,17 +14,42 @@ and the script exits non-zero without a result line:
    path's shape (llama3_8b: b=1, hq=32, hkv=8, s=2048, d=128, causal), a
    ragged one (b=2, hq=hkv=4, sq=1000, skv=777, d=64, non-causal) and a
    few edge shapes, within ``atol=rtol=2e-2`` (bf16 output rounding,
-   about 2^-8 relative, plus a different summation order). Times: the
-   kernel, ``scaled_dot_product_attention`` as a yardstick only (the
-   port never calls it), and the plain version; the bound is computed
-   from the shapes.
-3. slice: ``CONFIGS["llama3_8b"]`` at bf16 params (8.03 B parameters,
+   about 2^-8 relative, plus a different summation order); and the row
+   logsumexp it writes for training against the plain version's, within
+   ``atol=rtol=1e-3`` (both f32). Times: the kernel,
+   ``scaled_dot_product_attention`` as a yardstick only (the port never
+   calls it), and the plain version; the bound is computed from the
+   shapes.
+3. kernel_bwd: the dK/dV and dQ backward kernels against their plain
+   version (``flash_attention_bwd_plain`` in f32 on the same bf16 q, k,
+   v, o, dO and the kernel's lse) at the same shapes, within
+   ``atol=rtol=2e-2``: an emulation of the kernels' bf16 roundings on
+   the CPU stays under 7e-3 while planted faults (mask dropped, wrong
+   GQA head, ``- D`` dropped, scale twice, a query tile lost) give 0.7
+   or more (``python -m mxtpu_torch.tools.bwd_tolerance``). Times at
+   the main shape: each kernel, the pair plus D, the backward of
+   ``scaled_dot_product_attention(..., enable_gqa=True)`` as a
+   yardstick only, and the plain version.
+4. slice: ``CONFIGS["llama3_8b"]`` at bf16 params (8.03 B parameters,
    all 32 layers) with random weights from a seeded generator on the
    card. (a) ``forward`` on (1, 2048) tokens: finite f32 logits, 32
    kernel launches, and the relative distance to the same model's
    ``attn_impl="dense"`` logits within its bound. (b) greedy
    ``generate`` answering 4 requests (prompt 128, 32 new tokens each),
    twice, with the same tokens both times.
+5. train: ``CONFIGS["llama3_8b"]`` at full width and 4 layers, with the
+   reference's training dtypes (f32 params, bf16 compute), remat and the
+   8192-wide chunked cross-entropy. (a) The loss and the grads of
+   ``layers.wq``, ``layers.wk`` and ``tok_embed`` on one seeded
+   (1, 2048) batch against the same model's ``attn_impl="dense"``,
+   within their bound. (b) ``make_train_step(loss_fn(cfg),
+   adamw(3e-4))`` for 3 steps on that batch: finite losses, the first
+   near ln(vocab), and the loss after the 3 steps below the first; per
+   step 8 forward launches (4 layers and their 4 recomputations) and 4
+   of each backward kernel. The loss need not fall at every step: at
+   this lr without warmup the third step's loss rises above the first,
+   with dense attention and f32 compute too
+   (``python -m mxtpu_torch.tools.adam_dynamics``).
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result when no
@@ -38,7 +63,13 @@ import time
 from dataclasses import replace
 
 TOL = 2e-2                 # kernel vs plain, atol = rtol, bf16 output
+LSE_TOL = 1e-3             # forward lse vs plain, atol = rtol, both f32
+BWD_TOL = 2e-2             # backward kernels vs plain, atol = rtol
 LOGITS_REL_BOUND = 5e-2    # ||flash - dense|| / ||dense|| at full width
+TRAIN_REL_BOUND = 5e-2     # flash vs dense loss and grads, 4 layers
+TRAIN_LAYERS = 4
+TRAIN_STEPS = 3
+TRAIN_LR = 3e-4
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 SEED = 0
@@ -87,13 +118,31 @@ def attention_bound_ms(b, hq, hkv, sq, skv, d, causal):
     """(ms, 'operations' | 'bytes'): the least time for this call's work.
     Operations: 2 matmuls x 2 flops over every visible (q, k) pair;
     bytes: q, k, v read once and o written once, in bf16."""
-    if causal:
-        m = min(sq, skv)
-        pairs = m * (m + 1) // 2 + max(sq - skv, 0) * skv
-    else:
-        pairs = sq * skv
-    flops = 4 * d * hq * b * pairs
+    flops = 4 * d * hq * b * visible_pairs(sq, skv, causal)
     nbytes = 2 * d * b * (2 * hq * sq + 2 * hkv * skv)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def visible_pairs(sq, skv, causal):
+    """(q, k) pairs the mask lets through: causal is qpos >= kpos, both
+    counted from 0."""
+    if not causal:
+        return sq * skv
+    m = min(sq, skv)
+    return m * (m + 1) // 2 + max(sq - skv, 0) * skv
+
+
+def bwd_bound_ms(b, hq, hkv, sq, skv, d, causal, matmuls, outputs):
+    """(ms, 'operations' | 'bytes') for a backward function doing
+    ``matmuls`` products of 2*d flops over every visible (q, k) pair and
+    head, reading q, k, v, dO (bf16), lse and D (f32) once and writing
+    ``outputs`` ('q' and/or 'kv' sized bf16 grads) once."""
+    flops = 2 * matmuls * d * hq * b * visible_pairs(sq, skv, causal)
+    nbytes = 2 * d * b * (2 * hq * sq + 2 * hkv * skv) + 8 * b * hq * sq
+    nbytes += 2 * d * b * (hq * sq * ("q" in outputs)
+                           + 2 * hkv * skv * ("kv" in outputs))
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -107,35 +156,51 @@ def sdpa_call(q, k, v, causal, scale):
         q, k, v, is_causal=causal, scale=scale, **kw)
 
 
+def shape_inputs(gen, b, hq, hkv, sq, skv, d, strided):
+    """Seeded bf16 q, k, v and dO, as (b, s, h, d) storage seen through
+    a transpose when ``strided`` (the model's layout)."""
+    import torch
+
+    def rand(h, s):
+        shape = (b, s, h, d) if strided else (b, h, s, d)
+        t = torch.randn(shape, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        return t.transpose(1, 2) if strided else t
+    return rand(hq, sq), rand(hkv, skv), rand(hkv, skv), rand(hq, sq)
+
+
 def kernel_phase():
     import torch
     from mxtpu_torch.ops import attention as A
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
     for name, b, hq, hkv, sq, skv, d, causal, strided in KERNEL_SHAPES:
-        def rand(h, s):
-            shape = (b, s, h, d) if strided else (b, h, s, d)
-            t = torch.randn(shape, generator=gen, device="cuda",
-                            dtype=torch.bfloat16)
-            return t.transpose(1, 2) if strided else t
-        q, k, v = rand(hq, sq), rand(hkv, skv), rand(hkv, skv)
+        q, k, v, _ = shape_inputs(gen, b, hq, hkv, sq, skv, d, strided)
         scale = 1.0 / math.sqrt(d)
         out = A.flash_attention(q, k, v, causal=causal)
+        out_l, lse = A.flash_attention_fwd(q, k, v, causal=causal,
+                                           return_lse=True)
         torch.cuda.synchronize()
-        ref = A.blockwise_attention(q.float(), k.float(), v.float(),
-                                    causal=causal)
+        ref, ref_lse = A.blockwise_attention(
+            q.float(), k.float(), v.float(), causal=causal, return_lse=True)
         err = (out.float() - ref).abs().max().item()
-        ok = torch.allclose(out.float(), ref, atol=TOL, rtol=TOL)
+        lse_err = (lse - ref_lse).abs().max().item()
+        ok = (torch.allclose(out.float(), ref, atol=TOL, rtol=TOL)
+              and torch.equal(out, out_l)
+              and torch.allclose(lse, ref_lse, atol=LSE_TOL, rtol=LSE_TOL))
         row = {"phase": "kernel", "kernel": "flash_attention_fwd",
                "shape": name, "b": b, "hq": hq, "hkv": hkv, "sq": sq,
                "skv": skv, "d": d, "causal": causal, "strided": strided,
-               "max_abs_err": err, "tol": TOL, "ok": ok}
+               "max_abs_err": err, "tol": TOL, "lse_max_abs_err": lse_err,
+               "lse_tol": LSE_TOL, "ok": ok}
         if name in ("llama3_8b", "ragged"):
             bound, bound_by = attention_bound_ms(b, hq, hkv, sq, skv, d,
                                                  causal)
             row.update(
                 kernel_ms=time_ms(lambda: A.flash_attention(
                     q, k, v, causal=causal), reps=50),
+                kernel_lse_ms=time_ms(lambda: A.flash_attention_fwd(
+                    q, k, v, causal=causal, return_lse=True), reps=50),
                 library_ms=time_ms(sdpa_call(q, k, v, causal, scale),
                                    reps=50),
                 plain_ms=time_ms(lambda: A.blockwise_attention(
@@ -143,11 +208,78 @@ def kernel_phase():
                 bound_ms=bound, bound_by=bound_by)
             row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
         emit(row)
-        if not (ok and math.isfinite(err)):
+        if not (ok and math.isfinite(err) and math.isfinite(lse_err)):
             raise AssertionError(f"flash kernel disagrees with its plain "
-                                 f"version at {name}: max err {err}")
+                                 f"version at {name}: max err {err}, lse "
+                                 f"{lse_err}")
         rows.append(row)
     return rows
+
+
+def kernel_bwd_phase():
+    """The backward kernels against their plain version at every kernel
+    shape; times at the main shape."""
+    import torch
+    from mxtpu_torch.ops import attention as A
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    rows = []
+    for name, b, hq, hkv, sq, skv, d, causal, strided in KERNEL_SHAPES:
+        q, k, v, do = shape_inputs(gen, b, hq, hkv, sq, skv, d, strided)
+        o, lse = A.flash_attention_fwd(q, k, v, causal=causal,
+                                       return_lse=True)
+        got = A.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        want = A.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                           o, lse, do, causal=causal)
+        errs = {n: (g.float() - w).abs().max().item()
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        ok = all(torch.allclose(g.float(), w, atol=BWD_TOL, rtol=BWD_TOL)
+                 for g, w in zip(got, want))
+        row = {"phase": "kernel_bwd", "shape": name, "b": b, "hq": hq,
+               "hkv": hkv, "sq": sq, "skv": skv, "d": d, "causal": causal,
+               "strided": strided, "max_abs_err": errs, "tol": BWD_TOL,
+               "ok": ok}
+        if name == "llama3_8b":
+            row.update(bwd_times(q, k, v, o, lse, do, causal))
+        emit(row)
+        if not (ok and all(map(math.isfinite, errs.values()))):
+            raise AssertionError(f"flash backward kernels disagree with "
+                                 f"their plain version at {name}: {errs}")
+        rows.append(row)
+    return rows
+
+
+def bwd_times(q, k, v, o, lse, do, causal):
+    """Device times of the backward at one shape: each kernel alone, the
+    pair with D, SDPA's backward (yardstick) and the plain version."""
+    import torch
+    import torch.nn.functional as F
+    from mxtpu_torch.ops import attention as A
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    delta = (do.float() * o.float()).sum(dim=-1)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                         enable_gqa=hq != hkv)
+    dims = (b, hq, hkv, sq, skv, d, causal)
+    dkv_bound, dkv_by = bwd_bound_ms(*dims, matmuls=4, outputs=("kv",))
+    dq_bound, dq_by = bwd_bound_ms(*dims, matmuls=3, outputs=("q",))
+    pair_bound, pair_by = bwd_bound_ms(*dims, matmuls=5,
+                                       outputs=("q", "kv"))
+    return {
+        "dkv_ms": time_ms(lambda: A.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, causal=causal), reps=20),
+        "dq_ms": time_ms(lambda: A.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, causal=causal), reps=20),
+        "pair_ms": time_ms(lambda: A.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal), reps=20),
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True), reps=20),
+        "plain_ms": time_ms(lambda: A.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal=causal), reps=3, warmup=1),
+        "dkv_bound_ms": dkv_bound, "dkv_bound_by": dkv_by,
+        "dq_bound_ms": dq_bound, "dq_bound_by": dq_by,
+        "pair_bound_ms": pair_bound, "pair_bound_by": pair_by}
 
 
 def slice_phase():
@@ -169,12 +301,12 @@ def slice_phase():
         tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen,
                                device="cuda")
         torch.cuda.reset_peak_memory_stats()
-        A.flash_attention_fwd.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         logits = llama.forward(cfg, params, tokens)
         torch.cuda.synchronize()
         fwd_s = [time.perf_counter() - t0]
-        launches = A.flash_attention_fwd.launches
+        launches = read_launches()
         t0 = time.perf_counter()        # again, with cuBLAS warm
         llama.forward(cfg, params, tokens)
         torch.cuda.synchronize()
@@ -187,7 +319,7 @@ def slice_phase():
         agree = (logits.argmax(-1) == dense.argmax(-1)).float().mean().item()
         emit({"phase": "forward", "tokens": list(tokens.shape),
               "logits": list(logits.shape), "dtype": str(logits.dtype),
-              "finite": finite, "flash_launches": launches,
+              "finite": finite, "launches": launches,
               "seconds": fwd_s, "rel_err_vs_dense": rel,
               "rel_err_bound": LOGITS_REL_BOUND, "argmax_agree": agree,
               "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
@@ -195,9 +327,11 @@ def slice_phase():
                 and tuple(logits.shape) == (1, 2048, cfg.vocab_size)):
             raise AssertionError("forward logits are not finite f32 "
                                  "(1, 2048, vocab)")
-        if launches != cfg.n_layers:
-            raise AssertionError(f"forward launched the flash kernel "
-                                 f"{launches} times, not {cfg.n_layers}")
+        if launches != {"flash_attention_fwd": cfg.n_layers,
+                        "flash_attention_bwd_dkv": 0,
+                        "flash_attention_bwd_dq": 0}:
+            raise AssertionError(f"forward launched {launches}, not "
+                                 f"{cfg.n_layers} forward kernels")
         if not rel <= LOGITS_REL_BOUND:
             raise AssertionError(f"flash vs dense logits {rel} > "
                                  f"{LOGITS_REL_BOUND}")
@@ -228,6 +362,119 @@ def slice_phase():
     return launches
 
 
+def reset_launches():
+    from mxtpu_torch.ops import attention as A
+    for fn in LAUNCH_COUNTERS:
+        getattr(A, fn).launches = 0
+
+
+def read_launches():
+    from mxtpu_torch.ops import attention as A
+    return {fn: getattr(A, fn).launches for fn in LAUNCH_COUNTERS}
+
+
+LAUNCH_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                   "flash_attention_bwd_dq")
+
+
+def rel_dist(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def train_phase():
+    """Full-width llama3_8b at TRAIN_LAYERS layers: flash vs dense grads,
+    then TRAIN_STEPS adamw steps through make_train_step."""
+    import torch
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.parallel import optim, step as pstep
+    cfg = replace(llama.CONFIGS["llama3_8b"], n_layers=TRAIN_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens}
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params["layers"].values()) + sum(
+        p.numel() for k, p in params.items() if k != "layers")
+    emit({"phase": "train_init", "config": "llama3_8b",
+          "n_layers": cfg.n_layers, "params": n_params,
+          "param_dtype": str(cfg.param_dtype), "dtype": str(cfg.dtype),
+          "remat": cfg.remat, "ce_chunk": llama._resolve_ce_chunk(cfg),
+          "seconds": time.perf_counter() - t0})
+
+    # (a) flash vs dense on the initial weights
+    picked = (("layers.wq", lambda t: t["layers"]["wq"]),
+              ("layers.wk", lambda t: t["layers"]["wk"]),
+              ("tok_embed", lambda t: t["tok_embed"]))
+    found = {}
+    for impl in ("flash", "dense"):
+        live = {k: ({lk: lv.detach().requires_grad_()
+                     for lk, lv in v.items()} if k == "layers"
+                    else v.detach().requires_grad_())
+                for k, v in params.items()}
+        loss = llama.loss_fn(replace(cfg, attn_impl=impl))(live, batch)
+        grads = torch.autograd.grad(loss, [f(live) for _, f in picked])
+        found[impl] = (loss.detach(), grads)
+        del live, loss, grads
+    (lf, gf), (ld, gd) = found["flash"], found["dense"]
+    rels = {"loss": abs(lf.item() - ld.item()) / abs(ld.item())}
+    rels.update({n: rel_dist(a, b) for (n, _), a, b in zip(picked, gf, gd)})
+    emit({"phase": "train_vs_dense", "loss_flash": lf.item(),
+          "loss_dense": ld.item(), "rel": rels, "bound": TRAIN_REL_BOUND})
+    if not all(math.isfinite(r) and r <= TRAIN_REL_BOUND
+               for r in rels.values()):
+        raise AssertionError(f"flash vs dense loss/grads {rels} > "
+                             f"{TRAIN_REL_BOUND}")
+    del found, gf, gd
+    torch.cuda.empty_cache()
+
+    # (b) the training step
+    tx = optim.adamw(TRAIN_LR)
+    state = pstep.init_state(params, tx)
+    del params
+    step = pstep.make_train_step(llama.loss_fn(cfg), tx)
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds, launches = [], [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches.append(read_launches())
+        losses.append(loss.item())
+    ntok = tokens.numel()
+    final = pstep.make_eval_step(llama.loss_fn(cfg))(state.params,
+                                                     batch).item()
+    emit({"phase": "train", "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+          "tokens_per_step": ntok, "losses": losses, "loss_after": final,
+          "ln_vocab": math.log(cfg.vocab_size), "step_seconds": seconds,
+          "tokens_per_s": [ntok / t for t in seconds],
+          "launches": launches, "step": int(state.step),
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    want = {"flash_attention_fwd": 2 * cfg.n_layers,
+            "flash_attention_bwd_dkv": cfg.n_layers,
+            "flash_attention_bwd_dq": cfg.n_layers}
+    if any(n != want for n in launches):
+        raise AssertionError(f"a train step launched {launches}, not {want}")
+    if not all(map(math.isfinite, losses + [final])):
+        raise AssertionError(f"non-finite training loss: {losses}, {final}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 1.5:
+        raise AssertionError(f"first loss {losses[0]} is not near "
+                             f"ln(vocab) = {math.log(cfg.vocab_size)}")
+    if not final < losses[0]:
+        raise AssertionError(f"loss did not fall over {TRAIN_STEPS} steps: "
+                             f"{losses} then {final}")
+    if int(state.step) != TRAIN_STEPS:
+        raise AssertionError(f"step count {int(state.step)}")
+    total = {k: sum(n[k] for n in launches) for k in want}
+    del state, step
+    torch.cuda.empty_cache()
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -252,20 +499,42 @@ def main():
                                              "spill"))]})
 
     rows = {r["shape"]: r for r in kernel_phase()}
+    bwd_rows = {r["shape"]: r for r in kernel_bwd_phase()}
     torch.cuda.empty_cache()
-    launches = slice_phase()
+    fwd_launches = slice_phase()
+    torch.cuda.empty_cache()
+    train_launches = train_phase()
+    launches = {k: fwd_launches[k] + train_launches[k]
+                for k in LAUNCH_COUNTERS}
 
-    main_row = rows["llama3_8b"]
+    main_row, bwd = rows["llama3_8b"], bwd_rows["llama3_8b"]
+    bwd_src = "mxtpu_torch/ops/csrc/flash_attn_bwd.cu"
+    pallas = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     emit({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "mxtpu_torch/ops/csrc/flash_attn_fwd.cu",
         "replaces": "mxtpu/ops/attention.py:157",
-        "launches": launches,
+        "launches": launches["flash_attention_fwd"],
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]})
+        "library_ms": main_row["library_ms"]}, {
+        "name": "flash_attention_bwd_dkv", "route": "cuda",
+        "source": bwd_src, "replaces": f"{pallas}:1121",
+        "launches": launches["flash_attention_bwd_dkv"],
+        "max_abs_err": max(max(r["max_abs_err"]["dk"], r["max_abs_err"]["dv"])
+                           for r in bwd_rows.values()),
+        "ms": bwd["dkv_ms"], "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["dkv_bound_ms"], "bound_by": bwd["dkv_bound_by"],
+        "library_ms": bwd["library_ms"]}, {
+        "name": "flash_attention_bwd_dq", "route": "cuda",
+        "source": bwd_src, "replaces": f"{pallas}:1456",
+        "launches": launches["flash_attention_bwd_dq"],
+        "max_abs_err": max(r["max_abs_err"]["dq"] for r in bwd_rows.values()),
+        "ms": bwd["dq_ms"], "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["dq_bound_ms"], "bound_by": bwd["dq_bound_by"],
+        "library_ms": bwd["library_ms"]}]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

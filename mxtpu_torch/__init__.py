@@ -1,8 +1,10 @@
 """mxtpu_torch — the PyTorch/CUDA port of ``mxtpu`` for NVIDIA Hopper.
 
 The JAX package ``mxtpu`` is the reference; this package mirrors its
-module names (``context``, ``ops.attention``, ``models.llama``) so a
-reader finds each counterpart. Plain tensor code is PyTorch; every
+module names (``context``, ``ops.attention``, ``models.llama``,
+``parallel.step``) so a reader finds each counterpart;
+``parallel.optim`` holds the optax transforms the train step takes, and
+``tools`` the scripts that measure the port. Plain tensor code is PyTorch; every
 kernel ``mxtpu`` wrote in Pallas becomes a hand-written CUDA C++ kernel
 for ``sm_90a`` under ``ops/csrc/``, built at first use.
 

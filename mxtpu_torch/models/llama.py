@@ -1,5 +1,4 @@
-"""Llama-family transformer, inference half — the port of
-``mxtpu/models/llama.py``.
+"""Llama-family transformer — the port of ``mxtpu/models/llama.py``.
 
 Plain functions over a parameter tree with ``mxtpu``'s keys and
 layout (per-layer weights stacked on a leading layer dim), plus the
@@ -9,11 +8,15 @@ Attention in :func:`forward` goes through
 :func:`mxtpu_torch.ops.attention.flash_attention`: the hand-written
 CUDA kernel on the card, the blockwise plain version on the CPU.
 
-What this slice covers: ``forward`` (the full-sequence scoring pass)
-and greedy ``generate`` (``prefill`` + ``decode_step`` over a KV
-cache). What waits for later slices, and raises here: the backward and
-training step, sampled generation (the ``jax.random`` chain), MoE,
-int8 weights, ring/ulysses attention and mesh sharding.
+What is ported: ``forward`` (the full-sequence scoring pass), greedy
+``generate`` (``prefill`` + ``decode_step`` over a KV cache), and the
+training loss ``loss_fn`` (``forward_hidden`` with per-layer
+recomputation, then the streamed ``chunked_softmax_xent``), which
+``mxtpu_torch.parallel.step.make_train_step`` differentiates. Under
+grad on the card, attention's backward runs the hand-written dK/dV and
+dQ kernels. What waits for later slices, and raises here: sampled
+generation (the ``jax.random`` chain), MoE, int8 weights, ring/ulysses
+attention and mesh sharding.
 
 Numerics follow ``mxtpu``: ``rms_norm`` and RoPE compute in f32, and
 the three einsums that ask for f32 results from ``cfg.dtype`` operands
@@ -24,11 +27,14 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..context import DeviceLike, resolve_device
 from ..ops.attention import dense_attention, flash_attention
@@ -36,7 +42,8 @@ from ..ops.attention import dense_attention, flash_attention
 __all__ = ["LlamaConfig", "CONFIGS", "init_params", "rms_norm",
            "rope_tables", "apply_rope", "forward_hidden", "forward",
            "init_cache", "prefill", "decode_step", "sample_logits",
-           "generate", "params_from_numpy", "params_to_numpy", "Llama"]
+           "generate", "chunked_softmax_xent", "loss_fn", "params_from_numpy",
+           "params_to_numpy", "Llama"]
 
 _RNG_SLICE = ("sampled generation (temperature/top_k/top_p) needs the "
               "port of the jax.random Threefry chain, a later slice")
@@ -57,12 +64,12 @@ class LlamaConfig:
     dtype: Any = torch.bfloat16      # activation/compute dtype
     param_dtype: Any = torch.float32
     attn_impl: str = "flash"         # flash | dense (ring | ulysses: later)
-    remat: bool = True               # no effect at inference
-    remat_policy: Optional[str] = None
+    remat: bool = True               # recompute each layer in the backward
+    remat_policy: Optional[str] = None   # None | "dots_no_batch"
     scan_layers: bool = True         # no effect: layers are a Python loop
     tie_embeddings: bool = False
     ce_chunk: Optional[int] = 0
-    moe_experts: int = 0             # > 0 raises in this slice
+    moe_experts: int = 0             # > 0 raises: a later slice
     moe_top_k: int = 2
     moe_capacity: float = 1.25
     moe_aux_weight: float = 0.01
@@ -88,6 +95,10 @@ CONFIGS: Dict[str, LlamaConfig] = {
                                 max_seq_len=4096, moe_experts=8,
                                 moe_top_k=2),
 }
+
+
+_MOE_SLICE = ("the MoE expert bank (moe_experts > 0) comes with a later "
+              "slice (ROADMAP Queue A item 6)")
 
 
 def _no_mesh(mesh) -> None:
@@ -253,8 +264,7 @@ def _qkv(cfg: LlamaConfig, lp, h, cos, sin):
 def _ffn(cfg: LlamaConfig, lp, h):
     """Dense SwiGLU residual delta."""
     if cfg.moe_experts:
-        raise NotImplementedError(
-            "the MoE expert bank (moe_experts > 0) comes with a later slice")
+        raise NotImplementedError(_MOE_SLICE)
     dt = h.dtype
     gate = torch.nn.functional.silu(h @ _wq8(lp["w_gate"], dt))
     up = h @ _wq8(lp["w_up"], dt)
@@ -285,17 +295,52 @@ def _embed(cfg: LlamaConfig, params, tokens):
     return emb[tokens.long()].to(cfg.dtype)
 
 
+def _save_weight_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots_no_batch"``
+    (JAX's ``dots_with_no_batch_dims_saveable``): keep the outputs of
+    the 2-D products — the weight matmuls — and recompute the rest,
+    attention and the elementwise ops included."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: LlamaConfig, layer):
+    """``layer`` wrapped for recomputation in the backward, as
+    ``cfg.remat`` and ``cfg.remat_policy`` ask; ``layer`` itself when
+    remat is off or grad mode is off (nothing would be recomputed)."""
+    if not cfg.remat:
+        return layer
+    if cfg.remat_policy == "dots_no_batch":
+        kw = {"context_fn": partial(create_selective_checkpoint_contexts,
+                                    _save_weight_matmuls)}
+    elif cfg.remat_policy is None:
+        kw = {}
+    else:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
+                         "(use None or 'dots_no_batch')")
+    if not torch.is_grad_enabled():
+        return layer
+    return partial(checkpoint, layer, use_reentrant=False, **kw)
+
+
 def forward_hidden(cfg: LlamaConfig, params, tokens, mesh=None):
     """tokens: (batch, seq) int → final-norm hidden states
-    (batch, seq, dim) in cfg.dtype. ``cfg.remat`` and
-    ``cfg.scan_layers`` change nothing here: there is no backward to
-    save memory for in this slice, and the layers are a Python loop."""
+    (batch, seq, dim) in cfg.dtype. Under grad with ``cfg.remat``, each
+    layer is a ``torch.utils.checkpoint`` region: its activations are
+    recomputed in the backward (``remat_policy=None``), or all but the
+    weight matmuls' outputs are (``"dots_no_batch"``), as the reference's
+    ``jax.checkpoint`` policies do. ``cfg.scan_layers`` changes nothing:
+    the layers are a Python loop."""
     _no_mesh(mesh)
     s = tokens.shape[1]
     x = _embed(cfg, params, tokens)
     cos, sin = rope_tables(cfg, s, device=x.device)
+    layer = _remat(cfg, partial(_layer, cfg, cos, sin))
+    # unbind once: its backward stacks the per-layer grads in one pass
+    stacked = {k: v.unbind(0) for k, v in params["layers"].items()}
     for i in range(cfg.n_layers):
-        x = _layer(cfg, cos, sin, x, _layer_params(params, i))
+        x = layer(x, {k: v[i] for k, v in stacked.items()})
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -308,6 +353,111 @@ def _logits(cfg: LlamaConfig, params, x):
 def forward(cfg: LlamaConfig, params, tokens, mesh=None):
     """tokens: (batch, seq) int → logits (batch, seq, vocab) f32."""
     return _logits(cfg, params, forward_hidden(cfg, params, tokens, mesh))
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+class _ChunkedXent(torch.autograd.Function):
+    """Per-token NLL with a streamed logsumexp over vocab chunks; the
+    backward recomputes each chunk's logits, so neither pass holds the
+    (b, s, V) logits."""
+
+    @staticmethod
+    def forward(ctx, x, head, targets, chunk):
+        b, s, _ = x.shape
+        V = head.shape[1]
+        xf = x.float()       # exact upcasts: f32 logits of bf16 operands
+        m = torch.full((b, s), -math.inf, device=x.device)
+        acc = torch.zeros((b, s), device=x.device)
+        tl = torch.zeros((b, s), device=x.device)
+        for c0 in range(0, V, chunk):
+            logits = xf @ head[:, c0:c0 + chunk].float()
+            nm = torch.maximum(m, logits.amax(dim=-1))
+            acc = acc * torch.exp(m - nm) + \
+                torch.exp(logits - nm[..., None]).sum(dim=-1)
+            local = targets - c0
+            hit = (local >= 0) & (local < logits.shape[-1])
+            got = logits.gather(-1, local.clamp(0, logits.shape[-1] - 1)
+                                [..., None])[..., 0]
+            tl = tl + torch.where(hit, got, 0.0)
+            m = nm
+        lse = m + torch.log(acc)
+        ctx.save_for_backward(x, head, targets, lse)
+        ctx.chunk = chunk
+        return lse - tl
+
+    @staticmethod
+    def backward(ctx, g):
+        x, head, targets, lse = ctx.saved_tensors
+        b, s, d = x.shape
+        xf = x.float().reshape(b * s, d)
+        g, lse = g.float().reshape(b * s, 1), lse.reshape(b * s, 1)
+        targets = targets.reshape(b * s, 1)
+        dx = torch.zeros((b * s, d), device=x.device)
+        dhead = torch.empty(head.shape, dtype=head.dtype, device=x.device) \
+            if ctx.needs_input_grad[1] else None
+        for c0 in range(0, head.shape[1], ctx.chunk):
+            w = head[:, c0:c0 + ctx.chunk].float()
+            # d nll / d logits = softmax - onehot(target), times g
+            dl = torch.exp(xf @ w - lse)
+            local = targets - c0
+            hit = (local >= 0) & (local < w.shape[1])
+            dl.scatter_add_(-1, local.clamp(0, w.shape[1] - 1),
+                            -hit.float())
+            dl.mul_(g)
+            dx.addmm_(dl, w.T)
+            if dhead is not None:
+                dhead[:, c0:c0 + ctx.chunk] = xf.T @ dl
+        return dx.reshape(b, s, d).to(x.dtype), dhead, None, None
+
+
+def chunked_softmax_xent(x, head, targets, chunk: int):
+    """Per-token causal-LM NLL via a streaming logsumexp over vocab
+    chunks; the (b, s, V) logits are never materialized, forward or
+    backward. x: (b, s, d) compute dtype; head: (d, V); targets:
+    (b, s) int. Returns (b, s) f32. A chunk that does not divide V
+    leaves a narrower last chunk, which is what the reference's zero
+    padding masked to -inf amounts to."""
+    return _ChunkedXent.apply(x, head, targets.long(), int(chunk))
+
+
+def _resolve_ce_chunk(cfg: LlamaConfig) -> int:
+    """0 = no chunking. Auto mode (``ce_chunk=0``) picks 8192-wide
+    chunks once the vocab is big enough for logits to dominate memory;
+    ``None`` or ``False`` opt out."""
+    if cfg.ce_chunk is None or cfg.ce_chunk is False:
+        return 0
+    if cfg.ce_chunk == 0:
+        return 8192 if cfg.vocab_size > 16384 else 0
+    return int(cfg.ce_chunk)
+
+
+def loss_fn(cfg: LlamaConfig, mesh=None):
+    """Causal-LM loss for ``parallel.step.make_train_step``: batch is a
+    dict with 'tokens' (b, s) and optional 'mask' (b, s); predicts token
+    t+1 from the prefix up to t. Large vocabs take the chunked path
+    (:func:`chunked_softmax_xent`)."""
+    _no_mesh(mesh)
+    if cfg.moe_experts:
+        raise NotImplementedError(_MOE_SLICE)
+
+    def loss(params, batch):
+        tokens = batch["tokens"]
+        x = forward_hidden(cfg, params, tokens)[:, :-1]
+        targets = tokens[:, 1:].long()
+        mask = batch.get("mask")
+        mask = (torch.ones(targets.shape, device=x.device) if mask is None
+                else mask[:, 1:].float())
+        head = _head(cfg, params).to(cfg.dtype)
+        chunk = _resolve_ce_chunk(cfg)
+        if chunk:
+            nll = chunked_softmax_xent(x, head, targets, chunk)
+        else:
+            logp = torch.log_softmax(x.float() @ head.float(), dim=-1)
+            nll = -logp.gather(-1, targets[..., None])[..., 0]
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -445,9 +595,11 @@ class Llama(nn.Module):
     """The parameters of one Llama under ``mxtpu``'s names and shapes
     (``tok_embed``, ``layers.{attn_norm, wq, wk, wv, wo, ffn_norm,
     w_gate, w_up, w_down}`` stacked on a leading layer dim,
-    ``final_norm``, ``lm_head``), with :meth:`forward` and
-    :meth:`generate` over the functions of this module. Inference only
-    in this slice: the parameters do not require grad."""
+    ``final_norm``, ``lm_head``), with :meth:`forward`, :meth:`loss`
+    and :meth:`generate` over the functions of this module. The
+    parameters require grad, so :meth:`forward` and :meth:`loss` build
+    an autograd graph unless grad mode is off; :meth:`generate` never
+    does."""
 
     def __init__(self, cfg: LlamaConfig, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
@@ -461,9 +613,9 @@ class Llama(nn.Module):
         for k, v in tree.items():
             if k == "layers":
                 for lk, lv in v.items():
-                    self.layers[lk] = nn.Parameter(lv, requires_grad=False)
+                    self.layers[lk] = nn.Parameter(lv)
             else:
-                setattr(self, k, nn.Parameter(v, requires_grad=False))
+                setattr(self, k, nn.Parameter(v))
 
     def tree(self):
         """The parameters as ``mxtpu``'s nested dict (no copy)."""
@@ -487,6 +639,11 @@ class Llama(nn.Module):
     def forward(self, tokens):
         return forward(self.cfg, self.tree(), tokens)
 
+    def loss(self, batch):
+        """The causal-LM loss of :func:`loss_fn` on ``batch``."""
+        return loss_fn(self.cfg)(self.tree(), batch)
+
+    @torch.no_grad()
     def generate(self, prompt, max_new_tokens: int, **kw):
         return generate(self.cfg, self.tree(), prompt, max_new_tokens, **kw)
 

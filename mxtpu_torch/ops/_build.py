@@ -1,7 +1,8 @@
 """Build the port's CUDA C++ kernels and load them with ctypes.
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (all
-sources started together, one process each) and linked into one shared
+sources started together, one process each; the shared ``*.cuh``
+headers are part of the build's hash) and linked into one shared
 library with a plain C interface, loaded with :mod:`ctypes`. The
 library lands in ``build/mxtpu_torch_kernels/<hash>/`` at the root of
 the checkout, keyed by a hash of the sources and flags, so a tree
@@ -22,11 +23,12 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
-__all__ = ["load_kernels", "build_info", "check", "SOURCES"]
+__all__ = ["load_kernels", "build_info", "check", "SOURCES", "HEADERS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[2]
-SOURCES = ("flash_attn_fwd.cu",)
+SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu")
+HEADERS = ("flash_common.cuh",)   # included by the sources
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -37,7 +39,13 @@ _c_int = ctypes.c_int
 # c_void_p, so ctypes never truncates them to 32 bits)
 _SIGNATURES = {
     "mxtpu_flash_attn_fwd_bf16":
-        [_c_ptr] * 4 + [_c_i64] * 9 + [_c_int] * 6
+        [_c_ptr] * 5 + [_c_i64] * 9 + [_c_int] * 6
+        + [ctypes.c_float, _c_int, _c_ptr],
+    "mxtpu_flash_attn_bwd_dkv_bf16":
+        [_c_ptr] * 8 + [_c_i64] * 12 + [_c_int] * 6
+        + [ctypes.c_float, _c_int, _c_ptr],
+    "mxtpu_flash_attn_bwd_dq_bf16":
+        [_c_ptr] * 7 + [_c_i64] * 12 + [_c_int] * 6
         + [ctypes.c_float, _c_int, _c_ptr],
 }
 
@@ -59,7 +67,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -1,14 +1,18 @@
 """Attention: dense, blockwise (flash-style online softmax), and the
-hand-written Hopper flash kernel — the port of ``mxtpu/ops/attention.py``.
+hand-written Hopper flash kernels — the port of ``mxtpu/ops/attention.py``.
 
 All functions take (batch, num_heads, seq, head_dim) tensors. GQA is
 supported: k/v may have fewer heads (num_heads % kv_heads == 0).
 
 :func:`flash_attention` dispatches on where its inputs lie: a CPU
-tensor runs :func:`blockwise_attention`, the plain version; a CUDA
-tensor launches the CUDA C++ kernel of ``csrc/flash_attn_fwd.cu``
-through :func:`flash_attention_fwd`, or raises. There is no fallback
-from the kernel to the plain version, by shape or by exception.
+tensor runs :func:`blockwise_attention`, the plain version, which
+autograd differentiates; a CUDA tensor launches the CUDA C++ kernel of
+``csrc/flash_attn_fwd.cu`` through :func:`flash_attention_fwd`, or
+raises. Under grad it goes through :class:`_FlashAttention`, whose
+backward launches the dK/dV and dQ kernels of ``csrc/flash_attn_bwd.cu``
+through :func:`flash_attention_bwd`; their plain version is
+:func:`flash_attention_bwd_plain`. There is no fallback from a kernel to
+a plain version, by shape or by exception.
 ``slot_decode_attention``, ``paged_decode_attention``,
 ``ring_attention`` and ``ulysses_attention`` come with later slices.
 """
@@ -21,7 +25,9 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["dense_attention", "blockwise_attention", "flash_attention",
-           "flash_attention_fwd"]
+           "flash_attention_fwd", "flash_attention_bwd",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+           "flash_attention_bwd_plain"]
 
 _NEG_INF = -1e30  # finite "minus infinity": keeps fully-masked rows NaN-free
 _KERNEL_HEAD_DIMS = (64, 128)
@@ -117,9 +123,13 @@ def _finalize(m, l, o, dtype):
 def blockwise_attention(q, k, v, *, causal: bool = False,
                         scale: Optional[float] = None,
                         kv_block: int = 512,
-                        q_offset: int = 0, kv_offset: int = 0):
+                        q_offset: int = 0, kv_offset: int = 0,
+                        return_lse: bool = False):
     """Flash-style attention as a loop over KV blocks: O(seq) memory, no
-    materialized score matrix. The plain version of the flash kernel."""
+    materialized score matrix. The plain version of the flash forward
+    kernel. With ``return_lse`` it also returns each row's logsumexp of
+    the scaled, masked scores, f32 (b, h, sq), +inf for a row with no
+    visible key: what the kernel writes for the backward."""
     k, v = _repeat_kv(q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     b, h, sq, d = q.shape
@@ -146,13 +156,72 @@ def blockwise_attention(q, k, v, *, causal: bool = False,
             q, k[:, :, lo:lo + kv_block], v[:, :, lo:lo + kv_block],
             m, l, o, scale, causal, q_offset, blk_off,
             extra_mask=valid[None, None, None, :])
-    return _finalize(m, l, o, q.dtype)
+    out = _finalize(m, l, o, q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.where(l == 0.0, math.inf, m + torch.log(l))
 
 
-def _check_kernel_args(q, k, v):
-    """Raise on anything the CUDA kernel does not take."""
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = False,
+                              scale: Optional[float] = None,
+                              kv_block: int = 512):
+    """The plain version of the two backward kernels: (dq, dk, dv) of
+    attention from q, k, v, its output ``o``, the row logsumexp ``lse``
+    of :func:`blockwise_attention` and the output grad ``do``, computed
+    blockwise over KV in f32 and returned in the inputs' dtypes. GQA's
+    dk/dv are summed over each kv head's group of query heads. A row
+    with ``lse`` = +inf (no visible key) gets zero grads."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qf, of, dof = q.float(), o.float(), do.float()
+    kr, vr = _repeat_kv(qf, k.float(), v.float())
+    delta = (dof * of).sum(dim=-1, keepdim=True)        # D = rowsum(dO o)
+    lse = lse.float()[..., None]
+    dq = torch.zeros_like(qf)
+    dk = torch.empty((b, hq, skv, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    for lo in range(0, skv, kv_block):
+        kb, vb = kr[:, :, lo:lo + kv_block], vr[:, :, lo:lo + kv_block]
+        s = _scores(qf, kb, scale)
+        if causal:
+            s = torch.where(_causal_allowed(sq, kb.shape[2], 0, lo,
+                                            q.device), s, _NEG_INF)
+        p = torch.exp(s - lse)
+        ds = p * (torch.matmul(dof, vb.transpose(-1, -2)) - delta)
+        dv[:, :, lo:lo + kv_block] = torch.matmul(p.transpose(-1, -2), dof)
+        dk[:, :, lo:lo + kv_block] = torch.matmul(
+            ds.transpose(-1, -2), qf) * scale
+        dq += torch.matmul(ds, kb) * scale
+    dk = dk.view(b, hkv, hq // hkv, skv, d).sum(dim=2)
+    dv = dv.view(b, hkv, hq // hkv, skv, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_layout(who, name, t, device):
+    """Raise unless ``t`` is bf16 on ``device`` (a CUDA device) with the
+    strides and alignment the kernels read."""
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{who} takes bfloat16 ({name} is {t.dtype}); the "
+                        "kernel has no other instantiation")
+    # a size-1 dim's stride is never stepped, so it may be anything
+    strided = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+    if t.stride(3) != 1 or any(s % 8 for s in strided) \
+            or t.data_ptr() % 16:
+        raise ValueError(
+            f"{name} needs a unit last-dim stride, strides that are "
+            f"multiples of 8 and a 16-byte aligned base; got strides "
+            f"{t.stride()}")
+    if t.device.type != "cuda" or t.device != device:
+        raise ValueError(f"{who} needs its tensors on one CUDA device "
+                         f"({name} is on {t.device}); CPU tensors take "
+                         "flash_attention's plain path")
+
+
+def _check_kernel_args(q, k, v, who="flash_attention_fwd"):
+    """Raise on anything the CUDA kernels do not take."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
-        raise ValueError("flash_attention_fwd takes (b, heads, seq, d) "
+        raise ValueError(f"{who} takes (b, heads, seq, d) "
                          f"tensors, got {q.shape}, {k.shape}, {v.shape}")
     b, hq, _, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
@@ -162,46 +231,27 @@ def _check_kernel_args(q, k, v):
     if hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
     if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd takes head_dim in "
+        raise ValueError(f"{who} takes head_dim in "
                          f"{_KERNEL_HEAD_DIMS}, got {d}")
     if q.shape[2] < 1 or k.shape[2] < 1:
-        raise ValueError("flash_attention_fwd needs sq, skv >= 1")
+        raise ValueError(f"{who} needs sq, skv >= 1")
     if hq > 65535 or b > 65535:
         raise ValueError(f"grid limit: heads {hq} and batch {b} must be "
                          "<= 65535")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention_fwd takes bfloat16 ({name} is "
-                            f"{t.dtype}); the kernel has no other "
-                            "instantiation")
-        # a size-1 dim's stride is never stepped, so it may be anything
-        strided = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
-        if t.stride(3) != 1 or any(s % 8 for s in strided) \
-                or t.data_ptr() % 16:
-            raise ValueError(
-                f"{name} needs a unit last-dim stride, strides that are "
-                f"multiples of 8 and a 16-byte aligned base; got strides "
-                f"{t.stride()}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"flash_attention_fwd needs q, k, v on one "
-                             f"CUDA device ({name} is on {t.device}); "
-                             "CPU tensors take flash_attention's plain path")
+        _check_layout(who, name, t, q.device)
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = False,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None,
+                        return_lse: bool = False):
     """Launch the CUDA flash-attention forward kernel on the current
     stream. bf16 (b, hq, sq, d) q and (b, hkv, skv, d) k/v on one CUDA
     device, d in {64, 128}; returns a new contiguous (b, hq, sq, d)
-    bf16 tensor. Raises on anything else. Inference only in this slice:
-    with grad mode on and an input that requires grad it raises, since
-    the backward kernels come with the training slice."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention_fwd has no backward yet: the dq/dk/dv "
-            "kernels come with the training slice; run under "
-            "torch.no_grad() or torch.inference_mode()")
+    bf16 tensor, and with ``return_lse`` also the row logsumexp, f32
+    (b, hq, sq), that the backward kernels read. Raises on anything
+    else. Autograd does not see through this call: under grad,
+    :func:`flash_attention` wraps it in :class:`_FlashAttention`."""
     _check_kernel_args(q, k, v)
     from ._build import check, load_kernels
     lib = load_kernels()
@@ -209,28 +259,150 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
     hkv, skv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     o = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     with torch.cuda.device(q.device):    # the launch goes to q's card
         err = lib.mxtpu_flash_attn_fwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             b, hq, hkv, sq, skv, d, float(scale), int(bool(causal)),
             torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "flash_attention_fwd launch")
     flash_attention_fwd.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 flash_attention_fwd.launches = 0
 
 
+def _check_bwd_args(who, q, k, v, do, lse, delta):
+    """Raise on anything the backward kernels do not take."""
+    if do.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} must match q "
+                         f"{tuple(q.shape)}")
+    _check_kernel_args(q, k, v, who)
+    _check_layout(who, "do", do, q.device)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != q.shape[:3] or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"{who}: {name} must be contiguous f32 "
+                             f"{tuple(q.shape[:3])} on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _bwd_launch_args(q, k, v, do, lse, delta, causal, scale):
+    b, hq, sq, d = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr()),
+            (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             *do.stride()[:3], b, hq, k.shape[1], sq, k.shape[2], d,
+             float(scale), int(bool(causal)),
+             torch.cuda.current_stream(q.device).cuda_stream))
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *,
+                            causal: bool = False,
+                            scale: Optional[float] = None):
+    """Launch the dK/dV backward kernel on the current stream: returns
+    new contiguous bf16 (dk, dv), (b, hkv, skv, d), summed over each kv
+    head's group of query heads. q, k, v as for
+    :func:`flash_attention_fwd`; ``do`` the grad of its output, laid
+    out like q; ``lse`` its row logsumexp and ``delta`` = rowsum(dO o),
+    both f32 (b, hq, sq) contiguous. ``.launches`` counts launches."""
+    _check_bwd_args("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
+    from ._build import check, load_kernels
+    lib = load_kernels()
+    dk = torch.empty(tuple(k.shape), dtype=k.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    with torch.cuda.device(q.device):
+        ins, rest = _bwd_launch_args(q, k, v, do, lse, delta, causal, scale)
+        err = lib.mxtpu_flash_attn_bwd_dkv_bf16(
+            *ins, dk.data_ptr(), dv.data_ptr(), *rest)
+    check(err, "flash_attention_bwd_dkv launch")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, *,
+                           causal: bool = False,
+                           scale: Optional[float] = None):
+    """Launch the dQ backward kernel on the current stream: returns a new
+    contiguous bf16 dq, (b, hq, sq, d). Arguments as for
+    :func:`flash_attention_bwd_dkv`. ``.launches`` counts launches."""
+    _check_bwd_args("flash_attention_bwd_dq", q, k, v, do, lse, delta)
+    from ._build import check, load_kernels
+    lib = load_kernels()
+    dq = torch.empty(tuple(q.shape), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        ins, rest = _bwd_launch_args(q, k, v, do, lse, delta, causal, scale)
+        err = lib.mxtpu_flash_attn_bwd_dq_bf16(*ins, dq.data_ptr(), *rest)
+    check(err, "flash_attention_bwd_dq launch")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
+                        scale: Optional[float] = None):
+    """The backward on the card: (dq, dk, dv) from q, k, v, the output
+    ``o`` and row logsumexp ``lse`` of :func:`flash_attention_fwd`, and
+    the output grad ``do``. D = rowsum(dO o) is a plain f32 reduction,
+    as the reference computes it outside its kernels; then the dK/dV
+    and dQ kernels launch. Raises on what the kernels do not take."""
+    if o.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} must match q "
+                         f"{tuple(q.shape)}")
+    do = do.contiguous()
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                     causal=causal, scale=scale)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal,
+                                scale=scale)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention on the card with the hand-written kernels both ways:
+    the forward kernel also writes the row logsumexp, and the backward
+    launches the dK/dV and dQ kernels. The counterpart of the custom VJP
+    around the reference's Pallas flash attention."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                     return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = False,
                     scale: Optional[float] = None,
                     kv_block: int = 512):
-    """Fused attention: the hand-written CUDA kernel on a CUDA tensor,
-    :func:`blockwise_attention` on a CPU tensor. ``kv_block`` sizes the
-    plain version's blocks only."""
+    """Fused attention: the hand-written CUDA kernels on a CUDA tensor
+    (the forward, and under grad the backward too, through
+    :class:`_FlashAttention`); :func:`blockwise_attention` on a CPU
+    tensor, which autograd differentiates. ``kv_block`` sizes the plain
+    version's blocks only."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cuda":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            return _FlashAttention.apply(q, k, v, causal, scale)
         return flash_attention_fwd(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "

@@ -9,7 +9,11 @@
 // K/V of _repeat_kv is never materialised. The causal mask is
 // qpos >= kpos with both counted from 0 (blockwise_attention's
 // _online_block convention), and a row with no visible key comes out
-// as zeros (_finalize).
+// as zeros (_finalize). When `lse` is not null the kernel also writes
+// each row's natural-log logsumexp of the scaled scores, f32
+// (b, hq, sq) contiguous, for the backward kernels of
+// flash_attn_bwd.cu; a row with no visible key gets +inf there, so the
+// backward's exp(s - lse) is exactly 0 and its grads are zeros too.
 //
 // Accepts: bf16 only (f32 inputs get a clear error from the Python
 // wrapper; there is no SIMT instantiation), d in {64, 128}, any
@@ -39,63 +43,20 @@
 // with no double buffering (no cp.async/TMA pipeline, so loads and MMAs
 // do not overlap), V's B fragments gathered with 16-bit shared loads
 // instead of ldmatrix.trans, and no warp specialisation.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
+
+using flash::kPad;
+using flash::Strides;
 
 constexpr int kBlockM = 64;   // q rows per CTA
 constexpr int kBlockN = 64;   // keys per K/V tile
 constexpr int kWarps = 4;     // each warp owns 16 q rows
 constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;       // bf16 of padding per shared-memory row
 constexpr float kNegInf = -1e30f;  // finite start of the running max
-static_assert(kBlockM == kBlockN, "load_tile stages Q and K/V tiles alike");
-
-__device__ __forceinline__ uint32_t ld_b32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two floats -> one register of two bf16; `lo` lands in the low half,
-// which mma.sync reads as the element of lower index.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a * b for one 16x8x16 tile: a is 16x16 row-major, b 16x8 "col".
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copy `rows` rows of D bf16 (row stride `ld` elements) into a
-// kBlockN x (D + kPad) shared tile, 16 bytes per thread per step;
-// rows past `rows` are zero-filled so padded keys hold no NaN.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* smem,
-                                          const __nv_bfloat16* gmem,
-                                          long long ld, int rows, int tid) {
-  constexpr int kChunks = D / 8;
-  constexpr int kStride = D + kPad;
-  for (int c = tid; c < kBlockN * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) val = *reinterpret_cast<const uint4*>(gmem + r * ld + col);
-    *reinterpret_cast<uint4*>(smem + r * kStride + col) = val;
-  }
-}
-
-struct Strides {
-  long long b, h, s;
-};
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -103,6 +64,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o,
+                 float* __restrict__ lse,
                  Strides qst, Strides kst, Strides vst,
                  int hq, int hkv, int sq, int skv,
                  float scale_log2, int causal) {
@@ -111,7 +73,6 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + kBlockM * kStride;
   __nv_bfloat16* Vs = Ks + kBlockN * kStride;
-  const uint16_t* Vh = reinterpret_cast<const uint16_t*>(Vs);
 
   const int m_block = causal ? (gridDim.x - 1 - blockIdx.x) : blockIdx.x;
   const int h = blockIdx.y;
@@ -129,21 +90,15 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + bi * vst.b + hk * vst.h;
   __nv_bfloat16* ob = o + ((static_cast<long long>(bi) * hq + h) * sq + q0) * D;
 
-  load_tile<D>(Qs, qb, qst.s, min(kBlockM, sq - q0), tid);
+  flash::load_tile<D, kBlockM, kThreads>(Qs, qb, qst.s, min(kBlockM, sq - q0), tid);
   __syncthreads();
 
   // A fragments of this warp's 16 x D slice of Q.
   const int r0 = warp * 16 + g;
   uint32_t qf[D / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* p0 = Qs + r0 * kStride + kk * 16 + t4 * 2;
-    const __nv_bfloat16* p1 = p0 + 8 * kStride;
-    qf[kk][0] = ld_b32(p0);
-    qf[kk][1] = ld_b32(p1);
-    qf[kk][2] = ld_b32(p0 + 8);
-    qf[kk][3] = ld_b32(p1 + 8);
-  }
+  for (int kk = 0; kk < D / 16; ++kk)
+    flash::load_a(qf[kk], Qs, kStride, warp * 16, kk * 16, g, t4);
 
   float acc[D / 8][4];
 #pragma unroll
@@ -158,8 +113,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   for (int nb = 0; nb < n_tiles; ++nb) {
     const int k0 = nb * kBlockN;
     __syncthreads();  // every warp is done with the previous tile
-    load_tile<D>(Ks, kb + k0 * kst.s, kst.s, min(kBlockN, skv - k0), tid);
-    load_tile<D>(Vs, vb + k0 * vst.s, vst.s, min(kBlockN, skv - k0), tid);
+    flash::load_tile<D, kBlockN, kThreads>(Ks, kb + k0 * kst.s, kst.s,
+                                           min(kBlockN, skv - k0), tid);
+    flash::load_tile<D, kBlockN, kThreads>(Vs, vb + k0 * vst.s, vst.s,
+                                           min(kBlockN, skv - k0), tid);
     __syncthreads();
 
     // S = Q K^T for 16 rows x 64 keys: 8 n-tiles of 8 keys.
@@ -171,8 +128,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
       for (int nt = 0; nt < kBlockN / 8; ++nt) {
-        const __nv_bfloat16* kp = Ks + (nt * 8 + g) * kStride + kk * 16 + t4 * 2;
-        mma_16816(s[nt], qf[kk], ld_b32(kp), ld_b32(kp + 8));
+        uint32_t b0, b1;
+        flash::load_b(b0, b1, Ks, kStride, nt * 8, kk * 16, g, t4);
+        flash::mma_16816(s[nt], qf[kk], b0, b1);
       }
     }
 
@@ -226,19 +184,15 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk) {
       uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const uint16_t* vp = Vh + (kk * 16 + t4 * 2) * kStride + g;
+      a[0] = flash::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = flash::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = flash::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = flash::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
       for (int nt = 0; nt < D / 8; ++nt) {
-        const uint16_t* c = vp + nt * 8;
-        const uint32_t b0 = static_cast<uint32_t>(c[0]) |
-                            (static_cast<uint32_t>(c[kStride]) << 16);
-        const uint32_t b1 = static_cast<uint32_t>(c[8 * kStride]) |
-                            (static_cast<uint32_t>(c[9 * kStride]) << 16);
-        mma_16816(acc[nt], a, b0, b1);
+        uint32_t b0, b1;
+        flash::load_b_trans(b0, b1, Vs, kStride, kk * 16, nt * 8, g, t4);
+        flash::mma_16816(acc[nt], a, b0, b1);
       }
     }
   }
@@ -252,21 +206,25 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[i] = l > 0.f ? 1.f / l : 0.f;
+    // m_run is in the log2 domain: lse = ln(2) * (m + log2(l)).
+    if (lse != nullptr && t4 == 0 && qpos[i] < sq)
+      lse[(static_cast<long long>(bi) * hq + h) * sq + qpos[i]] =
+          l > 0.f ? (m_run[i] + log2f(l)) * 0.6931471805599453f : INFINITY;
   }
 #pragma unroll
   for (int nt = 0; nt < D / 8; ++nt) {
     const int col = nt * 8 + t4 * 2;
     if (qpos[0] < sq)
       *reinterpret_cast<uint32_t*>(ob + r0 * D + col) =
-          pack_bf16(acc[nt][0] * inv[0], acc[nt][1] * inv[0]);
+          flash::pack_bf16(acc[nt][0] * inv[0], acc[nt][1] * inv[0]);
     if (qpos[1] < sq)
       *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * D + col) =
-          pack_bf16(acc[nt][2] * inv[1], acc[nt][3] * inv[1]);
+          flash::pack_bf16(acc[nt][2] * inv[1], acc[nt][3] * inv[1]);
   }
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            Strides qst, Strides kst, Strides vst, int b, int hq, int hkv,
            int sq, int skv, float scale, int causal, cudaStream_t stream) {
   constexpr int kSmem = (kBlockM + 2 * kBlockN) * (D + kPad) * sizeof(__nv_bfloat16);
@@ -278,7 +236,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
   flash_fwd_kernel<D><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      qst, kst, vst, hq, hkv, sq, skv, scale_log2, causal);
+      lse, qst, kst, vst, hq, hkv, sq, skv, scale_log2, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -287,9 +245,10 @@ int launch(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success).
-// Strides are in elements: (batch, head, seq) for q, k and v.
+// Strides are in elements: (batch, head, seq) for q, k and v. `lse` may
+// be null (inference), else f32 (b, hq, sq) contiguous.
 int mxtpu_flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
-                              void* o, long long q_sb, long long q_sh,
+                              void* o, void* lse, long long q_sb, long long q_sh,
                               long long q_ss, long long k_sb, long long k_sh,
                               long long k_ss, long long v_sb, long long v_sh,
                               long long v_ss, int b, int hq, int hkv, int sq,
@@ -298,9 +257,9 @@ int mxtpu_flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
   const Strides qst{q_sb, q_sh, q_ss}, kst{k_sb, k_sh, k_ss}, vst{v_sb, v_sh, v_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64)
-    return launch<64>(q, k, v, o, qst, kst, vst, b, hq, hkv, sq, skv, scale, causal, st);
+    return launch<64>(q, k, v, o, static_cast<float*>(lse), qst, kst, vst, b, hq, hkv, sq, skv, scale, causal, st);
   if (d == 128)
-    return launch<128>(q, k, v, o, qst, kst, vst, b, hq, hkv, sq, skv, scale, causal, st);
+    return launch<128>(q, k, v, o, static_cast<float*>(lse), qst, kst, vst, b, hq, hkv, sq, skv, scale, causal, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

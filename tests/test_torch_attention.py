@@ -97,6 +97,8 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
         tattn.flash_attention_fwd(q[:, :3], k, v)
     with pytest.raises(ValueError, match="CUDA"):
         tattn.flash_attention_fwd(q, k, v)        # CPU tensors
-    with pytest.raises(NotImplementedError, match="training slice"):
+    # an input that requires grad is refused like any CPU tensor: the
+    # kernel has a backward now, but only for tensors on the card
+    with pytest.raises(ValueError, match="CUDA"):
         tattn.flash_attention_fwd(q.requires_grad_(), k, v)
     assert tattn.flash_attention_fwd.launches == before
