@@ -51,6 +51,34 @@ and the script exits non-zero without a result line:
    with dense attention and f32 compute too
    (``python -m mxtpu_torch.tools.adam_dynamics``).
 
+6. kernel_conv: the conv3x3 implicit-GEMM kernel against its plain
+   version (``conv3x3_plain`` in f32 on the same bf16 values) within
+   ``atol=rtol=2e-2`` (the shape experiment's ``CONV_TOL``: bf16 output
+   rounding, half an ulp of up to 3.1e-2 at the outputs' magnitudes of
+   4-15, inside the relative part, plus a different summation order),
+   at the ResNet shape experiment's
+   (128, 14, 14, 256→256), ResNet-50's other 3×3 shapes at batch 32
+   ((56, 64), (28, 128), (7, 512)) and a ragged (3, 5, 9, 64→72). Times
+   at each: the kernel, ``F.conv2d`` on the channels-last view (cuDNN,
+   a yardstick only) and the plain version, with the bound.
+7. resnet: ``CONFIGS["resnet50"]`` at full width (224×224, 1000
+   classes) with seeded random weights, cuDNN TF32 off. (a) Eval
+   ``forward`` at batch 256: finite f32 logits and img/s; the s2d stem
+   against the std stem on the same params, relative distance of the
+   logits within 2e-2 (the rewrite is exact, so only bf16 rounding
+   differs: 1.9e-3 on the CPU at batch 4, where bf16 against f32 gives
+   3.9e-3), with both stems' times, alone and in the forward. (b) 3
+   steps of ``make_train_step(loss_fn, sgd(0.1, momentum=0.9),
+   has_state=True)`` at batch 256: finite losses, the first within 1.0
+   of ln 1000, every BN running mean moved; img/s and peak memory.
+   The launch counts are set to 0 before (a) and read after (b):
+   ResNet's convs are cuDNN's, as the reference's are XLA's, so the
+   path launches none of the port's kernels.
+8. experiment_probe2: the shape experiment's probe 2, untimed, with
+   the launch counts set to 0 just before it and read just after: one
+   launch of the conv3x3 kernel at (128, 14, 14, 256→256), checked
+   against the plain version.
+
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result when no
 CUDA card is visible or when the package is not beside the script.
@@ -70,6 +98,9 @@ TRAIN_REL_BOUND = 5e-2     # flash vs dense loss and grads, 4 layers
 TRAIN_LAYERS = 4
 TRAIN_STEPS = 3
 TRAIN_LR = 3e-4
+STEM_REL_BOUND = 2e-2      # ||s2d - std|| / ||std||, ResNet-50 eval logits
+RESNET_BATCH = 256
+RESNET_STEPS = 3
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 SEED = 0
@@ -83,6 +114,16 @@ KERNEL_SHAPES = [
     ("causal_sq>skv", 1, 4, 4, 130, 65, 128, True, False),
     ("strided_bshd", 2, 8, 2, 100, 100, 128, True, True),
     ("short_q", 1, 2, 2, 3, 200, 64, False, False),
+]
+
+
+# (name, B, H, W, C, O)
+CONV_SHAPES = [
+    ("experiment", 128, 14, 14, 256, 256),
+    ("resnet50_56", 32, 56, 56, 64, 64),
+    ("resnet50_28", 32, 28, 28, 128, 128),
+    ("resnet50_7", 32, 7, 7, 512, 512),
+    ("ragged", 3, 5, 9, 64, 72),
 ]
 
 
@@ -329,7 +370,7 @@ def slice_phase():
                                  "(1, 2048, vocab)")
         if launches != {"flash_attention_fwd": cfg.n_layers,
                         "flash_attention_bwd_dkv": 0,
-                        "flash_attention_bwd_dq": 0}:
+                        "flash_attention_bwd_dq": 0, "conv3x3_kernel": 0}:
             raise AssertionError(f"forward launched {launches}, not "
                                  f"{cfg.n_layers} forward kernels")
         if not rel <= LOGITS_REL_BOUND:
@@ -362,19 +403,26 @@ def slice_phase():
     return launches
 
 
+def _counted():
+    """Every kernel wrapper that counts its launches, by name."""
+    from mxtpu_torch.ops import attention as A, conv as C
+    return {fn: getattr(mod, fn) for mod, fns in
+            ((A, ATTENTION_COUNTERS), (C, ("conv3x3_kernel",)))
+            for fn in fns}
+
+
 def reset_launches():
-    from mxtpu_torch.ops import attention as A
-    for fn in LAUNCH_COUNTERS:
-        getattr(A, fn).launches = 0
+    for wrapper in _counted().values():
+        wrapper.launches = 0
 
 
 def read_launches():
-    from mxtpu_torch.ops import attention as A
-    return {fn: getattr(A, fn).launches for fn in LAUNCH_COUNTERS}
+    return {fn: wrapper.launches for fn, wrapper in _counted().items()}
 
 
-LAUNCH_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd_dkv",
-                   "flash_attention_bwd_dq")
+ATTENTION_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                      "flash_attention_bwd_dq")
+LAUNCH_COUNTERS = ATTENTION_COUNTERS + ("conv3x3_kernel",)
 
 
 def rel_dist(a, b):
@@ -456,7 +504,7 @@ def train_phase():
           "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
     want = {"flash_attention_fwd": 2 * cfg.n_layers,
             "flash_attention_bwd_dkv": cfg.n_layers,
-            "flash_attention_bwd_dq": cfg.n_layers}
+            "flash_attention_bwd_dq": cfg.n_layers, "conv3x3_kernel": 0}
     if any(n != want for n in launches):
         raise AssertionError(f"a train step launched {launches}, not {want}")
     if not all(map(math.isfinite, losses + [final])):
@@ -473,6 +521,158 @@ def train_phase():
     del state, step
     torch.cuda.empty_cache()
     return total
+
+
+def kernel_conv_phase():
+    """The conv3x3 kernel against its plain version at every conv
+    shape, with times."""
+    import torch
+    from mxtpu_torch.ops import conv
+    from mxtpu_torch.tools import resnet_shape_experiment as exp
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rows = []
+    for name, *shape in CONV_SHAPES:
+        x, w = exp.conv_inputs(shape, gen)
+        y = conv.conv3x3(x, w)
+        torch.cuda.synchronize()
+        bound, bound_by = exp.conv_bound_ms(*shape)
+        row = {"phase": "kernel_conv", "shape": name, "bhwco": shape,
+               **exp.check_conv(x, w, y), "bound_ms": bound,
+               "bound_by": bound_by}
+        if row["ok"]:
+            row.update(
+                kernel_ms=time_ms(lambda: conv.conv3x3(x, w), reps=50),
+                library_ms=time_ms(exp.cudnn_conv3x3(x, w), reps=50),
+                plain_ms=time_ms(lambda: conv.conv3x3_plain(x, w), reps=3,
+                                 warmup=1))
+            row["bound_share"] = bound / row["kernel_ms"]
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"conv3x3 kernel disagrees with its plain "
+                                 f"version at {name}: max err "
+                                 f"{row['max_abs_err']}")
+        rows.append(row)
+    return rows
+
+
+def resnet_phase():
+    """ResNet-50 at full width: eval forward with both stems and 3 train
+    steps. Its convs are cuDNN's, so it launches none of the port's
+    kernels."""
+    import torch
+    from mxtpu_torch.models import resnet
+    from mxtpu_torch.parallel import optim, step as pstep
+    from mxtpu_torch.parallel._tree import tree_leaves
+    cfg = resnet.CONFIGS["resnet50"]
+    n = RESNET_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = resnet.init_params(cfg, gen, device="cuda")
+    images = torch.randn((n, 224, 224, 3), generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+    labels = torch.randint(0, cfg.num_classes, (n,), generator=gen,
+                           device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    emit({"phase": "resnet_init", "config": "resnet50", "params": n_params,
+          "batch": n, "image": [224, 224, 3], "stem": cfg.stem,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
+    reset_launches()
+
+    # (a) eval forward, std and s2d stems
+    s2d = replace(cfg, stem="s2d")
+    out, times = {}, {}
+    with torch.inference_mode():
+        state = resnet.init_state(cfg, "cuda")
+        for c in (cfg, s2d):
+            out[c.stem] = resnet.forward(c, params, images, state)
+            times[c.stem + "_forward_ms"] = time_ms(
+                lambda: resnet.forward(c, params, images, state), reps=5,
+                warmup=1)
+            x = images.to(cfg.dtype)
+            times[c.stem + "_stem_ms"] = time_ms(
+                lambda: resnet._stem(c, x, params["stem_conv"]), reps=20)
+    logits = out["std"]
+    finite = bool(torch.isfinite(logits).all())
+    rel = rel_dist(out["s2d"], logits)
+    emit({"phase": "resnet_eval", "batch": n, "logits": list(logits.shape),
+          "dtype": str(logits.dtype), "finite": finite,
+          "img_per_s": {k.split("_")[0]: n / (v / 1e3)
+                        for k, v in times.items() if k.endswith("forward_ms")},
+          **times, "s2d_vs_std_rel": rel, "s2d_vs_std_bound": STEM_REL_BOUND,
+          "argmax_agree": (out["s2d"].argmax(-1) == logits.argmax(-1))
+          .float().mean().item()})
+    if not (finite and logits.dtype == torch.float32
+            and tuple(logits.shape) == (n, cfg.num_classes)):
+        raise AssertionError("ResNet-50 eval logits are not finite f32 "
+                             f"({n}, {cfg.num_classes})")
+    if not rel <= STEM_REL_BOUND:
+        raise AssertionError(f"s2d vs std logits {rel} > {STEM_REL_BOUND}")
+    del out, logits
+
+    # (b) the training step
+    tx = optim.sgd(0.1, momentum=0.9)
+    tstate = pstep.init_state(params, tx,
+                              model_state=resnet.init_state(cfg, "cuda"))
+    del params
+    step = pstep.make_train_step(resnet.loss_fn(cfg), tx, has_state=True)
+    batch = {"image": images, "label": labels}
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds = [], []
+    for _ in range(RESNET_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tstate, loss = step(tstate, batch)
+        losses.append(loss.item())
+        seconds.append(time.perf_counter() - t0)
+    means = [v for k, v in _leaves_with_keys(tstate.model_state)
+             if k == "mean"]
+    moved = sum(bool((m != 0).any()) for m in means)
+    emit({"phase": "resnet_train", "batch": n, "steps": RESNET_STEPS,
+          "losses": losses, "ln_classes": math.log(cfg.num_classes),
+          "step_seconds": seconds, "img_per_s": [n / t for t in seconds],
+          "bn_means_moved": moved, "bn_layers": len(means),
+          "step": int(tstate.step),
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite ResNet-50 loss: {losses}")
+    if abs(losses[0] - math.log(cfg.num_classes)) > 1.0:
+        raise AssertionError(f"first loss {losses[0]} is not within 1.0 of "
+                             f"ln {cfg.num_classes}")
+    if moved != len(means) or int(tstate.step) != RESNET_STEPS:
+        raise AssertionError(f"{len(means) - moved} BN running means did "
+                             f"not move; step {int(tstate.step)}")
+    launches = read_launches()
+    emit({"phase": "resnet_launches", "launches": launches})
+    if any(launches.values()):
+        raise AssertionError(f"the ResNet path launched {launches}, not "
+                             f"none of the port's kernels")
+    del tstate, step, batch, images
+    torch.cuda.empty_cache()
+    return launches
+
+
+def experiment_probe2_phase():
+    """The shape experiment's probe 2 (``probe_conv``), untimed: one
+    launch of the conv3x3 kernel at the experiment's shape, checked
+    against the plain version."""
+    from mxtpu_torch.tools import resnet_shape_experiment as exp
+    reset_launches()
+    row = exp.probe_conv(reps=0)
+    launches = read_launches()
+    emit({"phase": "experiment_probe2", **row, "launches": launches})
+    want = {k: 0 for k in LAUNCH_COUNTERS}
+    want["conv3x3_kernel"] = 1
+    if launches != want:
+        raise AssertionError(f"probe 2 launched {launches}, not {want}")
+    return launches
+
+
+def _leaves_with_keys(tree):
+    """(last key, leaf) of a nested dict, in order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves_with_keys(v)
+        else:
+            yield k, v
 
 
 def main():
@@ -500,14 +700,19 @@ def main():
 
     rows = {r["shape"]: r for r in kernel_phase()}
     bwd_rows = {r["shape"]: r for r in kernel_bwd_phase()}
+    conv_rows = {r["shape"]: r for r in kernel_conv_phase()}
     torch.cuda.empty_cache()
     fwd_launches = slice_phase()
     torch.cuda.empty_cache()
     train_launches = train_phase()
-    launches = {k: fwd_launches[k] + train_launches[k]
-                for k in LAUNCH_COUNTERS}
+    torch.cuda.empty_cache()
+    resnet_launches = resnet_phase()
+    probe_launches = experiment_probe2_phase()
+    launches = {k: fwd_launches[k] + train_launches[k] + resnet_launches[k]
+                + probe_launches[k] for k in LAUNCH_COUNTERS}
 
     main_row, bwd = rows["llama3_8b"], bwd_rows["llama3_8b"]
+    conv = conv_rows["experiment"]
     bwd_src = "mxtpu_torch/ops/csrc/flash_attn_bwd.cu"
     pallas = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     emit({"kernels": [{
@@ -534,7 +739,15 @@ def main():
         "max_abs_err": max(r["max_abs_err"]["dq"] for r in bwd_rows.values()),
         "ms": bwd["dq_ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["dq_bound_ms"], "bound_by": bwd["dq_bound_by"],
-        "library_ms": bwd["library_ms"]}]})
+        "library_ms": bwd["library_ms"]}, {
+        "name": "conv3x3", "route": "cuda",
+        "source": "mxtpu_torch/ops/csrc/conv3x3.cu",
+        "replaces": "benchmark/resnet_shape_experiment.py:80",
+        "launches": launches["conv3x3_kernel"],
+        "max_abs_err": max(r["max_abs_err"] for r in conv_rows.values()),
+        "ms": conv["kernel_ms"], "plain_ms": conv["plain_ms"],
+        "bound_ms": conv["bound_ms"], "bound_by": conv["bound_by"],
+        "library_ms": conv["library_ms"]}]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

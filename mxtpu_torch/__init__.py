@@ -2,7 +2,8 @@
 
 The JAX package ``mxtpu`` is the reference; this package mirrors its
 module names (``context``, ``ops.attention``, ``models.llama``,
-``parallel.step``) so a reader finds each counterpart;
+``models.resnet``, ``parallel.step``) so a reader finds each
+counterpart; ``ops.conv`` ports the ResNet shape experiment's conv;
 ``parallel.optim`` holds the optax transforms the train step takes, and
 ``tools`` the scripts that measure the port. Plain tensor code is PyTorch; every
 kernel ``mxtpu`` wrote in Pallas becomes a hand-written CUDA C++ kernel

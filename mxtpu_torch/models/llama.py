@@ -38,6 +38,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..context import DeviceLike, resolve_device
 from ..ops.attention import dense_attention, flash_attention
+from ._numpy_tree import params_from_numpy, params_to_numpy
 
 __all__ = ["LlamaConfig", "CONFIGS", "init_params", "rms_norm",
            "rope_tables", "apply_rope", "forward_hidden", "forward",
@@ -163,37 +164,6 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
             (cfg.dim, cfg.vocab_size), generator=gen, device=device,
             dtype=d).div_(math.sqrt(cfg.dim))
     return params
-
-
-# ---------------------------------------------------------------------------
-# weight carry: mxtpu's tree as numpy arrays <-> the port's tree
-# ---------------------------------------------------------------------------
-def params_from_numpy(tree, device: DeviceLike = None,
-                      dtype: Optional[torch.dtype] = None):
-    """A nested dict of numpy arrays (``mxtpu``'s keys and stacked
-    layout, e.g. ``jax.tree.map(np.asarray, params)``) → the same tree
-    of tensors on ``device``; ``dtype`` casts floating leaves."""
-    device = resolve_device(device)
-
-    def conv(a):
-        t = torch.tensor(np.asarray(a))     # a copy: jax's arrays are read-only
-        if dtype is not None and t.is_floating_point():
-            t = t.to(dtype)
-        return t.to(device)
-
-    return {k: params_from_numpy(v, device, dtype) if isinstance(v, dict)
-            else conv(v) for k, v in tree.items()}
-
-
-def params_to_numpy(params):
-    """The port's tree → a nested dict of numpy arrays, keys kept. A
-    bf16 leaf comes back as float32, which numpy can hold exactly."""
-    def conv(t):
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-
-    return {k: params_to_numpy(v) if isinstance(v, dict) else conv(v)
-            for k, v in params.items()}
 
 
 # ---------------------------------------------------------------------------

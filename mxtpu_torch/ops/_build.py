@@ -27,7 +27,7 @@ __all__ = ["load_kernels", "build_info", "check", "SOURCES", "HEADERS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[2]
-SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu")
+SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "conv3x3.cu")
 HEADERS = ("flash_common.cuh",)   # included by the sources
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -47,6 +47,7 @@ _SIGNATURES = {
     "mxtpu_flash_attn_bwd_dq_bf16":
         [_c_ptr] * 7 + [_c_i64] * 12 + [_c_int] * 6
         + [ctypes.c_float, _c_int, _c_ptr],
+    "mxtpu_conv3x3_bf16": [_c_ptr] * 3 + [_c_int] * 5 + [_c_ptr],
 }
 
 _lib: Optional[ctypes.CDLL] = None

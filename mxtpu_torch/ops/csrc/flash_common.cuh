@@ -1,6 +1,6 @@
 // Helpers shared by the flash-attention kernels (flash_attn_fwd.cu,
 // flash_attn_bwd.cu): bf16 packing, the mma.sync.m16n8k16 tile product
-// and the global -> shared tile copy.
+// and the global -> shared tile copy. conv3x3.cu uses the first two.
 //
 // Fragment layout of mma.sync.m16n8k16.row.col (g = lane / 4,
 // t4 = lane % 4), which every kernel here indexes by hand:

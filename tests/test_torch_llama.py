@@ -169,7 +169,9 @@ def test_port_imports_no_jax():
     a fresh interpreter: this test process has both loaded)."""
     code = ("import sys, mxtpu_torch, mxtpu_torch.models.llama, "
             "mxtpu_torch.ops.attention, mxtpu_torch.parallel.step, "
-            "mxtpu_torch.parallel.optim\n"
+            "mxtpu_torch.parallel.optim, mxtpu_torch.models.resnet, "
+            "mxtpu_torch.ops.conv, "
+            "mxtpu_torch.tools.resnet_shape_experiment\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxtpu' or "
             "m.startswith('mxtpu.')]\n"
