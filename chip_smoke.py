@@ -78,6 +78,36 @@ and the script exits non-zero without a result line:
    the launch counts set to 0 just before it and read just after: one
    launch of the conv3x3 kernel at (128, 14, 14, 256→256), checked
    against the plain version.
+9. kernel_rtc: the two ``mx.rtc`` user kernels of
+   ``mxtpu_torch/tools/rtc_kernels.py``, compiled by ``nvcc`` at their
+   first launch, against their plain versions through
+   ``CudaKernel.launch`` on NDArrays: ``scale_add`` (f32) exactly at
+   (2, 128), (8192, 4096), a ragged (3, 1001) and a view 4 bytes off
+   16-byte alignment; ``swiglu`` (bf16) within ``atol=rtol=1e-2`` (one
+   bf16 rounding of silu(g)·u, half an ulp is 2^-9 relative, plus an
+   f32 ulp or two of ``expf``) at llama3_8b's FFN activations (2048,
+   14336), an odd (3, 7) and a misaligned view, each launched with the
+   default grid and with ``rtc_kernels.grid`` (one thread a vector, as
+   the main path launches them). An empty launch returns an empty array
+   and launches nothing. Times at the main shapes: the kernel at both
+   grids, its plain version and, for ``scale_add``, ``torch.add(y, x,
+   alpha=2)`` as a yardstick, with the bound by bytes.
+10. frontend: the imperative frontend at llama3_8b's FFN width (dim
+   4096, hidden 14336, bf16, 2048 tokens, seeded weights), everything
+   through ``mx.nd.array(..., ctx=mx.gpu())``, with the launch counts
+   set to 0 just before (a0)+(a) and read just after. (a0) The
+   reference's rtc test drive: ``scale_add`` on (2, 128) (3·x) and on
+   (8192, 4096), both exact, at the default grid. (a) Serve-style
+   forward, not recorded: ``swiglu.launch(x @ w_gate, x @ w_up,
+   grid=rtc_kernels.grid(...)) @ w_down`` against the port's
+   ``models.llama._ffn`` on the same weights, relative distance within
+   2e-2 (bf16: ``_ffn`` rounds silu(g) and the product separately);
+   launches 2 ``scale_add``, 1 ``swiglu``. (b) An imperative training
+   step: the same FFN under ``autograd.record()`` with
+   ``rtc.torch_kernel(F.silu)`` and ``y.backward(head)``; the grads of x
+   and the three weights against ``torch.autograd`` on the same function
+   within 1e-2 relative; step time and peak memory; no kernel launches.
+   (c) The rtc launch under ``record()`` on arrays on the tape raises.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result when no
@@ -101,8 +131,13 @@ TRAIN_LR = 3e-4
 STEM_REL_BOUND = 2e-2      # ||s2d - std|| / ||std||, ResNet-50 eval logits
 RESNET_BATCH = 256
 RESNET_STEPS = 3
+RTC_TOL = 1e-2             # swiglu vs plain, atol = rtol (scale_add: exact)
+FFN_TOKENS = 2048
+FFN_REL_BOUND = 2e-2       # ||rtc path - llama._ffn|| / ||llama._ffn||, bf16
+FFN_GRAD_REL_BOUND = 1e-2  # tape grads vs torch.autograd, bf16
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
+PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 SEED = 0
 
 # (name, b, hq, hkv, sq, skv, d, causal, strided)
@@ -115,6 +150,22 @@ KERNEL_SHAPES = [
     ("strided_bshd", 2, 8, 2, 100, 100, 128, True, True),
     ("short_q", 1, 2, 2, 3, 200, 64, False, False),
 ]
+
+
+# (kernel, name, shape, offset in elements from an aligned start)
+RTC_SHAPES = [
+    ("scale_add", "reference_test", (2, 128), 0),
+    ("scale_add", "main", (8192, 4096), 0),
+    ("scale_add", "ragged", (3, 1001), 0),
+    ("scale_add", "misaligned", (4097,), 1),
+    ("swiglu", "llama3_8b_ffn", (2048, 14336), 0),
+    ("swiglu", "odd", (3, 7), 0),
+    ("swiglu", "misaligned", (2, 4097), 1),
+]
+# per element: bytes moved (inputs read once, output written once) and
+# f32 operations (scale_add: a multiply and an add; swiglu: negate, exp,
+# add, divide, multiply)
+RTC_COST = {"scale_add": (12, 2), "swiglu": (6, 5)}
 
 
 # (name, B, H, W, C, O)
@@ -368,9 +419,7 @@ def slice_phase():
                 and tuple(logits.shape) == (1, 2048, cfg.vocab_size)):
             raise AssertionError("forward logits are not finite f32 "
                                  "(1, 2048, vocab)")
-        if launches != {"flash_attention_fwd": cfg.n_layers,
-                        "flash_attention_bwd_dkv": 0,
-                        "flash_attention_bwd_dq": 0, "conv3x3_kernel": 0}:
+        if launches != only(flash_attention_fwd=cfg.n_layers):
             raise AssertionError(f"forward launched {launches}, not "
                                  f"{cfg.n_layers} forward kernels")
         if not rel <= LOGITS_REL_BOUND:
@@ -412,17 +461,32 @@ def _counted():
 
 
 def reset_launches():
+    from mxtpu_torch import rtc
     for wrapper in _counted().values():
         wrapper.launches = 0
+    rtc.launches.clear()
 
 
 def read_launches():
-    return {fn: wrapper.launches for fn, wrapper in _counted().items()}
+    from mxtpu_torch import rtc
+    out = {fn: wrapper.launches for fn, wrapper in _counted().items()}
+    out.update({f"rtc_{k}": rtc.launches[k] for k in RTC_KERNELS})
+    return out
 
 
 ATTENTION_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd_dkv",
                       "flash_attention_bwd_dq")
-LAUNCH_COUNTERS = ATTENTION_COUNTERS + ("conv3x3_kernel",)
+RTC_KERNELS = ("scale_add", "swiglu")
+LAUNCH_COUNTERS = ATTENTION_COUNTERS + ("conv3x3_kernel", "rtc_scale_add",
+                                        "rtc_swiglu")
+
+
+def only(**counts):
+    """The launch counts of a path that launches ``counts`` and nothing
+    else."""
+    want = {k: 0 for k in LAUNCH_COUNTERS}
+    want.update(counts)
+    return want
 
 
 def rel_dist(a, b):
@@ -502,9 +566,9 @@ def train_phase():
           "tokens_per_s": [ntok / t for t in seconds],
           "launches": launches, "step": int(state.step),
           "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
-    want = {"flash_attention_fwd": 2 * cfg.n_layers,
-            "flash_attention_bwd_dkv": cfg.n_layers,
-            "flash_attention_bwd_dq": cfg.n_layers, "conv3x3_kernel": 0}
+    want = only(flash_attention_fwd=2 * cfg.n_layers,
+                flash_attention_bwd_dkv=cfg.n_layers,
+                flash_attention_bwd_dq=cfg.n_layers)
     if any(n != want for n in launches):
         raise AssertionError(f"a train step launched {launches}, not {want}")
     if not all(map(math.isfinite, losses + [final])):
@@ -659,10 +723,240 @@ def experiment_probe2_phase():
     row = exp.probe_conv(reps=0)
     launches = read_launches()
     emit({"phase": "experiment_probe2", **row, "launches": launches})
-    want = {k: 0 for k in LAUNCH_COUNTERS}
-    want["conv3x3_kernel"] = 1
+    want = only(conv3x3_kernel=1)
     if launches != want:
         raise AssertionError(f"probe 2 launched {launches}, not {want}")
+    return launches
+
+
+def rtc_bound_ms(kernel, n):
+    """(ms, 'bytes' | 'operations'): the least time for ``n`` elements
+    of an rtc kernel, by RTC_COST."""
+    per_byte, per_op = RTC_COST[kernel]
+    t_bytes, t_ops = per_byte * n / PEAK_HBM_BYTES, per_op * n / PEAK_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rtc_inputs(gen, kernel, shape, offset):
+    """Two seeded inputs of ``shape`` as NDArrays over views that start
+    ``offset`` elements into their storage (f32 for scale_add, bf16 with
+    values up to about ±12 for swiglu)."""
+    import torch
+    import mxtpu_torch as mx
+    n = math.prod(shape)
+    dt = torch.float32 if kernel == "scale_add" else torch.bfloat16
+    scale = 1.0 if kernel == "scale_add" else 3.0
+
+    def one():
+        t = torch.randn(n + offset, generator=gen, device="cuda") * scale
+        return mx.nd.NDArray(t.to(dt)[offset:].view(shape))
+    return one(), one()
+
+
+def kernel_rtc_phase():
+    """The rtc kernels against their plain versions at every RTC shape,
+    with times at the main shapes."""
+    import torch
+    import mxtpu_torch as mx
+    from mxtpu_torch import rtc
+    from mxtpu_torch.tools import rtc_kernels as rk
+    mod = rk.module()
+    kerns = {k: mod.get_kernel(k) for k in rk.KERNELS}
+    plain = {"scale_add": rk.scale_add_plain, "swiglu": rk.swiglu_plain}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rows = []
+    for kernel, name, shape, offset in RTC_SHAPES:
+        a, b = rtc_inputs(gen, kernel, shape, offset)
+        blocks = rk.grid(kernel, math.prod(shape))
+        outs = (kerns[kernel].launch(a, b),        # the default grid
+                kerns[kernel].launch(a, b, grid=blocks))
+        torch.cuda.synchronize()
+        want = plain[kernel](a._data, b._data)
+        err = max((o._data.float() - want.float()).abs().max().item()
+                  for o in outs)
+        ok = all(tuple(o.shape) == shape and o.dtype == want.dtype
+                 and (torch.equal(o._data, want) if kernel == "scale_add"
+                      else torch.allclose(o._data.float(), want.float(),
+                                          atol=RTC_TOL, rtol=RTC_TOL))
+                 for o in outs)
+        row = {"phase": "kernel_rtc", "kernel": kernel, "shape": name,
+               "dims": list(shape), "misaligned": bool(offset),
+               "grid": blocks, "max_abs_err": err,
+               "tol": "exact" if kernel == "scale_add" else RTC_TOL,
+               "ok": ok}
+        if name in ("main", "llama3_8b_ffn"):
+            bound, bound_by = rtc_bound_ms(kernel, math.prod(shape))
+            x, y = a._data, b._data
+            row.update(
+                ms=time_ms(lambda: kerns[kernel].launch(a, b, grid=blocks),
+                           reps=50),
+                default_grid_ms=time_ms(lambda: kerns[kernel].launch(a, b),
+                                        reps=50),
+                plain_ms=time_ms(lambda: plain[kernel](x, y), reps=50),
+                library_ms=(time_ms(lambda: rk.scale_add_library(x, y),
+                                    reps=50)
+                            if kernel == "scale_add" else None),
+                bound_ms=bound, bound_by=bound_by)
+            row["bound_share"] = bound / row["ms"]
+        emit(row)
+        if not (ok and math.isfinite(err)):
+            raise AssertionError(f"rtc {kernel} disagrees with its plain "
+                                 f"version at {name}: max err {err}")
+        rows.append(row)
+    before = dict(rtc.launches)
+    e = mx.nd.NDArray(torch.empty((0, 4), device="cuda"))
+    empty = kerns["scale_add"].launch(e, e)
+    info = mod.build_info
+    emit({"phase": "rtc_build", "built": info["built"],
+          "seconds": info["seconds"], "path": info["path"],
+          "ptxas": [ln.strip() for ln in str(info["nvcc"]).splitlines()
+                    if any(w in ln for w in ("entry function", "registers",
+                                             "spill"))],
+          "empty_launch_shape": list(empty.shape)})
+    if empty.shape != (0, 4) or dict(rtc.launches) != before:
+        raise AssertionError("an empty rtc launch did not return an empty "
+                             "array without launching")
+    return rows
+
+
+def rtc_kernel_rows(rows, launches):
+    """The ``kernels`` line's rows of the rtc kernels: errors over every
+    shape, times at the main one, launches of the main path."""
+    out = []
+    for kernel, main in (("scale_add", "main"), ("swiglu", "llama3_8b_ffn")):
+        row = rows[kernel, main]
+        out.append({
+            "name": f"rtc_{kernel}", "route": "cuda",
+            "source": "mxtpu_torch/tools/rtc_kernels.py",
+            "replaces": "mxtpu/rtc.py:80",
+            "launches": launches[f"rtc_{kernel}"],
+            "max_abs_err": max(r["max_abs_err"] for (k, _), r in rows.items()
+                               if k == kernel),
+            **{f: row[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}})
+    return out
+
+
+def frontend_phase():
+    """llama3_8b's FFN through mx.nd, mx.rtc and mx.autograd."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import mxtpu_torch as mx
+    from mxtpu_torch import autograd as ag, rtc
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.tools import rtc_kernels as rk
+    cfg = llama.CONFIGS["llama3_8b"]
+    dim, hidden, n = cfg.dim, cfg.hidden_dim, FFN_TOKENS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+
+    def rand(*shape, scale=1.0):
+        t = torch.randn(shape, generator=gen, device="cuda") * scale
+        return mx.nd.array(t.to(torch.bfloat16), ctx=mx.gpu())
+    x = rand(n, dim)
+    wg, wu = rand(dim, hidden, scale=dim ** -0.5), rand(dim, hidden,
+                                                       scale=dim ** -0.5)
+    wd = rand(hidden, dim, scale=hidden ** -0.5)
+    head = rand(n, dim)
+    rs = np.random.default_rng(SEED)
+    small = np.arange(256, dtype=np.float32).reshape(2, 128)
+    big_x, big_y = (rs.standard_normal((8192, 4096), dtype=np.float32)
+                    for _ in range(2))
+    mod = rk.module()
+    sa, sw = mod.get_kernel("scale_add"), mod.get_kernel("swiglu")
+    torch.cuda.synchronize()
+
+    # (a0) + (a): the launch counts cover exactly these
+    reset_launches()
+    t0 = time.perf_counter()
+    s = mx.nd.array(small, ctx=mx.gpu())
+    tripled = sa.launch(s, s).asnumpy()
+    big = sa.launch(mx.nd.array(big_x, ctx=mx.gpu()),
+                    mx.nd.array(big_y, ctx=mx.gpu())).asnumpy()
+    a0_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blocks = rk.grid("swiglu", n * hidden)
+    y = sw.launch(x @ wg, x @ wu, grid=blocks) @ wd
+    y.wait_to_read()
+    fwd_s = [time.perf_counter() - t0]
+    launches = read_launches()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        (sw.launch(x @ wg, x @ wu, grid=blocks) @ wd).wait_to_read()
+        fwd_s.append(time.perf_counter() - t0)
+    lp = {"w_gate": wg._data, "w_up": wu._data, "w_down": wd._data}
+    ref = llama._ffn(cfg, lp, x._data)
+    rel = rel_dist(y._data, ref)
+    finite = bool(torch.isfinite(y._data).all())
+    exact = (np.array_equal(tripled, 3 * small)
+             and np.array_equal(big, big_x * 2 + big_y))
+    emit({"phase": "frontend_forward", "tokens": n, "dim": dim,
+          "hidden": hidden, "dtype": str(y.dtype), "shape": list(y.shape),
+          "finite": finite, "scale_add_exact": exact, "a0_seconds": a0_s,
+          "seconds": fwd_s, "rel_vs_llama_ffn": rel,
+          "rel_bound": FFN_REL_BOUND, "launches": launches})
+    if not (finite and y.shape == (n, dim) and y.dtype == torch.bfloat16):
+        raise AssertionError("the rtc FFN output is not finite bf16 "
+                             f"({n}, {dim})")
+    if not exact:
+        raise AssertionError("scale_add on mx.nd arrays is not x*2 + y")
+    if not rel <= FFN_REL_BOUND:
+        raise AssertionError(f"rtc FFN vs llama._ffn {rel} > "
+                             f"{FFN_REL_BOUND}")
+    if launches != only(rtc_scale_add=2, rtc_swiglu=1):
+        raise AssertionError(f"the forward launched {launches}, not 2 "
+                             f"scale_add and 1 swiglu")
+    del y, ref
+
+    # (b) an imperative training step with torch_kernel(silu)
+    silu = rtc.torch_kernel(F.silu, name="silu")
+    for w in (x, wg, wu, wd):
+        w.attach_grad()
+    step_s, step_launches = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ag.record():
+            out = (silu(x @ wg) * (x @ wu)) @ wd
+        out.backward(head)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        step_launches.append(read_launches())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    leaves = [w._data.detach().requires_grad_() for w in (x, wg, wu, wd)]
+    tx, tg, tu, td = leaves
+    want = torch.autograd.grad((F.silu(tx @ tg) * (tx @ tu)) @ td, leaves,
+                               head._data)
+    rels = {k: rel_dist(w.grad._data, g) for k, w, g in
+            zip(("x", "w_gate", "w_up", "w_down"), (x, wg, wu, wd), want)}
+    emit({"phase": "frontend_train_step", "step_seconds": step_s,
+          "peak_gb": peak_gb, "grad_rel_vs_torch": rels,
+          "rel_bound": FFN_GRAD_REL_BOUND, "launches": step_launches})
+    if not all(math.isfinite(r) and r <= FFN_GRAD_REL_BOUND
+               for r in rels.values()):
+        raise AssertionError(f"tape grads vs torch.autograd {rels} > "
+                             f"{FFN_GRAD_REL_BOUND}")
+    if any(c != only() for c in step_launches):
+        raise AssertionError(f"the train step launched {step_launches}")
+
+    # (c) no rtc kernel under record() on arrays on the tape
+    before = read_launches()
+    with ag.record():
+        g, u = x @ wg, x @ wu
+        try:
+            sw.launch(g, u, grid=blocks)
+            refused = None
+        except mx.MXNetError as e:
+            refused = str(e)
+    emit({"phase": "frontend_no_grad_rule", "raised": refused})
+    if refused is None or "no gradient" not in refused \
+            or read_launches() != before:
+        raise AssertionError(f"a recorded rtc launch did not raise: "
+                             f"{refused}")
+    del x, wg, wu, wd, head, out, g, u, leaves, want
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -701,6 +995,7 @@ def main():
     rows = {r["shape"]: r for r in kernel_phase()}
     bwd_rows = {r["shape"]: r for r in kernel_bwd_phase()}
     conv_rows = {r["shape"]: r for r in kernel_conv_phase()}
+    rtc_rows = {(r["kernel"], r["shape"]): r for r in kernel_rtc_phase()}
     torch.cuda.empty_cache()
     fwd_launches = slice_phase()
     torch.cuda.empty_cache()
@@ -708,8 +1003,10 @@ def main():
     torch.cuda.empty_cache()
     resnet_launches = resnet_phase()
     probe_launches = experiment_probe2_phase()
+    frontend_launches = frontend_phase()
     launches = {k: fwd_launches[k] + train_launches[k] + resnet_launches[k]
-                + probe_launches[k] for k in LAUNCH_COUNTERS}
+                + probe_launches[k] + frontend_launches[k]
+                for k in LAUNCH_COUNTERS}
 
     main_row, bwd = rows["llama3_8b"], bwd_rows["llama3_8b"]
     conv = conv_rows["experiment"]
@@ -747,7 +1044,8 @@ def main():
         "max_abs_err": max(r["max_abs_err"] for r in conv_rows.values()),
         "ms": conv["kernel_ms"], "plain_ms": conv["plain_ms"],
         "bound_ms": conv["bound_ms"], "bound_by": conv["bound_by"],
-        "library_ms": conv["library_ms"]}]})
+        "library_ms": conv["library_ms"]}] + rtc_kernel_rows(rtc_rows,
+                                                            launches)})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

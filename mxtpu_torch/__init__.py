@@ -1,19 +1,26 @@
 """mxtpu_torch — the PyTorch/CUDA port of ``mxtpu`` for NVIDIA Hopper.
 
 The JAX package ``mxtpu`` is the reference; this package mirrors its
-module names (``context``, ``ops.attention``, ``models.llama``,
-``models.resnet``, ``parallel.step``) so a reader finds each
-counterpart; ``ops.conv`` ports the ResNet shape experiment's conv;
-``parallel.optim`` holds the optax transforms the train step takes, and
-``tools`` the scripts that measure the port. Plain tensor code is PyTorch; every
-kernel ``mxtpu`` wrote in Pallas becomes a hand-written CUDA C++ kernel
-for ``sm_90a`` under ``ops/csrc/``, built at first use.
+module names (``context``, ``ndarray``, ``autograd``, ``rtc``,
+``ops.attention``, ``models.llama``, ``models.resnet``,
+``parallel.step``) so a reader finds each counterpart; ``ops.conv``
+ports the ResNet shape experiment's conv; ``parallel.optim`` holds the
+optax transforms the train step takes, and ``tools`` the scripts that
+measure the port. Plain tensor code is PyTorch; every kernel ``mxtpu``
+wrote in Pallas becomes a hand-written CUDA C++ kernel for ``sm_90a``
+under ``ops/csrc/``, built at first use, and ``mx.rtc`` compiles the
+user's own CUDA C at run time.
 
 This package imports ``torch`` and numpy only — never ``jax`` and
 nothing of ``mxtpu`` (whose ``__init__`` imports jax). Entry points run
-on the card unless the caller passes ``device="cpu"``.
+on the card unless the caller passes ``device="cpu"`` (``ctx="cpu"``
+in ``mx.nd``).
 """
-from . import context
+from . import autograd, context, ndarray, rtc
+from .base import MXNetError
 from .context import cpu, gpu, default_device
 
-__all__ = ["context", "cpu", "gpu", "default_device"]
+nd = ndarray
+
+__all__ = ["autograd", "context", "ndarray", "nd", "rtc", "MXNetError",
+           "cpu", "gpu", "default_device"]

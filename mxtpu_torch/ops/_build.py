@@ -1,4 +1,5 @@
-"""Build the port's CUDA C++ kernels and load them with ctypes.
+"""Build the port's CUDA C++ kernels, and ``mx.rtc``'s user modules, and
+load them with ctypes.
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (all
 sources started together, one process each; the shared ``*.cuh``
@@ -10,6 +11,13 @@ builds once and an edited source builds anew. Nothing is compiled when
 a module is imported: :func:`load_kernels` builds at first use, which
 needs ``nvcc`` (``$CUDA_HOME/bin``, ``/usr/local/cuda/bin`` or
 ``PATH``) and nothing from outside the repository.
+
+:func:`load_rtc` builds one ``mx.rtc.CudaModule``'s source the same way,
+at its first launch: the user's source, the CUDA type headers before it
+and one generated C entry point per kernel after it
+(``mxtpu_rtc_launch_<name>``, which calls ``cudaLaunchKernel``), in one
+``nvcc`` call, into ``build/mxtpu_torch_rtc/<hash>/``, keyed by a hash of
+that text and the flags.
 """
 from __future__ import annotations
 
@@ -21,9 +29,12 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["load_kernels", "build_info", "check", "SOURCES", "HEADERS"]
+from ..base import MXNetError
+
+__all__ = ["load_kernels", "build_info", "check", "load_rtc", "SOURCES",
+           "HEADERS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[2]
@@ -146,3 +157,85 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = load_kernels().mxtpu_cuda_error_string(err).decode()
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+# ---------------------------------------------------------------------------
+# mx.rtc: user modules compiled at run time
+# ---------------------------------------------------------------------------
+_RTC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_RTC_PRELUDE = ("#include <cuda_runtime.h>\n#include <cuda_fp16.h>\n"
+                "#include <cuda_bf16.h>\n#line 1 \"rtc_source.cu\"\n")
+_RTC_ENTRY = """
+extern "C" int mxtpu_rtc_launch_{name}(void** args, unsigned gx,
+    unsigned gy, unsigned gz, unsigned bx, unsigned by, unsigned bz,
+    unsigned smem, void* stream) {{
+  const void* fn = (const void*)&{name};
+  if (smem > 48 * 1024) {{
+    cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }}
+  return (int)cudaLaunchKernel(fn, dim3(gx, gy, gz), dim3(bx, by, bz), args,
+                               (size_t)smem, (cudaStream_t)stream);
+}}
+"""
+_RTC_ERROR = """
+extern "C" const char* mxtpu_rtc_error_string(int e) {
+  return cudaGetErrorString((cudaError_t)e);
+}
+"""
+_rtc_libs: Dict[str, Tuple[ctypes.CDLL, Dict[str, object]]] = {}
+
+
+def load_rtc(source: str, kernels: Sequence[str],
+             options: Sequence[str] = ()) -> Tuple[ctypes.CDLL,
+                                                   Dict[str, object]]:
+    """The shared library of one rtc module, built on first use and
+    loaded once per process, and its build info (path, built, seconds,
+    nvcc's log). ``kernels`` names the ``__global__`` functions of
+    ``source`` that get an entry point. A source nvcc rejects raises
+    :class:`MXNetError` with nvcc's log."""
+    text = (_RTC_PRELUDE + source + "\n"
+            + "".join(_RTC_ENTRY.format(name=k) for k in kernels)
+            + _RTC_ERROR)
+    flags = _RTC_FLAGS + list(options)
+    digest = hashlib.sha256(
+        (text + "\0" + " ".join(flags)).encode()).hexdigest()[:16]
+    with _lock:
+        if digest not in _rtc_libs:
+            _rtc_libs[digest] = _load_rtc(text, kernels, flags, digest)
+    return _rtc_libs[digest]
+
+
+def _load_rtc(text, kernels, flags, digest):
+    out_dir = _ROOT / "build" / "mxtpu_torch_rtc" / digest
+    lib_path = out_dir / "libmxtpu_rtc.so"
+    t0 = time.perf_counter()
+    built = not lib_path.exists()
+    if built:
+        nvcc = _nvcc()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        src = out_dir / f"module.{os.getpid()}.cu"
+        tmp = out_dir / f".{lib_path.name}.{os.getpid()}"
+        src.write_text(text)
+        res = subprocess.run([nvcc, *flags, str(src), "-o", str(tmp)],
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        if res.returncode != 0:
+            raise MXNetError(f"nvcc rejected the rtc module "
+                             f"({src}):\n{res.stdout}")
+        os.replace(tmp, lib_path)  # readers never see a half-written .so
+        os.replace(src, out_dir / "module.cu")
+        (out_dir / "nvcc.log").write_text(res.stdout)
+    lib = ctypes.CDLL(str(lib_path))
+    for k in kernels:
+        fn = getattr(lib, f"mxtpu_rtc_launch_{k}")
+        fn.argtypes = [_c_ptr] + [ctypes.c_uint] * 7 + [_c_ptr]
+        fn.restype = _c_int
+    lib.mxtpu_rtc_error_string.argtypes = [_c_int]
+    lib.mxtpu_rtc_error_string.restype = ctypes.c_char_p
+    log = out_dir / "nvcc.log"
+    return lib, {"path": str(lib_path), "built": built,
+                 "seconds": time.perf_counter() - t0,
+                 "nvcc": log.read_text() if log.exists() else ""}

@@ -18,6 +18,8 @@ import torch
 from mxtpu.ops import attention as jattn
 from mxtpu_torch.ops import attention as tattn
 
+torch.set_num_threads(2)   # a CPU share for each xdist worker
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 

@@ -26,6 +26,8 @@ from jax.experimental.pallas import tpu as pltpu
 
 from mxtpu_torch.ops import conv
 
+torch.set_num_threads(2)   # a CPU share for each xdist worker
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -26,6 +26,8 @@ import test_torch_resnet_refs as refs
 from mxtpu.models import resnet as jr
 from mxtpu_torch.models import resnet as tr
 
+torch.set_num_threads(2)   # a CPU share for each xdist worker
+
 F32_TOL = dict(atol=2e-4, rtol=2e-4)
 
 

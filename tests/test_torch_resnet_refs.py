@@ -33,6 +33,8 @@ import torch
 from mxtpu.models import resnet as jr
 from mxtpu_torch.models import resnet as tr
 
+torch.set_num_threads(2)   # a CPU share for each xdist worker
+
 _WEIGHTS = {}
 _RUNS = {}
 _STRICT = {"xla_allow_excess_precision": False}

@@ -39,6 +39,8 @@ from mxtpu.parallel.sharding import P, ShardingRules
 from mxtpu_torch.models import resnet as tr
 from mxtpu_torch.parallel import optim, step as tstep
 
+torch.set_num_threads(2)   # a CPU share for each xdist worker
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 STEPS = 4
 

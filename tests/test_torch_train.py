@@ -32,6 +32,8 @@ from mxtpu_torch.models import llama as tl
 from mxtpu_torch.parallel import optim, step as tstep
 from mxtpu_torch.parallel._tree import tree_leaves
 
+torch.set_num_threads(2)   # a CPU share for each xdist worker
+
 LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
 TOL = dict(atol=1e-4, rtol=1e-4)
 
