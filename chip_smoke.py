@@ -8,18 +8,24 @@ and the script exits non-zero without a result line:
 
 1. card: ``nvidia-smi`` name and power limit, TF32 settings, and the
    build of every CUDA kernel from ``mxtpu_torch/ops/csrc`` (seconds,
-   and ptxas' register/spill report).
+   and ptxas' register/spill report). For the flash forward at d = 64
+   and 128: registers at launch, dynamic shared memory, and from its
+   SASS the HGMMA (wgmma), UTMALDG and UTMASTG (TMA) instructions, the
+   highest register its consumer warpgroups use and its spill stores;
+   no HGMMA or no UTMALDG fails the run.
 2. kernel: the flash-attention forward kernel against its plain version
    (``blockwise_attention`` in f32 on the same bf16 values) at the main
    path's shape (llama3_8b: b=1, hq=32, hkv=8, s=2048, d=128, causal), a
-   ragged one (b=2, hq=hkv=4, sq=1000, skv=777, d=64, non-causal) and a
-   few edge shapes, within ``atol=rtol=2e-2`` (bf16 output rounding,
+   ragged one (b=2, hq=hkv=4, sq=1000, skv=777, d=64, non-causal) and
+   edge shapes (one of them a row and a key past the kernel's 128-row
+   and 128-key tiles, one a strided d=64 view), within
+   ``atol=rtol=2e-2`` (bf16 output rounding,
    about 2^-8 relative, plus a different summation order); and the row
    logsumexp it writes for training against the plain version's, within
    ``atol=rtol=1e-3`` (both f32). Times: the kernel,
    ``scaled_dot_product_attention`` as a yardstick only (the port never
    calls it), and the plain version; the bound is computed from the
-   shapes.
+   shapes, and TFLOP/s from the visible pairs.
 3. kernel_bwd: the dK/dV and dQ backward kernels against their plain
    version (``flash_attention_bwd_plain`` in f32 on the same bf16 q, k,
    v, o, dO and the kernel's lse) at the same shapes, within
@@ -149,6 +155,8 @@ KERNEL_SHAPES = [
     ("causal_sq>skv", 1, 4, 4, 130, 65, 128, True, False),
     ("strided_bshd", 2, 8, 2, 100, 100, 128, True, True),
     ("short_q", 1, 2, 2, 3, 200, 64, False, False),
+    ("tile_edge", 1, 4, 2, 129, 257, 128, True, False),
+    ("bshd_d64", 2, 8, 2, 200, 333, 64, False, True),
 ]
 
 
@@ -299,6 +307,8 @@ def kernel_phase():
                     q, k, v, causal=causal), reps=3, warmup=1),
                 bound_ms=bound, bound_by=bound_by)
             row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+            row["tflops"] = (4 * d * hq * b * visible_pairs(sq, skv, causal)
+                             / row["kernel_ms"] / 1e9)
         emit(row)
         if not (ok and math.isfinite(err) and math.isfinite(lse_err)):
             raise AssertionError(f"flash kernel disagrees with its plain "
@@ -969,6 +979,52 @@ def _leaves_with_keys(tree):
             yield k, v
 
 
+def fwd_kernel_report(info):
+    """Per head dim of the forward kernel: registers at launch (ptxas,
+    and the runtime's count), the dynamic shared memory each launch asks
+    for, and from its SASS (``cuobjdump -sass`` of the built library)
+    the HGMMA (wgmma), UTMALDG and UTMASTG (TMA load and store)
+    instructions, the highest register the consumer warpgroups use after
+    ``setmaxnreg`` raised their budget, and local-memory stores
+    (spills)."""
+    import ctypes
+    import os
+    import re
+    from mxtpu_torch.ops import _build
+    attrs = _build.load_kernels().mxtpu_flash_attn_fwd_attrs
+    ptxas_regs, fn = {}, None
+    for ln in str(info["ptxas"]).splitlines():
+        m = re.search(r"entry function '([^']+)'", ln)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            ptxas_regs[fn] = int(m.group(1))
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(info["path"])],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    funcs = {}
+    for chunk in sass.split("Function : ")[1:]:
+        funcs[chunk.split(None, 1)[0]] = chunk
+    out = {}
+    for d in (64, 128):
+        tag = f"flash_fwd_kernelILi{d}E"
+        regs, smem = ctypes.c_int(0), ctypes.c_int(0)
+        _build.check(attrs(d, ctypes.byref(regs), ctypes.byref(smem)),
+                     "mxtpu_flash_attn_fwd_attrs")
+        text = "".join(c for f, c in funcs.items() if tag in f)
+        out[f"d{d}"] = {
+            "ptxas_registers": [r for f, r in ptxas_regs.items() if tag in f],
+            "registers": regs.value, "dynamic_smem_bytes": smem.value,
+            "HGMMA": text.count("HGMMA"), "UTMALDG": text.count("UTMALDG"),
+            "UTMASTG": text.count("UTMASTG"),
+            "sass_registers": 1 + max(
+                (int(r) for r in re.findall(r"\bR(\d+)\b", text)), default=-1),
+            "STL": len(re.findall(r"\bSTL\b", text))}
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -986,11 +1042,17 @@ def main():
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
     _build.load_kernels()
     info = _build.build_info()
+    fwd = fwd_kernel_report(info)
     emit({"phase": "build", "built": info["built"],
           "seconds": info["seconds"], "path": info["path"],
+          "flash_fwd": fwd,
           "ptxas": [ln.strip() for ln in str(info["ptxas"]).splitlines()
                     if any(w in ln for w in ("entry function", "registers",
-                                             "spill"))]})
+                                             "spill", "wgmma",
+                                             "setmaxnreg"))]})
+    if not all(r["HGMMA"] and r["UTMALDG"] for r in fwd.values()):
+        raise AssertionError(f"the forward kernel's SASS lacks wgmma or TMA "
+                             f"loads: {fwd}")
 
     rows = {r["shape"]: r for r in kernel_phase()}
     bwd_rows = {r["shape"]: r for r in kernel_bwd_phase()}

@@ -52,6 +52,37 @@ def test_flash_attention_matches_mxtpu(hq, hkv, sq, skv, causal):
     assert tattn.flash_attention_fwd.launches == 0
 
 
+# chip_smoke.py's edge shapes for the kernel's 128-row q and 128-key
+# K/V tiles, at that key tile: (b, hq, hkv, sq, skv, d, causal, bshd).
+# tile_edge puts one row and one key past a tile edge (causal, GQA);
+# bshd_d64 reads (b, s, h, d) storage through a transpose, as the model
+# does, with ragged edges on both sides.
+KERNEL_TILE_SHAPES = {
+    "tile_edge": (1, 4, 2, 129, 257, 128, True, False),
+    "bshd_d64": (2, 8, 2, 200, 333, 64, False, True),
+}
+
+
+@pytest.mark.parametrize("shape", list(KERNEL_TILE_SHAPES))
+def test_flash_attention_kernel_tile_shapes_match_mxtpu(shape):
+    b, hq, hkv, sq, skv, d, causal, bshd = KERNEL_TILE_SHAPES[shape]
+    q, k, v = _qkv(5, b, hq, hkv, sq, skv, d)
+    if bshd:   # the same values, stored (b, s, h, d)
+        q, k, v = (np.ascontiguousarray(a.transpose(0, 2, 1, 3))
+                   for a in (q, k, v))
+    out_j = np.asarray(jattn.flash_attention(
+        *(jnp.swapaxes(jnp.asarray(a), 1, 2) if bshd else jnp.asarray(a)
+          for a in (q, k, v)), causal=causal, kv_block=128))
+    views = [torch.from_numpy(a) for a in (q, k, v)]
+    if bshd:
+        views = [t.transpose(1, 2) for t in views]
+        assert not views[0].is_contiguous()
+    out_t = tattn.flash_attention(*views, causal=causal, kv_block=128).numpy()
+    assert out_t.shape == (b, hq, sq, d)
+    np.testing.assert_allclose(out_t, out_j, **TOL)
+    assert tattn.flash_attention_fwd.launches == 0
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("hq,hkv,sq,skv", SHAPES)
 def test_dense_attention_matches_mxtpu(hq, hkv, sq, skv, causal):
