@@ -8,11 +8,12 @@ and the script exits non-zero without a result line:
 
 1. card: ``nvidia-smi`` name and power limit, TF32 settings, and the
    build of every CUDA kernel from ``mxtpu_torch/ops/csrc`` (seconds,
-   and ptxas' register/spill report). For the flash forward at d = 64
-   and 128: registers at launch, dynamic shared memory, and from its
-   SASS the HGMMA (wgmma), UTMALDG and UTMASTG (TMA) instructions, the
-   highest register its consumer warpgroups use and its spill stores;
-   no HGMMA or no UTMALDG fails the run.
+   and ptxas' register/spill report). For each Hopper kernel (the flash
+   forward, dK/dV and dQ) at d = 64 and 128: registers at launch,
+   dynamic shared memory, and from its SASS the HGMMA (wgmma), UTMALDG
+   and UTMASTG (TMA) instructions, the highest register its consumer
+   warpgroups use and its spill stores; a kernel without HGMMA or
+   UTMALDG fails the run.
 2. kernel: the flash-attention forward kernel against its plain version
    (``blockwise_attention`` in f32 on the same bf16 values) at the main
    path's shape (llama3_8b: b=1, hq=32, hkv=8, s=2048, d=128, causal), a
@@ -32,10 +33,18 @@ and the script exits non-zero without a result line:
    ``atol=rtol=2e-2``: an emulation of the kernels' bf16 roundings on
    the CPU stays under 7e-3 while planted faults (mask dropped, wrong
    GQA head, ``- D`` dropped, scale twice, a query tile lost) give 0.7
-   or more (``python -m mxtpu_torch.tools.bwd_tolerance``). Times at
-   the main shape: each kernel, the pair plus D, the backward of
-   ``scaled_dot_product_attention(..., enable_gqa=True)`` as a
-   yardstick only, and the plain version.
+   or more (``python -m mxtpu_torch.tools.bwd_tolerance``); and the
+   D = rowsum(dO o) that the dQ kernel writes against the eager f32
+   rowsum, within ``atol=rtol=1e-3`` (both f32); two calls give equal
+   grads, bit for bit (no atomics). Times at the main and
+   the ragged shape, each the median of 5 windows: each kernel, the
+   pair (dQ with D, then dK/dV), with bounds, TFLOP/s and shares of
+   bound, the host time of one pair call, the backward of
+   ``scaled_dot_product_attention`` pinned to the flash backend (GQA
+   native where flash takes it, else k and v repeated outside the timed
+   call; the backend and the GQA route are reported) as a yardstick
+   only, beside it the cuDNN and memory-efficient backends, which an
+   unpinned call may pick, and the plain version.
 4. slice: ``CONFIGS["llama3_8b"]`` at bf16 params (8.03 B parameters,
    all 32 layers) with random weights from a seeded generator on the
    card. (a) ``forward`` on (1, 2048) tokens: finite f32 logits, 32
@@ -214,6 +223,13 @@ def time_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def median_ms(fn, reps, windows=5):
+    """Median over ``windows`` windows of :func:`time_ms`."""
+    times = sorted(time_ms(fn, reps, warmup=2 if i == 0 else 0)
+                   for i in range(windows))
+    return times[len(times) // 2]
+
+
 def attention_bound_ms(b, hq, hkv, sq, skv, d, causal):
     """(ms, 'operations' | 'bytes'): the least time for this call's work.
     Operations: 2 matmuls x 2 flops over every visible (q, k) pair;
@@ -234,18 +250,28 @@ def visible_pairs(sq, skv, causal):
     return m * (m + 1) // 2 + max(sq - skv, 0) * skv
 
 
-def bwd_bound_ms(b, hq, hkv, sq, skv, d, causal, matmuls, outputs):
+def bwd_bound_ms(b, hq, hkv, sq, skv, d, causal, matmuls, reads, writes):
     """(ms, 'operations' | 'bytes') for a backward function doing
     ``matmuls`` products of 2*d flops over every visible (q, k) pair and
-    head, reading q, k, v, dO (bf16), lse and D (f32) once and writing
-    ``outputs`` ('q' and/or 'kv' sized bf16 grads) once."""
+    head, reading each tensor named in ``reads`` once and writing each in
+    ``writes`` once: q, o, do, dq (b, hq, sq, d) and k, v, dk, dv (b, hkv,
+    skv, d) in bf16; lse and delta (b, hq, sq) in f32."""
     flops = 2 * matmuls * d * hq * b * visible_pairs(sq, skv, causal)
-    nbytes = 2 * d * b * (2 * hq * sq + 2 * hkv * skv) + 8 * b * hq * sq
-    nbytes += 2 * d * b * (hq * sq * ("q" in outputs)
-                           + 2 * hkv * skv * ("kv" in outputs))
+    size = dict.fromkeys(("q", "o", "do", "dq"), 2 * d * b * hq * sq)
+    size.update(dict.fromkeys(("k", "v", "dk", "dv"), 2 * d * b * hkv * skv))
+    size.update(dict.fromkeys(("lse", "delta"), 4 * b * hq * sq))
+    nbytes = sum(size[n] for n in reads + writes)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+# The backward functions timed in kernel_bwd: (products, reads, writes)
+BWD_WORK = {
+    "dkv": (4, ("q", "k", "v", "do", "lse", "delta"), ("dk", "dv")),
+    "dq": (3, ("q", "k", "v", "do", "o", "lse"), ("dq", "delta")),
+    "pair": (5, ("q", "k", "v", "do", "o", "lse"), ("dq", "dk", "dv")),
+}
 
 
 def sdpa_call(q, k, v, causal, scale):
@@ -330,58 +356,130 @@ def kernel_bwd_phase():
         o, lse = A.flash_attention_fwd(q, k, v, causal=causal,
                                        return_lse=True)
         got = A.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        again = A.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        _, delta = A.flash_attention_bwd_dq(q, k, v, do, lse, o,
+                                            causal=causal)
         torch.cuda.synchronize()
+        deterministic = all(map(torch.equal, got, again))
         want = A.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
                                            o, lse, do, causal=causal)
+        want_delta = (do.float() * o.float()).sum(dim=-1)
         errs = {n: (g.float() - w).abs().max().item()
                 for n, g, w in zip(("dq", "dk", "dv"), got, want)}
-        ok = all(torch.allclose(g.float(), w, atol=BWD_TOL, rtol=BWD_TOL)
-                 for g, w in zip(got, want))
+        delta_err = (delta - want_delta).abs().max().item()
+        ok = (all(torch.allclose(g.float(), w, atol=BWD_TOL, rtol=BWD_TOL)
+                  for g, w in zip(got, want))
+              and torch.allclose(delta, want_delta, atol=LSE_TOL,
+                                 rtol=LSE_TOL) and deterministic)
         row = {"phase": "kernel_bwd", "shape": name, "b": b, "hq": hq,
                "hkv": hkv, "sq": sq, "skv": skv, "d": d, "causal": causal,
                "strided": strided, "max_abs_err": errs, "tol": BWD_TOL,
-               "ok": ok}
-        if name == "llama3_8b":
+               "delta_max_abs_err": delta_err, "delta_tol": LSE_TOL,
+               "deterministic": deterministic, "ok": ok}
+        if name in ("llama3_8b", "ragged"):
             row.update(bwd_times(q, k, v, o, lse, do, causal))
         emit(row)
-        if not (ok and all(map(math.isfinite, errs.values()))):
+        if not (ok and all(map(math.isfinite, errs.values()))
+                and math.isfinite(delta_err)):
             raise AssertionError(f"flash backward kernels disagree with "
-                                 f"their plain version at {name}: {errs}")
+                                 f"their plain version at {name}: {errs}, "
+                                 f"D {delta_err}, two calls equal: "
+                                 f"{deterministic}")
         rows.append(row)
     return rows
 
 
 def bwd_times(q, k, v, o, lse, do, causal):
-    """Device times of the backward at one shape: each kernel alone, the
-    pair with D, SDPA's backward (yardstick) and the plain version."""
+    """Device times of the backward at one shape, each the median of 5
+    windows: each kernel alone, the pair (dQ with D, then dK/dV), SDPA's
+    backward (a yardstick, its backend pinned) and the plain version;
+    bounds, TFLOP/s and shares of bound; the host time of one pair call
+    (wrapper checks, tensor-map encodings, launches)."""
     import torch
-    import torch.nn.functional as F
     from mxtpu_torch.ops import attention as A
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    delta = (do.float() * o.float()).sum(dim=-1)
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
-                                         enable_gqa=hq != hkv)
-    dims = (b, hq, hkv, sq, skv, d, causal)
-    dkv_bound, dkv_by = bwd_bound_ms(*dims, matmuls=4, outputs=("kv",))
-    dq_bound, dq_by = bwd_bound_ms(*dims, matmuls=3, outputs=("q",))
-    pair_bound, pair_by = bwd_bound_ms(*dims, matmuls=5,
-                                       outputs=("q", "kv"))
-    return {
-        "dkv_ms": time_ms(lambda: A.flash_attention_bwd_dkv(
-            q, k, v, do, lse, delta, causal=causal), reps=20),
-        "dq_ms": time_ms(lambda: A.flash_attention_bwd_dq(
-            q, k, v, do, lse, delta, causal=causal), reps=20),
-        "pair_ms": time_ms(lambda: A.flash_attention_bwd(
-            q, k, v, o, lse, do, causal=causal), reps=20),
-        "library_ms": time_ms(lambda: torch.autograd.grad(
-            out, leaves, do, retain_graph=True), reps=20),
-        "plain_ms": time_ms(lambda: A.flash_attention_bwd_plain(
-            q, k, v, o, lse, do, causal=causal), reps=3, warmup=1),
-        "dkv_bound_ms": dkv_bound, "dkv_bound_by": dkv_by,
-        "dq_bound_ms": dq_bound, "dq_bound_by": dq_by,
-        "pair_bound_ms": pair_bound, "pair_bound_by": pair_by}
+    _, delta = A.flash_attention_bwd_dq(q, k, v, do, lse, o, causal=causal)
+    calls = {
+        "dkv": lambda: A.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                 causal=causal),
+        "dq": lambda: A.flash_attention_bwd_dq(q, k, v, do, lse, o,
+                                               causal=causal),
+        "pair": lambda: A.flash_attention_bwd(q, k, v, o, lse, do,
+                                              causal=causal)}
+    pairs = visible_pairs(sq, skv, causal)
+    out = {}
+    for name, fn in calls.items():
+        matmuls, reads, writes = BWD_WORK[name]
+        bound, bound_by = bwd_bound_ms(b, hq, hkv, sq, skv, d, causal,
+                                       matmuls, reads, writes)
+        ms = median_ms(fn, reps=20)
+        out.update({f"{name}_ms": ms, f"{name}_bound_ms": bound,
+                    f"{name}_bound_by": bound_by,
+                    f"{name}_bound_share": bound / ms,
+                    f"{name}_tflops": 2 * matmuls * d * hq * b * pairs
+                    / ms / 1e9})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        calls["pair"]()
+    out["pair_host_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    # SDPA's backward, pinned to the flash backend for library_ms; the
+    # others that take these inputs beside it, since an unpinned call
+    # may pick any of them
+    by_backend = {}
+    for backend in SDPA_BACKENDS:
+        timed = sdpa_backward(q, k, v, do, causal, backend)
+        if timed is not None:
+            grad, node, gqa = timed
+            by_backend[backend] = {"ms": median_ms(grad, reps=20),
+                                   "node": node, "gqa": gqa}
+            del grad
+    flash = by_backend["FLASH_ATTENTION"]
+    out.update(library_ms=flash["ms"], library_backend=flash["node"],
+               library_gqa=flash["gqa"], library_by_backend=by_backend,
+               plain_ms=time_ms(lambda: A.flash_attention_bwd_plain(
+                   q, k, v, o, lse, do, causal=causal), reps=3, warmup=1))
+    return out
+
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
+
+
+def sdpa_backward(q, k, v, do, causal, backend):
+    """SDPA's backward on the same inputs as a yardstick (the port never
+    calls it), pinned to ``backend`` (an ``SDPBackend`` name): (the timed
+    call, the backward node's name, how GQA was taken), or None if the
+    backend takes these inputs neither way. Where it refuses
+    ``enable_gqa``, k and v are repeated to hq heads outside the timed
+    call."""
+    import warnings
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    rep = q.shape[1] // k.shape[1]
+    tries = [("native" if rep > 1 else "none (hq == hkv)", 1)]
+    if rep > 1:
+        tries.append(("k and v repeated outside the timed call", rep))
+    for gqa, r in tries:
+        leaves = [q.detach().requires_grad_()] + [
+            (t.repeat_interleave(r, dim=1) if r > 1 else t).detach()
+            .requires_grad_() for t in (k, v)]
+        try:
+            with sdpa_kernel([getattr(SDPBackend, backend)]), \
+                    warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                out = F.scaled_dot_product_attention(
+                    *leaves, is_causal=causal,
+                    enable_gqa=leaves[1].shape[1] != q.shape[1])
+                torch.autograd.grad(out, leaves, do, retain_graph=True)
+        except RuntimeError:
+            continue
+        return (lambda: torch.autograd.grad(out, leaves, do,
+                                            retain_graph=True),
+                out.grad_fn.name(), gqa)
+    return None
 
 
 def slice_phase():
@@ -979,9 +1077,20 @@ def _leaves_with_keys(tree):
             yield k, v
 
 
-def fwd_kernel_report(info):
-    """Per head dim of the forward kernel: registers at launch (ptxas,
-    and the runtime's count), the dynamic shared memory each launch asks
+# The Hopper kernels reported in the build line: name -> (SASS function
+# tag, the library's attrs entry point and its leading arguments)
+REPORTED_KERNELS = {
+    "flash_fwd": ("flash_fwd_kernelILi{d}E", "mxtpu_flash_attn_fwd_attrs", ()),
+    "flash_bwd_dkv": ("flash_bwd_dkv_kernelILi{d}E",
+                      "mxtpu_flash_attn_bwd_attrs", (0,)),
+    "flash_bwd_dq": ("flash_bwd_dq_kernelILi{d}E",
+                     "mxtpu_flash_attn_bwd_attrs", (1,)),
+}
+
+
+def kernel_report(info):
+    """Per Hopper kernel and head dim: registers at launch (ptxas, and
+    the runtime's count), the dynamic shared memory each launch asks
     for, and from its SASS (``cuobjdump -sass`` of the built library)
     the HGMMA (wgmma), UTMALDG and UTMASTG (TMA load and store)
     instructions, the highest register the consumer warpgroups use after
@@ -991,7 +1100,7 @@ def fwd_kernel_report(info):
     import os
     import re
     from mxtpu_torch.ops import _build
-    attrs = _build.load_kernels().mxtpu_flash_attn_fwd_attrs
+    lib = _build.load_kernels()
     ptxas_regs, fn = {}, None
     for ln in str(info["ptxas"]).splitlines():
         m = re.search(r"entry function '([^']+)'", ln)
@@ -1008,20 +1117,25 @@ def fwd_kernel_report(info):
     for chunk in sass.split("Function : ")[1:]:
         funcs[chunk.split(None, 1)[0]] = chunk
     out = {}
-    for d in (64, 128):
-        tag = f"flash_fwd_kernelILi{d}E"
-        regs, smem = ctypes.c_int(0), ctypes.c_int(0)
-        _build.check(attrs(d, ctypes.byref(regs), ctypes.byref(smem)),
-                     "mxtpu_flash_attn_fwd_attrs")
-        text = "".join(c for f, c in funcs.items() if tag in f)
-        out[f"d{d}"] = {
-            "ptxas_registers": [r for f, r in ptxas_regs.items() if tag in f],
-            "registers": regs.value, "dynamic_smem_bytes": smem.value,
-            "HGMMA": text.count("HGMMA"), "UTMALDG": text.count("UTMALDG"),
-            "UTMASTG": text.count("UTMASTG"),
-            "sass_registers": 1 + max(
-                (int(r) for r in re.findall(r"\bR(\d+)\b", text)), default=-1),
-            "STL": len(re.findall(r"\bSTL\b", text))}
+    for kernel, (tag_fmt, attrs_fn, lead) in REPORTED_KERNELS.items():
+        attrs = getattr(lib, attrs_fn)
+        out[kernel] = {}
+        for d in (64, 128):
+            tag = tag_fmt.format(d=d)
+            regs, smem = ctypes.c_int(0), ctypes.c_int(0)
+            _build.check(attrs(*lead, d, ctypes.byref(regs),
+                               ctypes.byref(smem)), attrs_fn)
+            text = "".join(c for f, c in funcs.items() if tag in f)
+            out[kernel][f"d{d}"] = {
+                "ptxas_registers": [r for f, r in ptxas_regs.items()
+                                    if tag in f],
+                "registers": regs.value, "dynamic_smem_bytes": smem.value,
+                "HGMMA": text.count("HGMMA"), "UTMALDG": text.count("UTMALDG"),
+                "UTMASTG": text.count("UTMASTG"),
+                "sass_registers": 1 + max(
+                    (int(r) for r in re.findall(r"\bR(\d+)\b", text)),
+                    default=-1),
+                "STL": len(re.findall(r"\bSTL\b", text))}
     return out
 
 
@@ -1042,17 +1156,18 @@ def main():
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
     _build.load_kernels()
     info = _build.build_info()
-    fwd = fwd_kernel_report(info)
+    report = kernel_report(info)
     emit({"phase": "build", "built": info["built"],
-          "seconds": info["seconds"], "path": info["path"],
-          "flash_fwd": fwd,
+          "seconds": info["seconds"], "path": info["path"], **report,
           "ptxas": [ln.strip() for ln in str(info["ptxas"]).splitlines()
                     if any(w in ln for w in ("entry function", "registers",
                                              "spill", "wgmma",
                                              "setmaxnreg"))]})
-    if not all(r["HGMMA"] and r["UTMALDG"] for r in fwd.values()):
-        raise AssertionError(f"the forward kernel's SASS lacks wgmma or TMA "
-                             f"loads: {fwd}")
+    lacking = [f"{k} {d}" for k, per_d in report.items()
+               for d, r in per_d.items() if not (r["HGMMA"] and r["UTMALDG"])]
+    if lacking:
+        raise AssertionError(f"the SASS of {lacking} lacks wgmma or TMA "
+                             f"loads: {report}")
 
     rows = {r["shape"]: r for r in kernel_phase()}
     bwd_rows = {r["shape"]: r for r in kernel_bwd_phase()}

@@ -56,11 +56,13 @@ _SIGNATURES = {
         [_c_ptr] * 8 + [_c_i64] * 12 + [_c_int] * 6
         + [ctypes.c_float, _c_int, _c_ptr],
     "mxtpu_flash_attn_bwd_dq_bf16":
-        [_c_ptr] * 7 + [_c_i64] * 12 + [_c_int] * 6
+        [_c_ptr] * 8 + [_c_i64] * 15 + [_c_int] * 6
         + [ctypes.c_float, _c_int, _c_ptr],
     "mxtpu_conv3x3_bf16": [_c_ptr] * 3 + [_c_int] * 5 + [_c_ptr],
-    # the forward kernel's registers and shared memory, for reports
+    # the kernels' registers and shared memory, for reports
     "mxtpu_flash_attn_fwd_attrs": [_c_int, ctypes.POINTER(_c_int),
+                                   ctypes.POINTER(_c_int)],
+    "mxtpu_flash_attn_bwd_attrs": [_c_int, _c_int, ctypes.POINTER(_c_int),
                                    ctypes.POINTER(_c_int)],
 }
 

@@ -9,8 +9,9 @@ tensor runs :func:`blockwise_attention`, the plain version, which
 autograd differentiates; a CUDA tensor launches the CUDA C++ kernel of
 ``csrc/flash_attn_fwd.cu`` through :func:`flash_attention_fwd`, or
 raises. Under grad it goes through :class:`_FlashAttention`, whose
-backward launches the dK/dV and dQ kernels of ``csrc/flash_attn_bwd.cu``
-through :func:`flash_attention_bwd`; their plain version is
+backward launches the dQ kernel (which also writes D = rowsum(dO o))
+and then the dK/dV kernel of ``csrc/flash_attn_bwd.cu`` through
+:func:`flash_attention_bwd`; their plain version is
 :func:`flash_attention_bwd_plain`. There is no fallback from a kernel to
 a plain version, by shape or by exception.
 ``slot_decode_attention``, ``paged_decode_attention``,
@@ -198,19 +199,26 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = False,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _readable(t):
+    """Whether the kernels' tensor maps take ``t`` as it lies: a unit
+    last-dim stride, the other strides nonzero multiples of 8 (a size-1
+    dim's stride is never stepped, so it may be anything) and a 16-byte
+    aligned base."""
+    strided = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+    return (t.stride(3) == 1 and all(s and not s % 8 for s in strided)
+            and not t.data_ptr() % 16)
+
+
 def _check_layout(who, name, t, device):
     """Raise unless ``t`` is bf16 on ``device`` (a CUDA device) with the
     strides and alignment the kernels read."""
     if t.dtype != torch.bfloat16:
         raise TypeError(f"{who} takes bfloat16 ({name} is {t.dtype}); the "
                         "kernel has no other instantiation")
-    # a size-1 dim's stride is never stepped, so it may be anything
-    strided = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
-    if t.stride(3) != 1 or any(s % 8 for s in strided) \
-            or t.data_ptr() % 16:
+    if not _readable(t):
         raise ValueError(
             f"{name} needs a unit last-dim stride, strides that are "
-            f"multiples of 8 and a 16-byte aligned base; got strides "
+            f"nonzero multiples of 8 and a 16-byte aligned base; got strides "
             f"{t.stride()}")
     if t.device.type != "cuda" or t.device != device:
         raise ValueError(f"{who} needs its tensors on one CUDA device "
@@ -276,30 +284,35 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
 flash_attention_fwd.launches = 0
 
 
-def _check_bwd_args(who, q, k, v, do, lse, delta):
-    """Raise on anything the backward kernels do not take."""
+def _check_bwd_args(who, q, k, v, do, lse):
+    """Raise on anything the backward kernels do not take in q, k, v, do
+    and lse."""
     if do.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} must match q "
                          f"{tuple(q.shape)}")
     _check_kernel_args(q, k, v, who)
     _check_layout(who, "do", do, q.device)
-    for name, t in (("lse", lse), ("delta", delta)):
-        if (t.shape != q.shape[:3] or t.dtype != torch.float32
-                or not t.is_contiguous() or t.device != q.device):
-            raise ValueError(f"{who}: {name} must be contiguous f32 "
-                             f"{tuple(q.shape[:3])} on {q.device}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    _check_rows(who, "lse", lse, q)
 
 
-def _bwd_launch_args(q, k, v, do, lse, delta, causal, scale):
+def _check_rows(who, name, t, q):
+    """Raise unless ``t`` is contiguous f32 (b, hq, sq) on q's device."""
+    if (t.shape != q.shape[:3] or t.dtype != torch.float32
+            or not t.is_contiguous() or t.device != q.device):
+        raise ValueError(f"{who}: {name} must be contiguous f32 "
+                         f"{tuple(q.shape[:3])} on {q.device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _strides(*ts):
+    return tuple(s for t in ts for s in t.stride()[:3])
+
+
+def _tail_args(q, k, causal, scale):
     b, hq, sq, d = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr()),
-            (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-             *do.stride()[:3], b, hq, k.shape[1], sq, k.shape[2], d,
-             float(scale), int(bool(causal)),
-             torch.cuda.current_stream(q.device).cuda_stream))
+    return (b, hq, k.shape[1], sq, k.shape[2], d, float(scale),
+            int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *,
@@ -310,16 +323,21 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *,
     head's group of query heads. q, k, v as for
     :func:`flash_attention_fwd`; ``do`` the grad of its output, laid
     out like q; ``lse`` its row logsumexp and ``delta`` = rowsum(dO o),
-    both f32 (b, hq, sq) contiguous. ``.launches`` counts launches."""
-    _check_bwd_args("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
+    both f32 (b, hq, sq) contiguous, ``delta`` as
+    :func:`flash_attention_bwd_dq` returns it. ``.launches`` counts
+    launches."""
+    who = "flash_attention_bwd_dkv"
+    _check_bwd_args(who, q, k, v, do, lse)
+    _check_rows(who, "delta", delta, q)
     from ._build import check, load_kernels
     lib = load_kernels()
     dk = torch.empty(tuple(k.shape), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
     with torch.cuda.device(q.device):
-        ins, rest = _bwd_launch_args(q, k, v, do, lse, delta, causal, scale)
         err = lib.mxtpu_flash_attn_bwd_dkv_bf16(
-            *ins, dk.data_ptr(), dv.data_ptr(), *rest)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_strides(q, k, v, do), *_tail_args(q, k, causal, scale))
     check(err, "flash_attention_bwd_dkv launch")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
@@ -328,22 +346,34 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *,
 flash_attention_bwd_dkv.launches = 0
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta, *,
+def flash_attention_bwd_dq(q, k, v, do, lse, o, *,
                            causal: bool = False,
                            scale: Optional[float] = None):
     """Launch the dQ backward kernel on the current stream: returns a new
-    contiguous bf16 dq, (b, hq, sq, d). Arguments as for
-    :func:`flash_attention_bwd_dkv`. ``.launches`` counts launches."""
-    _check_bwd_args("flash_attention_bwd_dq", q, k, v, do, lse, delta)
+    contiguous bf16 dq, (b, hq, sq, d), and ``delta`` = rowsum(dO o),
+    f32 (b, hq, sq), which the kernel computes on the way and
+    :func:`flash_attention_bwd_dkv` reads. q, k, v, do and lse as for
+    that function; ``o`` the forward's output, laid out like q.
+    ``.launches`` counts launches."""
+    who = "flash_attention_bwd_dq"
+    _check_bwd_args(who, q, k, v, do, lse)
+    if o.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} must match q "
+                         f"{tuple(q.shape)}")
+    _check_layout(who, "o", o, q.device)
     from ._build import check, load_kernels
     lib = load_kernels()
     dq = torch.empty(tuple(q.shape), dtype=q.dtype, device=q.device)
+    delta = torch.empty(tuple(q.shape[:3]), dtype=torch.float32,
+                        device=q.device)
     with torch.cuda.device(q.device):
-        ins, rest = _bwd_launch_args(q, k, v, do, lse, delta, causal, scale)
-        err = lib.mxtpu_flash_attn_bwd_dq_bf16(*ins, dq.data_ptr(), *rest)
+        err = lib.mxtpu_flash_attn_bwd_dq_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_strides(q, k, v, do, o), *_tail_args(q, k, causal, scale))
     check(err, "flash_attention_bwd_dq launch")
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return dq, delta
 
 
 flash_attention_bwd_dq.launches = 0
@@ -353,25 +383,24 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
                         scale: Optional[float] = None):
     """The backward on the card: (dq, dk, dv) from q, k, v, the output
     ``o`` and row logsumexp ``lse`` of :func:`flash_attention_fwd`, and
-    the output grad ``do``. D = rowsum(dO o) is a plain f32 reduction,
-    as the reference computes it outside its kernels; then the dK/dV
-    and dQ kernels launch. Raises on what the kernels do not take."""
+    the output grad ``do``. The dQ kernel launches first and also writes
+    D = rowsum(dO o), which the reference computes outside its kernels;
+    the dK/dV kernel then reads it, on the same stream. Raises on what
+    the kernels do not take."""
     if o.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} must match q "
                          f"{tuple(q.shape)}")
-    do = do.contiguous()
-    delta = (do.float() * o.float()).sum(dim=-1)
+    dq, delta = flash_attention_bwd_dq(q, k, v, do, lse, o, causal=causal,
+                                       scale=scale)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                      causal=causal, scale=scale)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal,
-                                scale=scale)
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
     """Attention on the card with the hand-written kernels both ways:
     the forward kernel also writes the row logsumexp, and the backward
-    launches the dK/dV and dQ kernels. The counterpart of the custom VJP
+    launches the dQ and dK/dV kernels. The counterpart of the custom VJP
     around the reference's Pallas flash attention."""
 
     @staticmethod
@@ -385,6 +414,11 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
+        # The kernels read dO through its strides; autograd may hand over
+        # a grad they cannot take (an expanded one has stride 0), which
+        # alone is copied, into a fresh (aligned) buffer.
+        if not _readable(do):
+            do = do.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
                                          causal=ctx.causal, scale=ctx.scale)
         return dq, dk, dv, None, None

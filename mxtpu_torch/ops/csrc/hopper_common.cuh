@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's kernels: TMA tensor
 // maps and loads, mbarriers, wgmma shared-memory descriptors and
-// instructions, and setmaxnreg. flash_attn_fwd.cu uses them; the
-// mma.sync helpers of flash_common.cuh stay for the kernels that still
-// use mma.sync.
+// instructions, and setmaxnreg. flash_attn_fwd.cu and flash_attn_bwd.cu
+// use them; the mma.sync helpers of flash_common.cuh stay for conv3x3.cu,
+// which still uses mma.sync.
 //
 // Layouts (all bf16, 128-byte swizzle, every tile 1024-byte aligned):
 // a TMA box is 64 columns (128 bytes) x R rows, written to shared
@@ -15,8 +15,8 @@
 //    and columns 64.. start at the next box.
 //  - MN-major B operand (contraction dim runs down the rows, V in
 //    P V): 8-row groups along the contraction at SBO = 1024 B, 64-column
-//    atoms along n at LBO = the box's size in bytes; the k-step of 16
-//    rows adds 2048 B.
+//    atoms along n at LBO = the box's size in bytes (16 KB for a 128-row
+//    box, 8 KB for a 64-row one); the k-step of 16 rows adds 2048 B.
 // The m64nNk16 accumulator of a warpgroup is the m16n8 C fragment of
 // each warp's 16 rows repeated over N / 8 column blocks: with
 // g = lane / 4, t4 = lane % 4 and warp w of the warpgroup,
@@ -303,6 +303,26 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
         "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
         "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransB));
 }
 
 template <int kTransB>

@@ -71,6 +71,47 @@ def test_flash_attention_grads_match_mxtpu(hq, hkv, sq, skv, causal):
     assert tattn.flash_attention_bwd_dq.launches == 0
 
 
+# (hq, hkv, sq, skv) at the edges of the backward kernels' tiles: a row
+# and a key past a 64-row tile, and past 128 rows and 256 keys
+KERNEL_TILE_SHAPES = [(4, 2, 65, 130), (4, 2, 129, 257)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hq,hkv,sq,skv", KERNEL_TILE_SHAPES)
+def test_flash_attention_grads_at_the_kernel_tiles_match_mxtpu(
+        hq, hkv, sq, skv, causal):
+    arrays = _inputs(5, 1, hq, hkv, sq, skv, 64)
+    want = _ref_grads(jattn.flash_attention, *arrays, causal=causal,
+                      kv_block=64)
+    got = _port_grads(tattn.flash_attention, *arrays, causal=causal,
+                      kv_block=64)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, err_msg=f"d{name}", **TOL)
+
+
+def test_keys_that_no_query_sees_get_exactly_zero_grads():
+    """Causal with sq < skv: the keys at or past sq see no query, so their
+    dk and dv rows are exactly zero, in the plain version of the
+    backward kernels and in mxtpu. The dK/dV kernel's CTAs of such keys
+    have no work and must still write these zeros."""
+    sq, skv = 65, 130
+    q, k, v, do = _inputs(6, 1, 4, 2, sq, skv, 64)
+    want = _ref_grads(jattn.flash_attention, q, k, v, do, causal=True,
+                      kv_block=64)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    out, lse = tattn.blockwise_attention(tq, tk, tv, causal=True,
+                                         kv_block=64, return_lse=True)
+    got = tattn.flash_attention_bwd_plain(tq, tk, tv, out, lse, tdo,
+                                          causal=True, kv_block=64)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g.numpy(), w, err_msg=f"d{name}", **TOL)
+    for name, g, w in zip("kv", got[1:], want[1:]):
+        assert np.all(g.numpy()[:, :, sq:] == 0.0), f"plain d{name}"
+        assert np.all(w[:, :, sq:] == 0.0), f"mxtpu d{name}"
+        assert np.any(g.numpy()[:, :, :sq] != 0.0)
+
+
 def test_fully_masked_rows_have_zero_grads():
     """Causal with a key offset: query rows that see no key have zero
     output and zero dq in both packages, and send nothing to dk, dv."""
@@ -128,6 +169,19 @@ def test_bwd_plain_gives_zero_grads_for_rows_with_no_key():
         q, k, v, out, lse_cut, do_cut, causal=True)
     np.testing.assert_array_equal(dk.numpy(), dk_ref.numpy())
     np.testing.assert_array_equal(dv.numpy(), dv_ref.numpy())
+
+
+def test_only_grads_the_kernels_cannot_read_are_copied():
+    """The backward hands dO to the kernels through its strides; an
+    expanded grad (stride 0) or one without a unit last-dim stride is
+    what it copies first."""
+    base = torch.zeros((2, 8, 4, 64), dtype=torch.bfloat16)
+    assert tattn._readable(base)
+    assert tattn._readable(base.transpose(1, 2))      # (b, s, h, d) storage
+    assert tattn._readable(base[:1].expand(3, -1, -1, -1)[:1])
+    assert not tattn._readable(base[:1].expand(3, -1, -1, -1))
+    assert not tattn._readable(torch.ones(()).expand(2, 4, 8, 64))
+    assert not tattn._readable(base.transpose(2, 3))
 
 
 def test_bwd_kernel_wrappers_refuse_what_the_kernels_do_not_take():

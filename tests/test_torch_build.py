@@ -44,6 +44,16 @@ def test_the_forward_kernel_uses_the_hopper_header():
     assert '#include "flash_common.cuh"' not in text
 
 
+def test_the_backward_kernels_use_the_hopper_header():
+    text = (CSRC / "flash_attn_bwd.cu").read_text()
+    assert '#include "hopper_common.cuh"' in text
+    assert "hopper::wgmma_" in text and "hopper::tma_load_4d" in text
+    # the mma.sync backward is gone: no mma.sync helpers
+    assert '#include "flash_common.cuh"' not in text
+    # which leaves conv3x3 as the reason flash_common.cuh is still listed
+    assert '#include "flash_common.cuh"' in (CSRC / "conv3x3.cu").read_text()
+
+
 @pytest.mark.parametrize("name", _build.SOURCES + _build.HEADERS)
 def test_editing_any_file_changes_the_build_hash(name, tmp_path, monkeypatch):
     copy = tmp_path / "csrc"
