@@ -39,7 +39,7 @@ __all__ = ["load_kernels", "build_info", "check", "load_rtc", "SOURCES",
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[2]
 SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "conv3x3.cu")
-HEADERS = ("flash_common.cuh", "hopper_common.cuh")  # included by the sources
+HEADERS = ("hopper_common.cuh",)  # included by the sources
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -58,12 +58,14 @@ _SIGNATURES = {
     "mxtpu_flash_attn_bwd_dq_bf16":
         [_c_ptr] * 8 + [_c_i64] * 15 + [_c_int] * 6
         + [ctypes.c_float, _c_int, _c_ptr],
-    "mxtpu_conv3x3_bf16": [_c_ptr] * 3 + [_c_int] * 5 + [_c_ptr],
+    "mxtpu_conv3x3_bf16": [_c_ptr] * 3 + [_c_int] * 7 + [_c_ptr],
     # the kernels' registers and shared memory, for reports
     "mxtpu_flash_attn_fwd_attrs": [_c_int, ctypes.POINTER(_c_int),
                                    ctypes.POINTER(_c_int)],
     "mxtpu_flash_attn_bwd_attrs": [_c_int, _c_int, ctypes.POINTER(_c_int),
                                    ctypes.POINTER(_c_int)],
+    "mxtpu_conv3x3_attrs": [_c_int, _c_int, ctypes.POINTER(_c_int),
+                            ctypes.POINTER(_c_int)],
 }
 
 _lib: Optional[ctypes.CDLL] = None

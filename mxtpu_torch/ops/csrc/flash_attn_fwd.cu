@@ -476,9 +476,9 @@ int mxtpu_flash_attn_fwd_attrs(int d, int* regs, int* smem_bytes) {
 const char* mxtpu_cuda_error_string(int err) {
   static thread_local char msg[96];
   if (err == hopper::kErrNoEncode)
-    return "the CUDA driver has no cuTensorMapEncodeTiled";
+    return "the CUDA driver has no cuTensorMapEncodeTiled or cuTensorMapEncodeIm2col";
   if (err <= hopper::kErrEncodeBase) {
-    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed with CUresult %d",
+    snprintf(msg, sizeof msg, "a tensor-map encode failed with CUresult %d",
              hopper::kErrEncodeBase - err);
     return msg;
   }

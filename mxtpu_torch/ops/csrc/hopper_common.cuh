@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's kernels: TMA tensor
-// maps and loads, mbarriers, wgmma shared-memory descriptors and
-// instructions, and setmaxnreg. flash_attn_fwd.cu and flash_attn_bwd.cu
-// use them; the mma.sync helpers of flash_common.cuh stay for conv3x3.cu,
-// which still uses mma.sync.
+// maps (tiled and im2col) and loads, mbarriers, wgmma shared-memory
+// descriptors and instructions, setmaxnreg, and the cluster barrier and
+// distributed shared memory. flash_attn_fwd.cu, flash_attn_bwd.cu and
+// conv3x3.cu are built on them.
 //
 // Layouts (all bf16, 128-byte swizzle, every tile 1024-byte aligned):
 // a TMA box is 64 columns (128 bytes) x R rows, written to shared
@@ -44,28 +44,43 @@ using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t
                                    CUtensorMapL2promotion,
                                    CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so
-// the library needs no -lcuda; null if the driver does not have it.
-inline EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
+using EncodeIm2colFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                    void*, const cuuint64_t*, const cuuint64_t*,
+                                    const int*, const int*, cuuint32_t, cuuint32_t,
+                                    const cuuint32_t*, CUtensorMapInterleave,
+                                    CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                    CUtensorMapFloatOOBfill);
+
+// A driver function through the runtime's driver entry point, so the
+// library needs no -lcuda; null if the driver does not have it.
+template <class Fn>
+inline Fn driver_entry(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
 #if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+  cudaError_t err = cudaGetDriverEntryPointByVersion(name, &p, 12000,
+                                                     cudaEnableDefault, &found);
 #else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
+  cudaError_t err = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &found);
 #endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
+  return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+             ? reinterpret_cast<Fn>(p)
+             : nullptr;
+}
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = driver_entry<EncodeTiledFn>("cuTensorMapEncodeTiled");
   return fn;
 }
 
-// Error codes of encode_bf16_4d, below every cudaError_t.
-constexpr int kErrNoEncode = -1;       // driver has no cuTensorMapEncodeTiled
+inline EncodeIm2colFn encode_im2col() {
+  static const EncodeIm2colFn fn =
+      driver_entry<EncodeIm2colFn>("cuTensorMapEncodeIm2col");
+  return fn;
+}
+
+// Error codes of the encoders below, below every cudaError_t.
+constexpr int kErrNoEncode = -1;       // driver has no cuTensorMapEncode*
 constexpr int kErrEncodeBase = -1000;  // -1000 - CUresult of a failed encode
 
 // A tensor map over a bf16 tensor of logical shape (b, h, s, d) with
@@ -96,6 +111,38 @@ inline int encode_bf16_4d(CUtensorMap* map, const void* base, int d, int s,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kErrEncodeBase - static_cast<int>(res);
+}
+
+// An im2col tensor map over a contiguous NHWC bf16 tensor x (b, h, w, c),
+// as dims (c, w, h, b), for the taps of a 3x3 stride-1 SAME window:
+// each load brings `pixels` consecutive output pixels (w fastest, then h,
+// then b) x 64 channels, one 128-byte swizzled row a pixel, which is the
+// K-major A layout above. The pixel box's corners are (-1, -1) and
+// (-1, -1) in (w, h): the walk covers the w positions -1 .. w - 2 of
+// each row, the top-left taps of the w outputs. A load whose coordinates
+// are (c0, w0 - 1, h0 - 1, b0), with offsets (dx, dy) in 0..2, brings for
+// output pixel (b, y, x) of the walk that starts at (b0, h0, w0) the
+// input pixel (b, y + dy - 1, x + dx - 1), channels c0 .. c0 + 63; pixels
+// outside the image, channels past c and pixels past the last image are
+// zeros. Returns 0, or kErrNoEncode, or kErrEncodeBase - CUresult.
+inline int encode_bf16_im2col(CUtensorMap* map, const void* base, int b, int h,
+                              int w, int c, int pixels) {
+  const EncodeIm2colFn encode = encode_im2col();
+  if (encode == nullptr) return kErrNoEncode;
+  const cuuint64_t e = sizeof(__nv_bfloat16);
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h,
+                              (cuuint64_t)b};
+  const cuuint64_t strides[3] = {c * e, (cuuint64_t)w * c * e,
+                                 (cuuint64_t)h * w * c * e};
+  const int lower[2] = {-1, -1};  // (w, h)
+  const int upper[2] = {-1, -1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, lower, upper, 64, static_cast<cuuint32_t>(pixels), elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : kErrEncodeBase - static_cast<int>(res);
 }
 
@@ -167,6 +214,21 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// TMA im2col: the pixels of an encode_bf16_im2col map's walk from
+// coordinates (c, w, h, n), each shifted by the tap's (off_w, off_h),
+// into shared memory at `dst`, completing its bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d_im2col(uint32_t dst, const CUtensorMap* map,
+                                                   uint32_t bar, int c, int w, int h,
+                                                   int n, uint16_t off_w,
+                                                   uint16_t off_h) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(w), "r"(h),
+      "r"(n), "h"(off_w), "h"(off_h)
+      : "memory");
+}
+
 // TMA: shared memory at `src` into the box at (c0, c1, c2, c3) of `map`;
 // rows outside the tensor are not written. Completes in a bulk group.
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src,
@@ -204,6 +266,40 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
                : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Device: thread-block clusters
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier: every thread of every CTA of the cluster arrives
+// (releasing its shared-memory writes) and then waits (acquiring the
+// others'). Threads may reach it from different code.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The address of the same shared-memory location in CTA `rank` of the
+// cluster, and a 16-byte load from it.
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f32x4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // ---------------------------------------------------------------------------

@@ -8,7 +8,9 @@ experiment's shape, (128, 14, 14, 256) → 256 with ``w·0.05``, from a
 seeded generator, checks it against ``conv3x3_plain`` (f32 on the same
 bf16 values), and times it beside ``F.conv2d`` on the channels-last
 view (cuDNN, bf16, the library yardstick; the port never calls it for
-this conv) and the plain version, with the bound of the card.
+this conv) and the plain version, with the bound of the card. Device
+times here are ``tools.timing.time_ms``: windows queued behind a spin of
+the card, so not the host's cost of a call.
 
 Probe 1 runs ``make_train_step(resnet.loss_fn(cfg), sgd(0.1,
 momentum=0.9), has_state=True)`` for ResNet-50 (width 64, batch 256) and
@@ -42,6 +44,7 @@ import torch.nn.functional as F
 from ..models import resnet
 from ..ops import conv
 from ..parallel import optim, step as pstep
+from .timing import time_ms
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
@@ -66,21 +69,6 @@ def conv_bound_ms(b, h, w, c, o):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
-
-
-def time_ms(fn, reps, warmup=2):
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def conv_inputs(shape, gen):

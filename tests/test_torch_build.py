@@ -50,8 +50,18 @@ def test_the_backward_kernels_use_the_hopper_header():
     assert "hopper::wgmma_" in text and "hopper::tma_load_4d" in text
     # the mma.sync backward is gone: no mma.sync helpers
     assert '#include "flash_common.cuh"' not in text
-    # which leaves conv3x3 as the reason flash_common.cuh is still listed
-    assert '#include "flash_common.cuh"' in (CSRC / "conv3x3.cu").read_text()
+
+
+def test_the_conv_kernel_uses_the_hopper_header():
+    text = (CSRC / "conv3x3.cu").read_text()
+    assert '#include "hopper_common.cuh"' in text
+    assert "hopper::wgmma_" in text
+    assert "hopper::tma_load_4d_im2col" in text and "hopper::tma_load_4d(" in text
+    # the mma.sync conv is gone, and with it the last user of the
+    # mma.sync helpers' header
+    assert '#include "flash_common.cuh"' not in text
+    assert "mma.sync.aligned" not in text and "mma_16816" not in text
+    assert not (CSRC / "flash_common.cuh").exists()
 
 
 @pytest.mark.parametrize("name", _build.SOURCES + _build.HEADERS)

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 from jax.experimental.pallas import tpu as pltpu
 
 from mxtpu_torch.ops import conv
@@ -157,3 +158,123 @@ def test_conv_bound_at_resnet50_shapes(shape, ms, by):
     got, got_by = exp.conv_bound_ms(*shape)
     assert got_by == by
     np.testing.assert_allclose(got, ms, rtol=5e-4)
+
+
+# chip_smoke.py's kernel_conv shapes, (B, H, W, C, O), and the plan the
+# kernel takes at each: (BN, split)
+CHIP_SHAPES = [
+    ((128, 14, 14, 256, 256), (128, 1)),   # the experiment: 392 tiles
+    ((32, 56, 56, 64, 64), (64, 1)),       # 784 tiles, no masked columns
+    ((32, 28, 28, 128, 128), (128, 1)),    # 196 tiles
+    ((32, 7, 7, 512, 512), (128, 2)),      # 13 x 4 = 52 tiles: K in halves
+    ((3, 5, 9, 64, 72), (64, 1)),          # 2 x 2 CTAs of 9 stages
+]
+
+
+def _assert_plan_partitions(shape):
+    """Every (output pixel, output channel, tap, input channel) is
+    computed by exactly one CTA of the plan: the tiles cover M x O once
+    in each part, and the parts' K stages partition the nine taps' 64-wide
+    channel runs."""
+    b, h, w, c, o = shape
+    plan = conv._conv_plan(*shape)
+    m, bm = b * h * w, 128
+    assert (plan.m_tiles - 1) * bm < m <= plan.m_tiles * bm
+    assert (plan.n_tiles - 1) * plan.bn < o <= plan.n_tiles * plan.bn
+    stages_of = {}
+    for m0, n0, stages in plan.ctas():
+        assert m0 % bm == 0 and m0 < m and n0 % plan.bn == 0 and n0 < o
+        assert stages, "a CTA with no K stage"
+        stages_of.setdefault((m0, n0), []).extend(stages)
+    assert len(stages_of) == plan.m_tiles * plan.n_tiles
+    want = [(t, c0) for t in range(9) for c0 in range(0, c, 64)]
+    for stages in stages_of.values():
+        assert sorted(stages) == want
+    sizes = {len(s) for _, _, s in plan.ctas()}
+    assert max(sizes) - min(sizes) <= 1           # equal runs of K
+    assert plan.split in (1, 2)                   # the kernel's clusters
+    return plan
+
+
+@pytest.mark.parametrize("shape,want", CHIP_SHAPES)
+def test_conv_plan_covers_every_tile_once_at_the_chip_shapes(shape, want):
+    plan = _assert_plan_partitions(shape)
+    assert (plan.bn, plan.split) == want
+
+
+@settings(max_examples=200, deadline=None)
+@given(b=st.integers(1, 64), h=st.integers(1, 60), w=st.integers(1, 60),
+       c=st.integers(1, 64).map(lambda n: 8 * n),
+       o=st.integers(1, 80).map(lambda n: 8 * n))
+def test_conv_plan_covers_every_tile_once_at_drawn_shapes(b, h, w, c, o):
+    plan = _assert_plan_partitions((b, h, w, c, o))
+    ctas = plan.split * plan.m_tiles * plan.n_tiles
+    long_k = 9 * plan.chunks >= 27
+
+    def fits(split, bn):
+        return split * plan.m_tiles * -(-o // bn) <= 132
+
+    if fits(1, 128):
+        # a thin grid: every CTA has an SM of its own, with the least
+        # work a CTA: K in halves if K is long and they fit, then BN 64
+        assert ctas <= 132
+        assert plan.split == (2 if long_k and fits(2, 128) else 1)
+        assert plan.bn == (64 if fits(plan.split, 64) else 128)
+    else:
+        # more than one round of SMs: no split, BN by O
+        assert (plan.split, plan.bn) == (1, 64 if o <= 64 else 128)
+
+
+@pytest.mark.parametrize("o", [8, 16, 56, 64, 72, 128, 136, 512])
+def test_conv_plan_tile_width_follows_o(o):
+    """BN is 64 when O <= 64 (no tile computes masked columns); above,
+    128 on a grid that fills the card, and 64 on one that leaves SMs
+    idle (twice the CTAs, each with half the work)."""
+    for b, h, w, thin in ((1, 3, 3, True), (32, 56, 56, False)):
+        plan = conv._conv_plan(b, h, w, 64, o)
+        assert plan.bn == (64 if o <= 64 or thin else 128)
+        assert plan.n_tiles * plan.bn - o < plan.bn
+
+
+@pytest.mark.parametrize("shape", [(2, 7, 7, 32, 48), (3, 5, 9, 64, 72),
+                                   (1, 1, 1, 8, 8), (4, 3, 6, 72, 136),
+                                   (2, 60, 50, 8, 16)])
+def test_split_k_matches_plain_within_one_ulp(shape):
+    """An arithmetic argument for the split, not a test of the kernel
+    (``chip_smoke.py`` holds the kernel's split plans against its
+    unsplit ones on the card): each CTA of a cluster sums its half of
+    the K stages in f32, the leader adds rank 1's partial tile to its own
+    in f32 and rounds once to bf16. On the same bf16 inputs that is
+    ``conv3x3_plain`` (one f32 product over all nine taps, rounded once)
+    with the f32 terms summed in another order: the f32 sums lie within
+    the worst-case reordering bound 9C·2^-24·Σ|terms|, and the bf16
+    results within one bf16 ulp wherever that bound is under half an
+    ulp (most outputs; not those that cancel to near zero). The plan
+    splits only at 27 stages or more, where the worst-case bound is
+    loose; the halves' arithmetic is the same at any C, so small shapes
+    take the split plan here and keep the bound tight."""
+    b, h, w, c, o = shape
+    xt, kt, _, _ = _inputs(sum(shape), *shape)
+    plan = conv._conv_plan(*shape)._replace(split=2)
+    x, k = xt.float(), kt.float()
+    runs = {}
+    for _, _, stages in plan.ctas():
+        runs.setdefault(stages, None)
+    assert len(runs) == plan.split
+    got = None
+    for stages in runs:                      # rank order
+        mask = torch.zeros(9, c)
+        for t, c0 in stages:
+            mask[t, c0:c0 + 64] = 1.0
+        part = conv.conv3x3_plain(x, k * mask.view(3, 3, c, 1))
+        got = part if got is None else got + part
+    full = conv.conv3x3_plain(x, k)
+    bound = 9 * c * 2.0 ** -24 * conv.conv3x3_plain(x.abs(), k.abs())
+    assert ((got - full).abs() <= bound).all()
+    got16 = got.to(torch.bfloat16).float().numpy()
+    want16 = conv.conv3x3_plain(xt, kt).float().numpy()
+    mag = np.abs(full.numpy())
+    ulp = 2.0 ** (np.floor(np.log2(np.where(mag > 0, mag, 1.0))) - 7)
+    sure = bound.numpy() < ulp / 2
+    assert sure.mean() > 0.75
+    _assert_within_one_ulp(got16[sure], want16[sure])
