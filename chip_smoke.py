@@ -50,14 +50,45 @@ host's cost of a call.
    call; the backend and the GQA route are reported) as a yardstick
    only, beside it the cuDNN and memory-efficient backends, which an
    unpinned call may pick, and the plain version.
-4. slice: ``CONFIGS["llama3_8b"]`` at bf16 params (8.03 B parameters,
+4. rng: the Threefry chain of ``mxtpu_torch.prng`` on the card against
+   the same calls on the CPU: ``PRNGKey`` of 0, 42 and 2^31 - 1, their
+   ``split`` and ``fold_in`` of 0, 1 and 7, 32- and 64-bit
+   ``random_bits`` at (7,), (3, 5, 11) and (4, 128256), f32 ``uniform``
+   there and f32 and f64 ``uniform`` over [-3.3, 7.1) (the fused
+   multiply-add), all bit for bit; ``gumbel`` at (4, 128256) within 2
+   ulps of max(|g|, 1) (each ``log`` rounds within an ulp of its own
+   result); ``categorical`` on seeded (4, 128256) logits with the CPU's
+   tokens. One ``sample_logits`` call at (4, 128256), temperature 0.8,
+   top_k 50, top_p 0.95, static and traced (equal tokens): device ms and
+   host ms, no bound.
+5. slice: ``CONFIGS["llama3_8b"]`` at bf16 params (8.03 B parameters,
    all 32 layers) with random weights from a seeded generator on the
    card. (a) ``forward`` on (1, 2048) tokens: finite f32 logits, 32
    kernel launches, and the relative distance to the same model's
    ``attn_impl="dense"`` logits within its bound. (b) greedy
    ``generate`` answering 4 requests (prompt 128, 32 new tokens each),
-   twice, with the same tokens both times.
-5. train: ``CONFIGS["llama3_8b"]`` at full width and 4 layers, with the
+   twice, with the same tokens both times. On the same weights, each
+   with the launch counts set to 0 before and read after (the cached
+   path's attention is inline, as in ``mxtpu``, so none launches a
+   kernel): (c) ``generate_sampled``: the same prompts at temperature
+   0.8, top_k 50, top_p 0.95, with the default key (``PRNGKey(0)``) and
+   with ``PRNGKey(0)`` given (equal tokens), another key (other
+   tokens), per-row tensors of the same knobs (the same tokens), and a
+   mixed call whose row 0 has temperature 0 (greedy's row 0, the other
+   rows the sampled ones); tok/s beside greedy's. (d)
+   ``chunked_prefill``: a (1, 6000) prompt in chunks of 1024 (5 and a
+   remainder of 880) against ``prefill(last_only=True)``: equal cache
+   positions, last logits within 5e-2 relative, the same argmax; each
+   one's peak GB. (e) ``generate_int8``: ``quantize_params_int8`` of
+   the weights on the card (the tree's GB), the int8 prefill logits at
+   the 4 prompts within 0.2 relative of the bf16 ones, greedy
+   ``generate`` off the int8 tree twice with equal tokens; tok/s and
+   peak GB. The two bounds come from bf16 on the CPU at 2-16 layers of
+   a narrow llama3_8b: chunked 0-0.014 against planted faults (the past
+   lost, the remainder dropped) of 0.95 or more; int8 0.043-0.058
+   against faults (scales dropped, a neighbour layer's scales) of 0.56
+   or more (``python -m mxtpu_torch.tools.serve_tolerance``).
+6. train: ``CONFIGS["llama3_8b"]`` at full width and 4 layers, with the
    reference's training dtypes (f32 params, bf16 compute), remat and the
    8192-wide chunked cross-entropy. (a) The loss and the grads of
    ``layers.wq``, ``layers.wk`` and ``tok_embed`` on one seeded
@@ -69,9 +100,16 @@ host's cost of a call.
    of each backward kernel. The loss need not fall at every step: at
    this lr without warmup the third step's loss rises above the first,
    with dense attention and f32 compute too
-   (``python -m mxtpu_torch.tools.adam_dynamics``).
+   (``python -m mxtpu_torch.tools.adam_dynamics``). (c) ``train_rng``:
+   from the trained params, ``make_train_step(has_rng=True,
+   grad_accum=2)`` with ``sgd(3e-4)`` over a loss whose target mask is
+   ``prng.bernoulli(key, 0.9)``, on two (1, 2048) microbatches, 3 steps
+   with step t keyed ``fold_in(PRNGKey(1), t)``, then again from the
+   same params (equal losses), then with ``PRNGKey(2)`` (other losses):
+   finite losses, and per step 16 forward launches and 8 of each
+   backward kernel.
 
-6. kernel_conv: the conv3x3 implicit-GEMM kernel against its plain
+7. kernel_conv: the conv3x3 implicit-GEMM kernel against its plain
    version (``conv3x3_plain`` in f32 on the same bf16 values) within
    ``atol=rtol=2e-2`` (the shape experiment's ``CONV_TOL``: bf16 output
    rounding, half an ulp of up to 3.1e-2 at the outputs' magnitudes of
@@ -91,7 +129,7 @@ host's cost of a call.
    channels-last view (cuDNN, a yardstick only), with TFLOP/s of the
    needed taps and share of bound; the host time of one kernel call; the
    plain version once.
-7. resnet: ``CONFIGS["resnet50"]`` at full width (224×224, 1000
+8. resnet: ``CONFIGS["resnet50"]`` at full width (224×224, 1000
    classes) with seeded random weights, cuDNN TF32 off. (a) Eval
    ``forward`` at batch 256: finite f32 logits and img/s; the s2d stem
    against the std stem on the same params, relative distance of the
@@ -104,11 +142,11 @@ host's cost of a call.
    The launch counts are set to 0 before (a) and read after (b):
    ResNet's convs are cuDNN's, as the reference's are XLA's, so the
    path launches none of the port's kernels.
-8. experiment_probe2: the shape experiment's probe 2, untimed, with
+9. experiment_probe2: the shape experiment's probe 2, untimed, with
    the launch counts set to 0 just before it and read just after: one
    launch of the conv3x3 kernel at (128, 14, 14, 256→256), checked
    against the plain version.
-9. kernel_rtc: the two ``mx.rtc`` user kernels of
+10. kernel_rtc: the two ``mx.rtc`` user kernels of
    ``mxtpu_torch/tools/rtc_kernels.py``, compiled by ``nvcc`` at their
    first launch, against their plain versions through
    ``CudaKernel.launch`` on NDArrays: ``scale_add`` (f32) exactly at
@@ -124,7 +162,7 @@ host's cost of a call.
    its plain version and, for ``scale_add``, ``torch.add(y, x,
    alpha=2)`` as a yardstick, with the bound by bytes, and the host time
    of one ``CudaKernel.launch``.
-10. frontend: the imperative frontend at llama3_8b's FFN width (dim
+11. frontend: the imperative frontend at llama3_8b's FFN width (dim
    4096, hidden 14336, bf16, 2048 tokens, seeded weights), everything
    through ``mx.nd.array(..., ctx=mx.gpu())``, with the launch counts
    set to 0 just before (a0)+(a) and read just after. (a0) The
@@ -168,6 +206,17 @@ RTC_TOL = 1e-2             # swiglu vs plain, atol = rtol (scale_add: exact)
 FFN_TOKENS = 2048
 FFN_REL_BOUND = 2e-2       # ||rtc path - llama._ffn|| / ||llama._ffn||, bf16
 FFN_GRAD_REL_BOUND = 1e-2  # tape grads vs torch.autograd, bf16
+# the serving paths' bounds (python -m mxtpu_torch.tools.serve_tolerance:
+# bf16 on the CPU at 2-16 layers of a narrow llama3_8b, chunked 0-0.0136,
+# faults >= 0.95; int8 0.043-0.058, faults >= 0.56)
+CHUNK_REL_BOUND = 5e-2     # ||chunked - one shot|| / ||one shot||, last logits
+INT8_REL_BOUND = 0.2       # ||int8 - bf16|| / ||bf16||, last prefill logits
+CHUNK_PROMPT, CHUNK_SIZE = 6000, 1024
+GUMBEL_ULPS = 2            # card vs CPU, in ulps of max(|g|, 1)
+RNG_SEEDS = (0, 42, 2 ** 31 - 1)
+RNG_SHAPES = ((7,), (3, 5, 11), (4, 128256))
+SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+RNG_MASK_P = 0.9           # the keyed train loss keeps a target with p
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
@@ -567,6 +616,250 @@ def slice_phase():
             raise AssertionError("generate returned malformed tokens")
         if not torch.equal(out, out2):
             raise AssertionError("greedy generate is not reproducible")
+
+        serve = [sampled_phase(cfg, params, prompts, out, min(t1, t2)),
+                 chunked_phase(cfg, params, gen),
+                 int8_phase(cfg, params, prompts)]
+    return {k: launches[k] + sum(n[k] for n in serve)
+            for k in LAUNCH_COUNTERS}
+
+
+def ulps_of_max1(got, want):
+    """|got - want| in f32 ulps of max(|want|, 1): the Gumbel noise's
+    measure, where each ``log`` rounds within an ulp of its own result
+    and the inner one's ulp reaches the outer result as one ulp of 1."""
+    import torch
+    scale = torch.maximum(want.abs(), torch.ones_like(want))
+    ulp = torch.nextafter(scale, torch.full_like(scale, math.inf)) - scale
+    return ((got.double() - want.double()).abs() / ulp.double()).max().item()
+
+
+def rng_phase():
+    """The Threefry chain on the card against the same calls on the
+    CPU: keys, splits, fold_in, 32- and 64-bit bits and uniforms bit for
+    bit, gumbel within GUMBEL_ULPS, categorical tokens equal; then one
+    ``sample_logits`` call at (4, vocab) timed, static and traced."""
+    import torch
+    from mxtpu_torch import prng
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.tools.timing import host_ms, time_ms
+    calls = {}
+    for seed in RNG_SEEDS:
+        def key(dev, seed=seed):
+            return prng.PRNGKey(seed, device=dev)
+        calls[f"PRNGKey({seed})"] = key
+        calls[f"split({seed}, 3)"] = lambda dev, key=key: prng.split(
+            key(dev), 3)
+        for d in (0, 1, 7):
+            calls[f"fold_in({seed}, {d})"] = \
+                lambda dev, key=key, d=d: prng.fold_in(key(dev), d)
+        for shape in RNG_SHAPES:
+            for width in (32, 64):
+                calls[f"bits{width}({seed}, {shape})"] = \
+                    lambda dev, key=key, w=width, sh=shape: \
+                    prng.random_bits(key(dev), w, sh)
+        calls[f"uniform_f32({seed})"] = lambda dev, key=key: \
+            prng.uniform(key(dev), RNG_SHAPES[-1]).view(torch.int32)
+        for dt, it in ((torch.float32, torch.int32),
+                       (torch.float64, torch.int64)):
+            calls[f"uniform_{dt}({seed}, -3.3, 7.1)"] = \
+                lambda dev, key=key, dt=dt, it=it: prng.uniform(
+                    key(dev), (3, 5, 11), dt, -3.3, 7.1).view(it)
+    differ = [name for name, f in calls.items()
+              if not torch.equal(f("cuda").cpu(), f("cpu"))]
+    key_c, key_h = prng.PRNGKey(SEED, "cuda"), prng.PRNGKey(SEED, "cpu")
+    g_ulps = ulps_of_max1(prng.gumbel(key_c, RNG_SHAPES[-1]).cpu(),
+                          prng.gumbel(key_h, RNG_SHAPES[-1]))
+    gen = torch.Generator().manual_seed(SEED)
+    lg_h = torch.randn(RNG_SHAPES[-1], generator=gen) * 3
+    lg = lg_h.to("cuda")
+    tok_c = prng.categorical(key_c, lg).cpu()
+    tok_h = prng.categorical(key_h, lg_h)
+    b = lg.shape[0]
+    knobs = {k: torch.full((b,), v, device="cuda")
+             for k, v in SAMPLING.items()}
+
+    def static():
+        return llama.sample_logits(key_c, lg, **SAMPLING)
+
+    def traced():
+        return llama.sample_logits(key_c, lg, **knobs)
+    same_modes = bool(torch.equal(static(), traced()))
+    times = {name: {"ms": time_ms(f, 20), "host_ms": host_ms(f)}
+             for name, f in (("static", static), ("traced", traced))}
+    emit({"phase": "rng", "bit_exact_calls": len(calls),
+          "differ": differ, "gumbel_max_ulps": g_ulps,
+          "gumbel_bound_ulps": GUMBEL_ULPS,
+          "categorical_tokens": tok_c.tolist(),
+          "categorical_equal": bool(torch.equal(tok_c, tok_h)),
+          "sample_logits": {"shape": list(lg.shape), **SAMPLING, **times,
+                            "static_equals_traced": same_modes}})
+    if differ:
+        raise AssertionError(f"the chain on the card differs from the "
+                             f"CPU's at {differ}")
+    if not g_ulps <= GUMBEL_ULPS:
+        raise AssertionError(f"gumbel card vs CPU {g_ulps} ulps")
+    if not torch.equal(tok_c, tok_h):
+        raise AssertionError(f"categorical drew {tok_c} on the card, "
+                             f"{tok_h} on the CPU")
+    if not same_modes:
+        raise AssertionError("static and traced sample_logits differ")
+
+
+def sampled_phase(cfg, params, prompts, greedy, greedy_s):
+    """Sampled ``generate`` (SAMPLING) on the slice's weights and
+    prompts: the default key twice (PRNGKey(0), given the second time),
+    another key, per-row tensors of the same knobs, and a mixed call
+    whose row 0 is greedy."""
+    import torch
+    from mxtpu_torch import prng
+    from mxtpu_torch.models import llama
+    b, s0 = prompts.shape
+    n_new = greedy.shape[1] - s0
+
+    def run(rng=None, **knobs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = llama.generate(cfg, params, prompts, n_new, rng=rng,
+                             **(knobs or SAMPLING))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def col(*vals):
+        return torch.tensor(vals, device="cuda")
+    reset_launches()
+    out, t1 = run()
+    out2, t2 = run(prng.PRNGKey(0, "cuda"))
+    other, _ = run(prng.PRNGKey(1, "cuda"))
+    traced, _ = run(prng.PRNGKey(0, "cuda"), **{
+        k: col(*[v] * b) for k, v in SAMPLING.items()})
+    mixed, _ = run(prng.PRNGKey(0, "cuda"), **{
+        k: col(*([0.0 if k == "temperature" else v] + [v] * (b - 1)))
+        for k, v in SAMPLING.items()})
+    launches = read_launches()
+    checks = {"reproducible": bool(torch.equal(out, out2)),
+              "other_key_differs": not torch.equal(out, other),
+              "traced_equals_static": bool(torch.equal(traced, out)),
+              "mixed_row0_is_greedy": bool(torch.equal(mixed[0], greedy[0])),
+              "mixed_rows_sampled": bool(torch.equal(mixed[1:], out[1:]))}
+    new = out[:, s0:]
+    emit({"phase": "generate_sampled", "requests": b, "prompt_len": s0,
+          "new_tokens": n_new, **SAMPLING, "seconds": [t1, t2],
+          "tok_per_s": [b * n_new / t1, b * n_new / t2],
+          "greedy_tok_per_s": b * n_new / greedy_s,
+          "first_tokens": new[:, :8].tolist(), **checks,
+          "launches": launches})
+    if not (tuple(out.shape) == tuple(greedy.shape)
+            and torch.equal(out[:, :s0], prompts)
+            and bool(((new >= 0) & (new < cfg.vocab_size)).all())):
+        raise AssertionError("sampled generate returned malformed tokens")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"sampled generate failed {failed}")
+    if launches != only():
+        raise AssertionError(f"sampled generate launched {launches}")
+    return launches
+
+
+def chunked_phase(cfg, params, gen):
+    """``chunked_prefill`` of a (1, CHUNK_PROMPT) prompt in chunks of
+    CHUNK_SIZE against ``prefill(last_only=True)``, with each one's
+    peak memory."""
+    import torch
+    from mxtpu_torch.models import llama
+    prompt = torch.randint(0, cfg.vocab_size, (1, CHUNK_PROMPT),
+                           generator=gen, device="cuda")
+    reset_launches()
+    found = {}
+    for name in ("chunked", "one_shot"):
+        cache = llama.init_cache(cfg, 1, CHUNK_PROMPT, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        if name == "chunked":
+            lg, cache = llama.chunked_prefill(cfg, params, prompt, cache,
+                                              CHUNK_SIZE)
+        else:
+            lg, cache = llama.prefill(cfg, params, prompt, cache,
+                                      last_only=True)
+        torch.cuda.synchronize()
+        found[name] = (lg, cache["pos"], time.perf_counter() - t0,
+                       torch.cuda.max_memory_allocated() / 1e9,
+                       (torch.cuda.max_memory_allocated() - before) / 1e9)
+        del cache
+    launches = read_launches()
+    (lc, pc, tc, gc, dc), (l1, p1, t1, g1, d1) = found.values()
+    rel = rel_dist(lc, l1)
+    same_argmax = bool(torch.equal(lc.argmax(-1), l1.argmax(-1)))
+    emit({"phase": "chunked_prefill", "prompt_len": CHUNK_PROMPT,
+          "chunk": CHUNK_SIZE, "passes": -(-CHUNK_PROMPT // CHUNK_SIZE),
+          "logits": list(lc.shape), "pos": [pc, p1],
+          "seconds": {"chunked": tc, "one_shot": t1},
+          "peak_gb": {"chunked": gc, "one_shot": g1},
+          "peak_gb_above_start": {"chunked": dc, "one_shot": d1},
+          "rel_err": rel, "rel_err_bound": CHUNK_REL_BOUND,
+          "argmax_equal": same_argmax, "launches": launches})
+    if not (pc == p1 == CHUNK_PROMPT and lc.shape == l1.shape
+            and bool(torch.isfinite(lc).all())):
+        raise AssertionError("chunked prefill: cache positions or logits")
+    if not (rel <= CHUNK_REL_BOUND and same_argmax):
+        raise AssertionError(f"chunked vs one-shot logits {rel} > "
+                             f"{CHUNK_REL_BOUND} or another argmax")
+    if launches != only():
+        raise AssertionError(f"chunked prefill launched {launches}")
+    return launches
+
+
+def int8_phase(cfg, params, prompts):
+    """``quantize_params_int8`` of the slice's weights on the card; the
+    int8 prefill logits against the bf16 ones; greedy ``generate`` off
+    the int8 tree twice."""
+    import torch
+    from mxtpu_torch.models import llama
+    b, s0 = prompts.shape
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q = llama.quantize_params_int8(cfg, params)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    int8_gb = sum(t.numel() * t.element_size()
+                  for _, t in _leaves_with_keys(q)) / 1e9
+
+    def last_logits(tree):
+        lg, _ = llama.prefill(cfg, tree, prompts,
+                              llama.init_cache(cfg, b, s0, device="cuda"),
+                              last_only=True)
+        return lg
+    rel = rel_dist(last_logits(q), last_logits(params))
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = llama.generate(cfg, q, prompts, 32)
+        torch.cuda.synchronize()
+        runs.append((out, time.perf_counter() - t0))
+    launches = read_launches()
+    (out, t1), (out2, t2) = runs
+    new = out[:, s0:]
+    emit({"phase": "generate_int8", "int8_tree_gb": int8_gb,
+          "quantize_seconds": quant_s, "rel_err_vs_bf16": rel,
+          "rel_err_bound": INT8_REL_BOUND, "requests": b,
+          "prompt_len": s0, "new_tokens": 32, "seconds": [t1, t2],
+          "tok_per_s": [b * 32 / t1, b * 32 / t2],
+          "reproducible": bool(torch.equal(out, out2)),
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "first_tokens": new[:, :8].tolist(), "launches": launches})
+    if not rel <= INT8_REL_BOUND:
+        raise AssertionError(f"int8 vs bf16 logits {rel} > "
+                             f"{INT8_REL_BOUND}")
+    if not (torch.equal(out, out2) and torch.equal(out[:, :s0], prompts)
+            and bool(((new >= 0) & (new < cfg.vocab_size)).all())):
+        raise AssertionError("int8 generate: malformed or not reproducible")
+    if launches != only():
+        raise AssertionError(f"int8 serving launched {launches}")
     return launches
 
 
@@ -700,9 +993,77 @@ def train_phase():
     if int(state.step) != TRAIN_STEPS:
         raise AssertionError(f"step count {int(state.step)}")
     total = {k: sum(n[k] for n in launches) for k in want}
-    del state, step
+    params = state.params
+    del state, step     # the adamw moments go; the trained params stay
     torch.cuda.empty_cache()
-    return total
+    keyed = train_rng_phase(cfg, params, tokens, gen)
+    del params
+    torch.cuda.empty_cache()
+    return {k: total[k] + keyed[k] for k in want}
+
+
+def train_rng_phase(cfg, params, tokens, gen):
+    """``make_train_step(has_rng=True, grad_accum=2)`` over a loss whose
+    target mask is ``prng.bernoulli(key, RNG_MASK_P)``: TRAIN_STEPS sgd
+    steps from ``params`` with step t keyed ``fold_in(PRNGKey(seed),
+    t)``, twice with one seed, then with another."""
+    import torch
+    from mxtpu_torch import prng
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.parallel import optim, step as pstep
+    base = llama.loss_fn(cfg)
+
+    def keyed_loss(p, batch, rng):
+        mask = prng.bernoulli(rng, RNG_MASK_P, batch["tokens"].shape)
+        return base(p, {"tokens": batch["tokens"], "mask": mask})
+    second = torch.randint(0, cfg.vocab_size, tokens.shape, generator=gen,
+                           device="cuda")
+    batch = {"tokens": torch.stack([tokens, second])}   # 2 microbatches
+    tx = optim.sgd(TRAIN_LR)
+    step = pstep.make_train_step(keyed_loss, tx, has_rng=True, grad_accum=2)
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for name, seed in (("first", SEED + 1), ("again", SEED + 1),
+                       ("other_key", SEED + 2)):
+        state = None
+        state = pstep.init_state(params, tx)
+        losses, seconds, launches = [], [], []
+        for t in range(TRAIN_STEPS):
+            key = prng.fold_in(prng.PRNGKey(seed, "cuda"), t)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            state, loss = step(state, batch, key)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            launches.append(read_launches())
+            losses.append(loss.item())
+        runs[name] = (losses, seconds, launches)
+    del state
+    ntok = batch["tokens"].numel()
+    emit({"phase": "train_rng", "steps": TRAIN_STEPS, "grad_accum": 2,
+          "optimizer": f"sgd({TRAIN_LR})", "mask_p": RNG_MASK_P,
+          "tokens_per_step": ntok,
+          "losses": {k: v[0] for k, v in runs.items()},
+          "step_seconds": {k: v[1] for k, v in runs.items()},
+          "tokens_per_s": [ntok / t for t in runs["first"][1]],
+          "launches": runs["first"][2],
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    want = only(flash_attention_fwd=4 * cfg.n_layers,
+                flash_attention_bwd_dkv=2 * cfg.n_layers,
+                flash_attention_bwd_dq=2 * cfg.n_layers)
+    every = [n for _, _, ls in runs.values() for n in ls]
+    if any(n != want for n in every):
+        raise AssertionError(f"a keyed step launched {every}, not {want}")
+    losses = [x for ls, _, _ in runs.values() for x in ls]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite keyed losses: {runs}")
+    if runs["first"][0] != runs["again"][0]:
+        raise AssertionError("the same keys gave other losses: "
+                             f"{runs['first'][0]}, {runs['again'][0]}")
+    if runs["first"][0] == runs["other_key"][0]:
+        raise AssertionError("another key gave the same losses")
+    return {k: sum(n[k] for n in every) for k in want}
 
 
 def split_vs_unsplit(x, w, y, y1):
@@ -1241,6 +1602,7 @@ def main():
     bwd_rows = {r["shape"]: r for r in kernel_bwd_phase()}
     conv_rows = {r["shape"]: r for r in kernel_conv_phase()}
     rtc_rows = {(r["kernel"], r["shape"]): r for r in kernel_rtc_phase()}
+    rng_phase()
     torch.cuda.empty_cache()
     fwd_launches = slice_phase()
     torch.cuda.empty_cache()

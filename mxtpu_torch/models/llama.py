@@ -8,15 +8,18 @@ Attention in :func:`forward` goes through
 :func:`mxtpu_torch.ops.attention.flash_attention`: the hand-written
 CUDA kernel on the card, the blockwise plain version on the CPU.
 
-What is ported: ``forward`` (the full-sequence scoring pass), greedy
-``generate`` (``prefill`` + ``decode_step`` over a KV cache), and the
-training loss ``loss_fn`` (``forward_hidden`` with per-layer
-recomputation, then the streamed ``chunked_softmax_xent``), which
+What is ported: ``forward`` (the full-sequence scoring pass),
+``generate`` (``prefill`` + ``decode_step`` over a KV cache), greedy
+or sampled through :func:`sample_logits` on the Threefry chain of
+:mod:`mxtpu_torch.prng`, ``chunked_prefill``, int8 weight-only serving
+(``quantize_params_int8``: the cached path dequantises each weight as
+it reads it), and the training loss ``loss_fn`` (``forward_hidden``
+with per-layer recomputation, then the streamed
+``chunked_softmax_xent``), which
 ``mxtpu_torch.parallel.step.make_train_step`` differentiates. Under
 grad on the card, attention's backward runs the hand-written dK/dV and
-dQ kernels. What waits for later slices, and raises here: sampled
-generation (the ``jax.random`` chain), MoE, int8 weights, ring/ulysses
-attention and mesh sharding.
+dQ kernels. What waits for later slices, and raises here: MoE,
+ring/ulysses attention and mesh sharding.
 
 Numerics follow ``mxtpu``: ``rms_norm`` and RoPE compute in f32, and
 the three einsums that ask for f32 results from ``cfg.dtype`` operands
@@ -36,19 +39,17 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .. import prng
 from ..context import DeviceLike, resolve_device
 from ..ops.attention import dense_attention, flash_attention
 from ._numpy_tree import params_from_numpy, params_to_numpy
 
 __all__ = ["LlamaConfig", "CONFIGS", "init_params", "rms_norm",
            "rope_tables", "apply_rope", "forward_hidden", "forward",
-           "init_cache", "prefill", "decode_step", "sample_logits",
-           "generate", "chunked_softmax_xent", "loss_fn", "params_from_numpy",
+           "init_cache", "prefill", "chunked_prefill", "decode_step",
+           "sample_logits", "generate", "quantize_params_int8",
+           "chunked_softmax_xent", "loss_fn", "params_from_numpy",
            "params_to_numpy", "Llama"]
-
-_RNG_SLICE = ("sampled generation (temperature/top_k/top_p) needs the "
-              "port of the jax.random Threefry chain, a later slice")
-_INT8_SLICE = "int8 weight-only serving comes with a later slice"
 
 
 @dataclass(frozen=True)
@@ -207,16 +208,23 @@ def _attention(cfg: LlamaConfig, q, k, v):
 
 
 def _wq8(w, dt):
-    """Serving weight loader: the raw-array branch. An int8 weight dict
-    (``mxtpu``'s ``quantize_params_int8``) raises in this slice."""
+    """Serving weight loader: a raw tensor, or a weight-only int8 dict
+    ``{'q8': int8, 's8': f32 per-output-channel}`` (see
+    :func:`quantize_params_int8`), dequantised as ``q8 · s8`` with both
+    factors rounded to ``dt`` first, as ``mxtpu`` orders it. Where XLA
+    fuses that product into the matmul's operand read, this makes a
+    ``dt`` copy of the weight for each product."""
     if isinstance(w, dict):
-        raise NotImplementedError(_INT8_SLICE)
+        return w["q8"].to(dt) * w["s8"].to(dt)
     return w.to(dt)
 
 
-def _head(cfg: LlamaConfig, params):
-    return (params["tok_embed"].T if cfg.tie_embeddings
-            else params["lm_head"])
+def _head(cfg: LlamaConfig, params, dt):
+    """The (dim, V) logits head in ``dt``: ``tok_embed``'s transpose when
+    tied, dequantised before the transpose."""
+    if cfg.tie_embeddings:
+        return _wq8(params["tok_embed"], dt).T
+    return _wq8(params["lm_head"], dt)
 
 
 def _qkv(cfg: LlamaConfig, lp, h, cos, sin):
@@ -254,14 +262,20 @@ def _layer(cfg: LlamaConfig, cos, sin, x, lp):
 
 
 def _layer_params(params, i: int):
-    return {k: v[i] for k, v in params["layers"].items()}
+    """Layer i's weights; an int8 weight's dict is indexed leaf by leaf."""
+    def pick(v):
+        return {k: t[i] for k, t in v.items()} if isinstance(v, dict) \
+            else v[i]
+    return {k: pick(v) for k, v in params["layers"].items()}
 
 
 def _embed(cfg: LlamaConfig, params, tokens):
-    """Gather the token rows, then cast them."""
+    """Gather the token rows, then cast them; an int8 table dequantises
+    the gathered rows only (its scale is per dim channel)."""
     emb = params["tok_embed"]
     if isinstance(emb, dict):
-        raise NotImplementedError(_INT8_SLICE)
+        return emb["q8"][tokens.long()].to(cfg.dtype) * \
+            emb["s8"][0].to(cfg.dtype)
     return emb[tokens.long()].to(cfg.dtype)
 
 
@@ -303,6 +317,10 @@ def forward_hidden(cfg: LlamaConfig, params, tokens, mesh=None):
     ``jax.checkpoint`` policies do. ``cfg.scan_layers`` changes nothing:
     the layers are a Python loop."""
     _no_mesh(mesh)
+    if isinstance(params["tok_embed"], dict):
+        raise TypeError("an int8 tree serves (prefill, chunked_prefill, "
+                        "decode_step, generate); forward and loss_fn take "
+                        "float trees, as mxtpu's do")
     s = tokens.shape[1]
     x = _embed(cfg, params, tokens)
     cos, sin = rope_tables(cfg, s, device=x.device)
@@ -316,8 +334,7 @@ def forward_hidden(cfg: LlamaConfig, params, tokens, mesh=None):
 
 def _logits(cfg: LlamaConfig, params, x):
     """f32 logits from cfg.dtype hidden states and head (exact upcast)."""
-    head = _wq8(_head(cfg, params), cfg.dtype)
-    return torch.matmul(x.float(), head.float())
+    return torch.matmul(x.float(), _head(cfg, params, cfg.dtype).float())
 
 
 def forward(cfg: LlamaConfig, params, tokens, mesh=None):
@@ -419,7 +436,7 @@ def loss_fn(cfg: LlamaConfig, mesh=None):
         mask = batch.get("mask")
         mask = (torch.ones(targets.shape, device=x.device) if mask is None
                 else mask[:, 1:].float())
-        head = _head(cfg, params).to(cfg.dtype)
+        head = _head(cfg, params, cfg.dtype)
         chunk = _resolve_ce_chunk(cfg)
         if chunk:
             nll = chunked_softmax_xent(x, head, targets, chunk)
@@ -433,6 +450,46 @@ def loss_fn(cfg: LlamaConfig, mesh=None):
 # ---------------------------------------------------------------------------
 # KV-cache inference
 # ---------------------------------------------------------------------------
+def _quantize_int8(w):
+    """``w ≈ q8 · s8``: symmetric per-output-channel scales over axis -2,
+    ``s8 = max(max|w| / 127, 1e-12)`` in f32, ``q8 = clip(round(w / s8),
+    -127, 127)`` in int8 (round half to even, as jax's). A stacked
+    weight is quantised one layer at a time, which bounds the f32
+    temporaries to one layer's."""
+    if w.ndim > 2:
+        parts = [_quantize_int8(wi) for wi in w.unbind(0)]
+        return {k: torch.stack([p[k] for p in parts]) for k in ("q8", "s8")}
+    w32 = w.float()
+    # a divisor on w's device: a host scalar makes the card multiply by
+    # its reciprocal, which rounds differently from jax's division
+    s8 = (w32.abs().amax(dim=-2, keepdim=True)
+          / torch.tensor(127.0, device=w.device)).clamp_min(1e-12)
+    q8 = torch.round(w32 / s8).clamp_(-127, 127).to(torch.int8)
+    return {"q8": q8, "s8": s8}
+
+
+@torch.no_grad()
+def quantize_params_int8(cfg: LlamaConfig, params):
+    """Weight-only int8 quantization for serving (``prefill``,
+    ``chunked_prefill``, ``decode_step``, ``generate``; ``forward`` and
+    ``loss_fn`` take float trees): ``tok_embed``, the seven layer
+    matrices and ``lm_head`` become ``{'q8', 's8'}`` dicts (see
+    :func:`_quantize_int8`), the norms stay as they are. The same tree
+    as ``mxtpu``'s ``quantize_params_int8``, bit for bit."""
+    if cfg.moe_experts:
+        raise NotImplementedError(
+            "int8 serving quantization covers dense configs; the MoE "
+            "expert banks serve via the dense-mixture path in bf16")
+    out = {"tok_embed": _quantize_int8(params["tok_embed"]),
+           "final_norm": params["final_norm"],
+           "layers": dict(params["layers"])}
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        out["layers"][name] = _quantize_int8(params["layers"][name])
+    if "lm_head" in params:
+        out["lm_head"] = _quantize_int8(params["lm_head"])
+    return out
+
+
 def init_cache(cfg: LlamaConfig, batch_size: int, max_len: int, mesh=None,
                device: DeviceLike = None):
     """Preallocated GQA KV cache: k and v (L, b, n_kv_heads, max_len, hd)
@@ -512,6 +569,27 @@ def prefill(cfg: LlamaConfig, params, tokens, cache, mesh=None,
     return _forward_cached(cfg, params, tokens, cache, last_only=last_only)
 
 
+def chunked_prefill(cfg: LlamaConfig, params, tokens, cache,
+                    chunk_size: int, mesh=None):
+    """Streaming prefill: the prompt goes through the cached stack in
+    ``chunk_size`` slices, then a remainder pass, so the inline
+    attention's (b, h, chunk, max_len) logits, not the whole prompt's,
+    set the peak. The prompt is never padded: pad tokens would take real
+    cache slots and shift every RoPE position. Returns (logits (b, 1, V)
+    f32 for the last prompt position, cache), which is
+    ``prefill(..., last_only=True)``."""
+    _no_mesh(mesh)
+    if chunk_size < 1:
+        raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+    n, rem = divmod(tokens.shape[1], chunk_size)
+    logits = None
+    for i in range(n + (rem > 0)):
+        logits, cache = _forward_cached(
+            cfg, params, tokens[:, i * chunk_size:(i + 1) * chunk_size],
+            cache, last_only=True)
+    return logits, cache
+
+
 def decode_step(cfg: LlamaConfig, params, token, cache, mesh=None):
     """One autoregressive step. token: (b, 1) int. Returns
     (logits (b, V) f32 for the next position, cache)."""
@@ -520,40 +598,117 @@ def decode_step(cfg: LlamaConfig, params, token, cache, mesh=None):
     return logits[:, 0], cache
 
 
+def _is_static(temperature, top_k, top_p) -> bool:
+    return (isinstance(temperature, (int, float))
+            and (top_k is None or isinstance(top_k, int))
+            and (top_p is None or isinstance(top_p, (int, float))))
+
+
 def sample_logits(rng, lg, temperature=0.0, top_k=None, top_p=None):
-    """lg: (b, V) f32 logits → (b,) tokens. Greedy (argmax) only in this
-    slice; ``rng`` is unused."""
-    if temperature != 0.0 or top_k is not None or top_p is not None:
-        raise NotImplementedError(_RNG_SLICE)
-    return torch.argmax(lg, dim=-1)
+    """The sampler of :func:`generate` (and of the serving engine, when
+    it is ported): lg (b, V) f32 logits → (b,) int32 tokens, drawn with
+    ``prng.categorical`` on the key ``rng``, as ``mxtpu``'s.
+
+    Two modes that give the same tokens on the same logits:
+
+    - static (temperature, top_k and top_p Python numbers or None):
+      temperature 0 is a bare argmax; otherwise lg / temperature, top-k
+      masks values under the k-th largest, then the nucleus mask;
+    - traced (any of them a (b,) tensor): one computation serves every
+      per-row mix. ``top_k`` is clipped to [1, V] and applied as the
+      k-th value of the sorted row, ``top_p`` 1.0 keeps the whole row,
+      and rows with temperature 0 take the greedy token.
+    """
+    V = lg.shape[-1]
+    if _is_static(temperature, top_k, top_p):
+        if temperature == 0.0:
+            return torch.argmax(lg, dim=-1).to(torch.int32)
+        lg = lg / _col(temperature, lg)
+        if top_k is not None and top_k < V:
+            kth = torch.topk(lg, top_k, dim=-1).values[..., -1:]
+            lg = torch.where(lg < kth, -math.inf, lg)
+        if top_p is not None and top_p < 1.0:
+            lg = _nucleus_mask(lg, _col(top_p, lg))
+        return prng.categorical(rng, lg).to(torch.int32)
+
+    t_col = _col(temperature, lg)
+    k_col = _col(V if top_k is None else top_k, lg, torch.int64).clamp(1, V)
+    p_col = _col(1.0 if top_p is None else top_p, lg)
+    greedy = torch.argmax(lg, dim=-1).to(torch.int32)
+    slg = lg / torch.where(t_col == 0.0, 1.0, t_col)
+    srt = torch.sort(slg, dim=-1, descending=True).values
+    kth = srt.gather(-1, (k_col - 1).expand(*slg.shape[:-1], 1))
+    slg = torch.where(slg < kth, -math.inf, slg)
+    slg = _nucleus_mask(slg, p_col)
+    sampled = prng.categorical(rng, slg).to(torch.int32)
+    return torch.where(t_col[..., 0] == 0.0, greedy, sampled)
+
+
+def _col(x, lg, dtype=torch.float32):
+    """A scalar or a (b,) sampling knob as a column on lg's device. A
+    divisor that is a host scalar would make the card multiply by its
+    reciprocal, which rounds differently from a division."""
+    x = torch.as_tensor(x, dtype=dtype, device=lg.device)
+    return x.reshape(x.shape + (1,) * (lg.ndim - x.ndim))
+
+
+def _nucleus_mask(lg, top_p):
+    """Mask lg to the top-p nucleus: softmax once over the sorted row
+    (``exp(x - max) / sum``, as jax's), keep the smallest prefix whose
+    mass reaches p (the top token always survives), and apply the
+    survivors as a ``>=`` threshold on the kept minimum."""
+    sorted_lg = torch.sort(lg, dim=-1, descending=True).values
+    e = torch.exp(sorted_lg - sorted_lg[..., :1])
+    probs = e / e.sum(dim=-1, keepdim=True)
+    csum = torch.cumsum(probs, dim=-1)
+    keep = (csum - probs) < top_p
+    cutoff = torch.where(keep, sorted_lg, math.inf).amin(dim=-1,
+                                                         keepdim=True)
+    return torch.where(lg >= cutoff, lg, -math.inf)
 
 
 def generate(cfg: LlamaConfig, params, prompt, max_new_tokens: int, *,
              temperature: float = 0.0, top_k: Optional[int] = None,
              top_p: Optional[float] = None, rng=None, mesh=None):
-    """Greedy autoregressive generation: prefill, then one
-    :func:`decode_step` per new token over a cache sized
-    ``prompt_len + max_new_tokens``. Returns (b, prompt_len +
+    """Autoregressive generation: prefill, then one :func:`decode_step`
+    per new token over a cache sized ``prompt_len + max_new_tokens``.
+    Temperature 0 is greedy; otherwise each token is drawn by
+    :func:`sample_logits` with a subkey split off ``rng`` (default
+    ``prng.PRNGKey(0)`` on the prompt's device): every emission takes
+    ``rng, sub = split(rng)``, as ``mxtpu``'s scan does, so the tokens
+    equal the reference's on the same key. Returns (b, prompt_len +
     max_new_tokens) tokens in the prompt's dtype, on its device."""
     if max_new_tokens < 1:
         raise ValueError(
             f"max_new_tokens must be >= 1, got {max_new_tokens}")
-    if top_k is not None and top_k < 1:
+    # per-row (b,) tensors are not checked: sample_logits clips them
+    if isinstance(top_k, int) and top_k < 1:
         raise ValueError(f"top_k must be >= 1, got {top_k}")
-    if top_p is not None and not 0.0 < top_p <= 1.0:
+    if isinstance(top_p, (int, float)) and not 0.0 < top_p <= 1.0:
         raise ValueError(f"top_p must be in (0, 1], got {top_p}")
-    if temperature != 0.0 or top_k is not None or top_p is not None:
-        raise NotImplementedError(_RNG_SLICE)
     _no_mesh(mesh)
     b, s0 = prompt.shape
+    # greedy draws nothing: its key chain is skipped, which no output
+    # can tell
+    greedy = _is_static(temperature, top_k, top_p) and temperature == 0.0
+    if rng is None and not greedy:
+        rng = prng.PRNGKey(0, device=prompt.device)
+
+    def sample(lg):
+        nonlocal rng
+        if greedy:
+            return sample_logits(None, lg)
+        rng, sub = prng.split(rng)
+        return sample_logits(sub, lg, temperature, top_k, top_p)
+
     cache = init_cache(cfg, b, s0 + max_new_tokens, device=prompt.device)
     logits, cache = _forward_cached(cfg, params, prompt, cache,
                                     last_only=True)
-    tok = sample_logits(rng, logits[:, -1])
+    tok = sample(logits[:, -1])
     out = [prompt, tok[:, None].to(prompt.dtype)]
     for _ in range(max_new_tokens - 1):
         logits, cache = decode_step(cfg, params, tok[:, None], cache)
-        tok = sample_logits(rng, logits)
+        tok = sample(logits)
         out.append(tok[:, None].to(prompt.dtype))
     return torch.cat(out, dim=1)
 

@@ -12,8 +12,8 @@ __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
            "concat", "stack", "waitall", "save", "load"]
 
 _OTHER_SLICES = {
-    "random": "mx.nd.random comes after the rng chain, ROADMAP Queue A "
-              "items 2 and 10.1c",
+    "random": "mx.nd.random comes with ROADMAP Queue A item 10.1c, on "
+              "the key chain of mxtpu_torch.prng",
     "sparse": "mx.nd.sparse comes with the sparse slice, ROADMAP Queue A "
               "item 10.4",
     "contrib": "mx.nd.contrib comes with ROADMAP Queue A item 10.4",

@@ -9,8 +9,10 @@ updates, and the params are updated in place under ``torch.no_grad()``,
 which is the torch analogue of donation: the state passed in is spent.
 
 One device only: a ``mesh`` or sharding rules that place anything
-raise, as does ``has_rng`` (the ``jax.random`` key chain); both come
-with later slices (ROADMAP Queue A items 11 and 2). The reference's
+raise; they come with the multi-device slice (ROADMAP Queue A item
+11). ``has_rng`` steps draw on :mod:`mxtpu_torch.prng`, the port of
+the ``jax.random`` key chain, so a loss that draws from its key sees
+the reference's numbers. The reference's
 telemetry around the step (``telemetry.watch`` and the dispatch span)
 waits for the telemetry port (Queue A item 8).
 """
@@ -20,6 +22,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from .. import prng
 from ._tree import tree_leaves, tree_map
 
 __all__ = ["TrainState", "init_state", "make_train_step", "make_eval_step"]
@@ -81,38 +84,40 @@ def make_train_step(loss_fn: Callable[..., Any], tx, mesh=None, rules=None,
                     has_rng: bool = False, grad_accum: int = 1,
                     loss_has_aux: bool = False, has_state: bool = False,
                     skip_nonfinite: bool = False):
-    """Build ``step(state, batch) -> (state, loss[, aux][, skipped])``.
+    """Build ``step(state, batch, rng=None) -> (state, loss[, aux][,
+    skipped])``.
 
     ``loss_fn(params, batch) -> loss`` (or ``(loss, aux)`` with
     ``loss_has_aux``); with ``has_state``, ``loss_fn(params,
     model_state, batch) -> (loss, new_model_state)`` and the model state
-    threads through ``TrainState.model_state``. ``tx`` is a
+    threads through ``TrainState.model_state``. With ``has_rng`` the
+    loss takes the step's key last: ``loss_fn(params, batch, rng)`` or
+    ``loss_fn(params, model_state, batch, rng)``. ``tx`` is a
     :class:`~mxtpu_torch.parallel.optim.GradientTransformation`.
 
     ``grad_accum > 1`` takes a batch with a leading microbatch dim and
     averages loss and grads over it (``aux`` comes back stacked on that
-    dim). ``skip_nonfinite=True``: a step whose loss or any grad leaf is
-    inf/nan applies no update — params, opt state, model state and the
-    step count keep their values, selected with ``torch.where`` on the
-    device (no host sync) — and the step returns a trailing ``skipped``
-    bool tensor. The state passed in is updated in place and must not be
-    used again; the returned state holds the same params tensors.
+    dim); microbatch i draws on ``prng.fold_in(rng, i)``, so each has
+    its own noise. ``skip_nonfinite=True``: a step whose loss or any
+    grad leaf is inf/nan applies no update — params, opt state, model
+    state and the step count keep their values, selected with
+    ``torch.where`` on the device (no host sync) — and the step returns
+    a trailing ``skipped`` bool tensor. The state passed in is updated
+    in place and must not be used again; the returned state holds the
+    same params tensors.
     """
     _one_device(mesh, rules)
-    if has_rng:
-        raise NotImplementedError(
-            "has_rng needs the port of the jax.random key chain, a later "
-            "slice (ROADMAP Queue A item 2)")
     if has_state and loss_has_aux:
         raise ValueError("has_state already uses the aux slot for "
                          "model_state; fold extra aux into it")
     has_aux = loss_has_aux or has_state
 
-    def grad_fn(params, batch, mstate):
+    def grad_fn(params, batch, mstate, rng):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        args = ((live, mstate, batch) if has_state else (live, batch)) \
+            + ((rng,) if has_rng else ())
         with torch.enable_grad():
-            out = (loss_fn(live, mstate, batch) if has_state
-                   else loss_fn(live, batch))
+            out = loss_fn(*args)
             loss, aux = out if has_aux else (out, None)
             leaves = tree_leaves(live)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -127,7 +132,9 @@ def make_train_step(loss_fn: Callable[..., Any], tx, mesh=None, rules=None,
             loss, grads, auxes = 0.0, None, []
             for i in range(grad_accum):
                 mb = tree_map(lambda t: t[i], batch)
-                mb_loss, aux, mb_grads = grad_fn(state.params, mb, mstate)
+                mb_rng = None if rng is None else prng.fold_in(rng, i)
+                mb_loss, aux, mb_grads = grad_fn(state.params, mb, mstate,
+                                                 mb_rng)
                 if has_state:
                     mstate, aux = aux, 0.0
                 loss = loss + mb_loss
@@ -139,7 +146,7 @@ def make_train_step(loss_fn: Callable[..., Any], tx, mesh=None, rules=None,
             aux = tree_map(lambda *xs: torch.stack(xs), *auxes) \
                 if loss_has_aux else None
         else:
-            loss, aux, grads = grad_fn(state.params, batch, mstate)
+            loss, aux, grads = grad_fn(state.params, batch, mstate, rng)
             if has_state:
                 mstate, aux = aux, None
 

@@ -28,6 +28,7 @@ import torch
 from mxtpu.models import llama as jl
 from mxtpu.parallel import mesh as pmesh, step as jstep
 from mxtpu.parallel.sharding import P, ShardingRules
+from mxtpu_torch import prng
 from mxtpu_torch.models import llama as tl
 from mxtpu_torch.parallel import optim, step as tstep
 from mxtpu_torch.parallel._tree import tree_leaves
@@ -186,6 +187,51 @@ def test_grad_accum_matches_mxtpu(ref):
                        TOL, "param")
 
 
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_keyed_step_trajectory_matches_mxtpu(ref, grad_accum):
+    """has_rng: a loss that masks its targets with a Bernoulli draw from
+    the step's key. Four sgd steps, step t keyed with fold_in(key, t);
+    with grad_accum 2 each microbatch draws on fold_in(its key, i).
+    jax's 64-bit mode draws a Python p in float64, so the port's
+    bernoulli is given a float64 p."""
+    jcfg, jparams, tree = ref
+
+    def jloss(params, batch, rng):
+        mask = jax.random.bernoulli(rng, 0.7, batch["tokens"].shape)
+        return jl.loss_fn(jcfg)(params, {**batch, "mask": mask})
+    tlf = tl.loss_fn(_port_cfg(jcfg))
+
+    def tloss(params, batch, rng):
+        mask = prng.bernoulli(rng, torch.tensor(0.7, dtype=torch.float64),
+                              batch["tokens"].shape)
+        return tlf(params, {**batch, "mask": mask})
+    mesh = pmesh.create_mesh(devices=jax.devices()[:1])
+    rules = ShardingRules([(r".*", P())])
+    jstate = jstep.init_state(jparams, optax.sgd(0.1), mesh, rules)
+    jfn = jstep.make_train_step(jloss, optax.sgd(0.1), mesh, rules,
+                                has_rng=True, grad_accum=grad_accum)
+    tstate = tstep.init_state(tl.params_from_numpy(tree, device="cpu"),
+                              optim.sgd(0.1))
+    tfn = tstep.make_train_step(tloss, optim.sgd(0.1), has_rng=True,
+                                grad_accum=grad_accum)
+    toks = _batch(9, b=4)["tokens"]
+    if grad_accum > 1:
+        toks = toks.reshape(grad_accum, 4 // grad_accum, 16)
+    jkey, tkey = jax.random.PRNGKey(7), prng.PRNGKey(7, device="cpu")
+    losses = []
+    for t in range(4):
+        jstate, jloss_t = jfn(jstate, {"tokens": jnp.asarray(toks)},
+                              jax.random.fold_in(jkey, t))
+        tstate, tloss_t = tfn(tstate, {"tokens": torch.from_numpy(toks)},
+                              prng.fold_in(tkey, t))
+        np.testing.assert_allclose(tloss_t.item(), float(jloss_t),
+                                   **LOSS_TOL)
+        losses.append(tloss_t.item())
+    assert len(set(losses)) == 4         # each step drew another mask
+    _assert_tree_close(tstate.params, jax.tree.map(np.asarray, jstate.params),
+                       TOL, "param")
+
+
 def test_skip_nonfinite_keeps_the_state_as_mxtpu_does(ref):
     """A NaN parameter poisons the loss: both steps skip, leaving params,
     optimizer state and the step count as they were."""
@@ -225,8 +271,16 @@ def test_step_refuses_what_one_device_lacks(ref):
     with pytest.raises(NotImplementedError, match="rules"):
         tstep.make_train_step(lf, optim.sgd(0.1),
                               rules=[(r".*", ("fsdp",))])
-    with pytest.raises(NotImplementedError, match="jax.random"):
-        tstep.make_train_step(lf, optim.sgd(0.1), has_rng=True)
+    # has_rng is ported: the step passes its key to the loss
+    seen = []
+    keyed = tstep.make_train_step(
+        lambda p, b, rng: seen.append(rng) or lf(p, b), optim.sgd(0.1),
+        has_rng=True)
+    state = tstep.init_state(tl.params_from_numpy(tree, device="cpu"),
+                             optim.sgd(0.1))
+    key = prng.PRNGKey(3, device="cpu")
+    keyed(state, {"tokens": torch.from_numpy(_batch(8)["tokens"])}, key)
+    assert len(seen) == 1 and seen[0] is key
     with pytest.raises(ValueError, match="has_state"):
         tstep.make_train_step(lf, optim.sgd(0.1), has_state=True,
                               loss_has_aux=True)
