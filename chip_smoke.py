@@ -87,7 +87,32 @@ host's cost of a call.
    a narrow llama3_8b: chunked 0-0.014 against planted faults (the past
    lost, the remainder dropped) of 0.95 or more; int8 0.043-0.058
    against faults (scales dropped, a neighbour layer's scales) of 0.56
-   or more (``python -m mxtpu_torch.tools.serve_tolerance``).
+   or more (``python -m mxtpu_torch.tools.serve_tolerance``). (f)
+   ``serve_engine``: ``mxtpu_torch.serve.ServeEngine`` (16 slots,
+   max_len 768, buckets from 64: a 1.61 GB bank) serving
+   ``bench.py``'s ``bench_llama_serve`` stream at this width (48
+   requests, prompts of 64-384 tokens, 8-256 new ones, seeded Poisson
+   arrivals 4 steps apart on average, request i seeded i, every third
+   one sampled with the knobs of (c)), every bucket warmed first: every
+   request gets exactly its tokens, all in [0, V); at most buckets + 1
+   programs with the decode step captured once as a CUDA graph; tok/s,
+   p50 and p99 inter-token ms, the decode dispatch's host ms, peak KV
+   occupancy and peak GB. A second engine, synchronous, with the
+   requests submitted in reverse, gives every stream bit for bit. An
+   engine over the first 4 layers in f32 (4 slots, max_len 256) serves
+   2 greedy and 2 sampled requests (prompts 64 and 128, 32 new tokens)
+   equal to batch-1 ``generate`` with ``PRNGKey(seed)``, but for a
+   first difference at a near-tie of generate's decision values (gap at
+   most 1e-5 of |max|, printed); the bf16 streams' agreement with
+   ``generate`` over 32 tokens is printed only (the two attention
+   formulations round differently in bf16). On the same f32 layers:
+   the captured decode step equals eager ``decode_slots`` on a twin
+   bank, tokens at each of 4 steps and the banks at the end, with the
+   shared RoPE cache pushed past its size, emptied, and its memory
+   freed and poisoned before every replay (``rope_evicted``); and two
+   engines serving from ``run_forever`` threads at once, each capturing
+   while the other works, give every stream of a synchronous engine's
+   run, one capture each (``threaded_engines``).
 6. train: ``CONFIGS["llama3_8b"]`` at full width and 4 layers, with the
    reference's training dtypes (f32 params, bf16 compute), remat and the
    8192-wide chunked cross-entropy. (a) The loss and the grads of
@@ -191,6 +216,8 @@ import sys
 import time
 from dataclasses import replace
 
+import numpy as np
+
 TOL = 2e-2                 # kernel vs plain, atol = rtol, bf16 output
 LSE_TOL = 1e-3             # forward lse vs plain, atol = rtol, both f32
 BWD_TOL = 2e-2             # backward kernels vs plain, atol = rtol
@@ -212,6 +239,16 @@ FFN_GRAD_REL_BOUND = 1e-2  # tape grads vs torch.autograd, bf16
 CHUNK_REL_BOUND = 5e-2     # ||chunked - one shot|| / ||one shot||, last logits
 INT8_REL_BOUND = 0.2       # ||int8 - bf16|| / ||bf16||, last prefill logits
 CHUNK_PROMPT, CHUNK_SIZE = 6000, 1024
+# the serve engine's traffic: bench.py's bench_llama_serve at llama3_8b
+# width (48 requests, 16 slots, max_len 768, prompts max_len/12..max_len/2,
+# 8-256 new tokens, seeded Poisson arrivals with a mean gap of 4 steps),
+# every third request sampled with SAMPLING
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_MAX_LEN = 48, 16, 768
+SERVE_PROMPTS = (64, 128, 256, 384)
+SERVE_MEAN_GAP = 4.0
+# engine vs batch-1 generate in f32 at 4 layers: a differing token is
+# allowed only at a near-tie of generate's decision values
+SERVE_LAYERS, SERVE_TIE_REL = 4, 1e-5
 GUMBEL_ULPS = 2            # card vs CPU, in ulps of max(|g|, 1)
 RNG_SEEDS = (0, 42, 2 ** 31 - 1)
 RNG_SHAPES = ((7,), (3, 5, 11), (4, 128256))
@@ -619,7 +656,8 @@ def slice_phase():
 
         serve = [sampled_phase(cfg, params, prompts, out, min(t1, t2)),
                  chunked_phase(cfg, params, gen),
-                 int8_phase(cfg, params, prompts)]
+                 int8_phase(cfg, params, prompts),
+                 serve_engine_phase(cfg, params)]
     return {k: launches[k] + sum(n[k] for n in serve)
             for k in LAUNCH_COUNTERS}
 
@@ -861,6 +899,374 @@ def int8_phase(cfg, params, prompts):
     if launches != only():
         raise AssertionError(f"int8 serving launched {launches}")
     return launches
+
+
+def serve_requests(cfg):
+    """``bench_llama_serve``'s stream at SERVE_MAX_LEN: (prompt,
+    max_new_tokens, arrival step) from a seeded generator; request i is
+    seeded i, and every third one is sampled."""
+    from mxtpu_torch.serve import Request
+    rng = np.random.default_rng(SEED)
+    reqs, arrival = [], 0.0
+    for i in range(SERVE_REQUESTS):
+        plen = int(rng.choice(SERVE_PROMPTS))
+        mnew = int(rng.integers(8, SERVE_MAX_LEN // 3 + 1))
+        knobs = SAMPLING if i % 3 == 2 else {}
+        reqs.append(Request(prompt=rng.integers(0, cfg.vocab_size, plen),
+                            max_new_tokens=mnew, seed=i,
+                            arrival_step=int(arrival), **knobs))
+        arrival += rng.exponential(SERVE_MEAN_GAP)
+    return reqs
+
+
+def serve_stream(engine, reqs, order, on_token=None):
+    """Submit ``reqs`` in ``order`` and drain: {request index: tokens}."""
+    rids = {}
+    for i in order:
+        r = reqs[i]
+        rids[i] = engine.submit(replace(r, on_token=on_token))
+    res = engine.run()
+    return {i: res[rid] for i, rid in rids.items()}
+
+
+def generate_one(cfg, params, req, n_new):
+    """Batch-1 ``generate`` of a request, as ``llama_refs.reference`` is
+    for the reference: its key is ``PRNGKey(seed)``."""
+    import torch
+    from mxtpu_torch import prng
+    from mxtpu_torch.models import llama
+    prompt = torch.as_tensor(np.asarray(req.prompt), device="cuda")[None]
+    out = llama.generate(cfg, params, prompt, n_new,
+                         temperature=req.temperature, top_k=req.top_k,
+                         top_p=req.top_p,
+                         rng=prng.PRNGKey(req.seed, "cuda"))
+    return out[0, prompt.shape[1]:].cpu().numpy()
+
+
+def decision_gap(cfg, params, req, toks, j):
+    """At generated position j, where ``generate`` chose ``toks[j]``:
+    the gap between its decision value and the best other token's, and
+    |max|. The decision values are the logits (greedy) or the sampler's
+    perturbed ones: the Gumbel noise of emission j's subkey plus the
+    scaled, top-k and nucleus masked logits."""
+    import torch
+    from mxtpu_torch import prng
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.serve import resume_key
+    seq = np.concatenate([np.asarray(req.prompt), toks[:j]])
+    seq = torch.as_tensor(seq, device="cuda")[None]
+    lg, _ = llama.prefill(cfg, params, seq,
+                          llama.init_cache(cfg, 1, seq.shape[1],
+                                           device="cuda"), last_only=True)
+    val = lg[0, 0]
+    if req.temperature:
+        key = prng.key_from_numpy(resume_key(req.seed, j), "cuda")
+        sub = prng.split(key)[1]
+        val = val / torch.tensor(req.temperature, device="cuda")
+        if req.top_k is not None:
+            kth = torch.topk(val, req.top_k).values[-1]
+            val = torch.where(val < kth, -math.inf, val)
+        if req.top_p is not None:
+            val = llama._nucleus_mask(val[None], torch.tensor(
+                [[req.top_p]], device="cuda"))[0]
+        val = val + prng.gumbel(sub, (1, val.shape[0]))[0]
+    top2 = torch.topk(val, 2).values
+    return (top2[0] - top2[1]).item(), top2[0].abs().item()
+
+
+def serve_engine_phase(cfg, params):
+    """The continuous-batching ``ServeEngine`` on the slice's weights:
+    bench_llama_serve's stream (SERVE_*), every bucket warmed first;
+    then the same requests through a second engine, synchronous and
+    submitted in reverse (equal streams); then 4 requests through an
+    engine over the first SERVE_LAYERS layers in f32 against batch-1
+    ``generate``, and the bf16 streams' agreement with it printed; on
+    the same f32 layers, the captured step against the eager one with
+    the RoPE cache emptied, and two engines on threads."""
+    import torch
+    from mxtpu_torch import telemetry
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.serve import Request, ServeEngine
+    reqs = serve_requests(cfg)
+    n_tok = sum(r.max_new_tokens for r in reqs)
+    engine = ServeEngine(cfg, params, max_slots=SERVE_SLOTS,
+                         max_len=SERVE_MAX_LEN,
+                         min_bucket=SERVE_PROMPTS[0], device="cuda")
+    rng = np.random.default_rng(SEED + 1)
+    for j, plen in enumerate(SERVE_PROMPTS):
+        engine.submit(Request(prompt=rng.integers(0, cfg.vocab_size, plen),
+                              max_new_tokens=2, seed=j))
+    engine.run()
+    engine.reset_stats()
+    dispatch = telemetry.registry().get("span_serve_decode_dispatch_ms")
+    before = dispatch.snapshot()
+    peak_occ = [0.0]
+
+    def watch_occupancy(rid, tok):
+        peak_occ[0] = max(peak_occ[0],
+                          engine.kv_cache_stats()["occupancy"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    steps0 = engine.steps_run
+    t0 = time.perf_counter()
+    first = serve_stream(engine, reqs, range(len(reqs)), watch_occupancy)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    after = dispatch.snapshot()
+    n_disp = after[2] - before[2]
+    lat = engine.latency_stats()
+    stats = {"compile_count": engine.compile_count,
+             "n_buckets": engine.n_buckets,
+             "decode_captures": engine._decode.captures,
+             "steps": engine.steps_run - steps0,
+             "kv_reserved_gb": engine.kv_cache_stats()["reserved_bytes"]
+             / 1e9}
+    del engine
+    torch.cuda.empty_cache()
+
+    sync = ServeEngine(cfg, params, max_slots=SERVE_SLOTS,
+                       max_len=SERVE_MAX_LEN, min_bucket=SERVE_PROMPTS[0],
+                       overlap=False, device="cuda")
+    second = serve_stream(sync, reqs, reversed(range(len(reqs))))
+    invariant = all(np.array_equal(first[i], second[i]) for i in first)
+    del sync
+    torch.cuda.empty_cache()
+
+    # the bf16 streams beside batch-1 generate: agreement only, printed
+    agree = {}
+    for i in (0, 1, 2, 5):
+        n = min(reqs[i].max_new_tokens, 32)
+        g = generate_one(cfg, params, reqs[i], n)
+        same = np.flatnonzero(g != first[i][:n])
+        agree[i] = {"tokens": n, "equal_prefix": int(same[0]) if same.size
+                    else n}
+
+    cfg4, p4 = f32_layers(cfg, params)
+    f32 = f32_engine_vs_generate(cfg4, p4)
+    owned = decode_graph_owns_its_tables(cfg4, p4)
+    threaded = engines_on_threads(cfg4, p4)
+    del p4
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_engine", "config": "llama3_8b",
+          "n_layers": cfg.n_layers, "requests": len(reqs),
+          "max_slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+          "min_bucket": SERVE_PROMPTS[0], "sampled_requests":
+          sum(1 for r in reqs if r.temperature), "generated_tokens": n_tok,
+          "seconds": seconds, "tok_per_s": n_tok / seconds,
+          "p50_token_ms": lat["p50_token_ms"],
+          "p99_token_ms": lat["p99_token_ms"],
+          "decode_dispatch_host_ms": {
+              "mean": (after[1] - before[1]) / max(n_disp, 1),
+              "p50": dispatch.interval_percentile(before[0], after[0], 50),
+              "p99": dispatch.interval_percentile(before[0], after[0], 99),
+              "dispatches": n_disp},
+          **stats, "peak_kv_occupancy": peak_occ[0], "peak_gb": peak_gb,
+          "scheduling_invariant": invariant,
+          "bf16_vs_generate": agree, "f32_vs_generate": f32,
+          "rope_evicted": owned, "threaded_engines": threaded,
+          "launches": launches})
+    malformed = [i for i, r in enumerate(reqs)
+                 if not (len(first[i]) == r.max_new_tokens
+                         and ((first[i] >= 0)
+                              & (first[i] < cfg.vocab_size)).all())]
+    if malformed:
+        raise AssertionError(f"serve_engine: requests {malformed} returned "
+                             "the wrong count of tokens or a bad token")
+    if not (stats["compile_count"] <= stats["n_buckets"] + 1
+            and stats["decode_captures"] == 1):
+        raise AssertionError(f"serve_engine built more than its buckets "
+                             f"and one decode capture: {stats}")
+    if not invariant:
+        raise AssertionError("serve_engine: another schedule changed a "
+                             "stream")
+    if not f32["ok"]:
+        raise AssertionError(f"serve_engine in f32 differs from generate "
+                             f"away from a near-tie: {f32}")
+    if not owned["ok"]:
+        raise AssertionError(f"the captured decode step differs from the "
+                             f"eager one once the RoPE cache is emptied: "
+                             f"{owned}")
+    if not threaded["ok"]:
+        raise AssertionError(f"engines on threads differ from their "
+                             f"synchronous runs or failed: {threaded}")
+    if launches != only():
+        raise AssertionError(f"serve_engine launched {launches}")
+    return launches
+
+
+def f32_layers(cfg, params):
+    """The first SERVE_LAYERS layers of the slice's weights, in f32."""
+    import torch
+    cfg4 = replace(cfg, n_layers=SERVE_LAYERS, dtype=torch.float32,
+                   param_dtype=torch.float32)
+    p4 = {k: v.float() for k, v in params.items() if k != "layers"}
+    p4["layers"] = {k: v[:SERVE_LAYERS].float()
+                    for k, v in params["layers"].items()}
+    return cfg4, p4
+
+
+def f32_engine_vs_generate(cfg4, p4):
+    """The f32 layers through an engine (4 slots, max_len 256): 2 greedy
+    and 2 sampled requests, prompts 64 and 128, 32 new tokens each,
+    against batch-1 ``generate``. Tokens must be equal up to the first
+    difference, and there generate's decision gap at most SERVE_TIE_REL
+    of |max| (a near-tie)."""
+    import torch
+    from mxtpu_torch.serve import Request, ServeEngine
+    rng = np.random.default_rng(SEED + 2)
+    reqs = [Request(prompt=rng.integers(0, cfg4.vocab_size, plen),
+                    max_new_tokens=32, seed=100 + i,
+                    **(SAMPLING if i >= 2 else {}))
+            for i, plen in enumerate((64, 128, 64, 128))]
+    engine = ServeEngine(cfg4, p4, max_slots=4, max_len=256, min_bucket=64,
+                         device="cuda")
+    got = serve_stream(engine, reqs, range(len(reqs)))
+    rows, ok = [], True
+    for i, r in enumerate(reqs):
+        want = generate_one(cfg4, p4, r, r.max_new_tokens)
+        diff = np.flatnonzero(want != got[i])
+        row = {"sampled": bool(r.temperature), "equal": not diff.size}
+        if diff.size:
+            j = int(diff[0])
+            gap, top = decision_gap(cfg4, p4, r, want, j)
+            row.update(first_difference=j, gap=gap, max_abs=top,
+                       near_tie=gap <= SERVE_TIE_REL * top)
+            ok = ok and row["near_tie"]
+        rows.append(row)
+    del engine
+    torch.cuda.empty_cache()
+    return {"layers": SERVE_LAYERS, "rows": rows, "ok": ok}
+
+
+def decode_graph_owns_its_tables(cfg4, p4, steps=4):
+    """The captured decode step against eager ``decode_slots`` on a twin
+    bank (4 slots, max_len 256, prompts of 37-128 tokens, half of them
+    sampled). After the capture, before every replay, the shared RoPE
+    cache is pushed past its 16 entries and emptied, the allocator's
+    cache released (``empty_cache``) and 256 MB of NaNs allocated: a
+    graph that read the cache's tables would read freed or poisoned
+    memory. Tokens must be equal at every step, the banks and slot
+    vectors at the end (the warm-up writes K/V one entry ahead, which
+    the next step writes again)."""
+    import gc
+    import torch
+    from mxtpu_torch import prng
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.serve.engine import _DecodeGraph
+    slots, max_len, dev = 4, 256, torch.device("cuda")
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [rng.integers(0, cfg4.vocab_size, n) for n in (64, 100, 128, 37)]
+    knobs = [SAMPLING if i % 2 else {"temperature": 0.0, "top_k": None,
+                                     "top_p": None} for i in range(slots)]
+    banks = []
+    for _ in range(2):
+        st = llama.init_slot_cache(cfg4, slots, max_len, device=dev)
+        kv = {n: st[n] for n in ("k", "v")}
+        sv = {n: st[n] for n in ("lengths", "tokens", "rngs")}
+        for slot, (p, kn) in enumerate(zip(prompts, knobs)):
+            pad = torch.zeros((1, 128), dtype=torch.int32, device=dev)
+            pad[0, :len(p)] = torch.as_tensor(p, device=dev)
+            with torch.no_grad():
+                llama.prefill_slot(cfg4, p4, pad, len(p), slot, kv, sv,
+                                   prng.PRNGKey(300 + slot, dev),
+                                   kn["temperature"], kn["top_k"],
+                                   kn["top_p"])
+        banks.append((kv, sv))
+    host = (np.ones(slots, bool),
+            np.array([k["temperature"] for k in knobs], np.float32),
+            np.array([k["top_k"] or cfg4.vocab_size for k in knobs],
+                     np.int32),
+            np.array([k["top_p"] or 1.0 for k in knobs], np.float32))
+    dev_knobs = [torch.from_numpy(k).to(dev) for k in host]
+    step = _DecodeGraph(cfg4, p4, *banks[0])
+    equal = []
+    for i in range(steps):
+        junk = None
+        if i:
+            for m in range(max_len + 1, max_len + 21):
+                llama._rope_cached(cfg4, m, dev)
+            llama._rope_cached.cache_clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            junk = torch.full((64 << 20,), float("nan"), device=dev)
+        got = step(*host)
+        with torch.no_grad():
+            want, _, _ = llama.decode_slots(cfg4, p4, *banks[1], *dev_knobs)
+        equal.append(bool(torch.equal(got, want)))
+        del junk
+    torch.cuda.synchronize()
+    same_bank = all(torch.equal(banks[0][j][n], banks[1][j][n])
+                    for j, names in ((0, ("k", "v")),
+                                     (1, ("lengths", "tokens", "rngs")))
+                    for n in names)
+    out = {"steps": steps, "tokens_equal": equal, "bank_equal": same_bank,
+           "captures": step.captures}
+    out["ok"] = all(equal) and same_bank and step.captures == 1
+    del step, banks
+    torch.cuda.empty_cache()
+    return out
+
+
+def engines_on_threads(cfg4, p4):
+    """Two engines (4 slots, max_len 256) serving from ``run_forever``
+    threads at once, so one captures its decode step while the other
+    prefills, reads back or captures. Engine 1's prompts are longer, so
+    its admissions run while engine 0 reaches its first step. Each
+    stream must equal a synchronous engine's run of the same requests,
+    and each engine must have captured once."""
+    import threading
+    import torch
+    from mxtpu_torch.serve import Request, ServeEngine
+    rng = np.random.default_rng(SEED + 4)
+    sets = [[Request(prompt=rng.integers(0, cfg4.vocab_size, plen),
+                     max_new_tokens=int(rng.integers(16, 49)),
+                     seed=400 + 10 * e + i,
+                     **(SAMPLING if i % 2 else {}))
+             for i, plen in enumerate(plens)]
+            for e, plens in enumerate(((40, 60, 33, 64, 50, 20),
+                                       (128, 120, 100, 128, 90, 70)))]
+    shape = dict(max_slots=4, max_len=256, min_bucket=64, device="cuda")
+    want = []
+    for reqs in sets:
+        sync = ServeEngine(cfg4, p4, overlap=False, **shape)
+        want.append(serve_stream(sync, reqs, range(len(reqs))))
+        del sync
+    engines = [ServeEngine(cfg4, p4, **shape) for _ in sets]
+    rids = [[eng.submit(r) for r in reqs]
+            for eng, reqs in zip(engines, sets)]
+    stop, errors = threading.Event(), []
+
+    def serve(eng):
+        try:
+            eng.run_forever(stop)
+        except BaseException as e:          # reported, and fails the check
+            errors.append(repr(e))
+    threads = [threading.Thread(target=serve, args=(eng,))
+               for eng in engines]
+    for t in threads:
+        t.start()
+    stop.set()
+    for eng in engines:
+        eng.wake()
+    for t in threads:
+        t.join(300)
+    alive = sum(t.is_alive() for t in threads)
+    equal = [sum(np.array_equal(np.asarray(eng._results[rid], np.int32),
+                                want[e][i])
+                 for i, rid in enumerate(rids[e]))
+             for e, eng in enumerate(engines)] if not alive else []
+    out = {"engines": len(engines), "requests": [len(r) for r in sets],
+           "streams_equal": equal, "errors": errors, "alive": alive,
+           "captures": [eng._decode.captures for eng in engines]}
+    out["ok"] = (not errors and not alive and out["captures"] == [1, 1]
+                 and equal == out["requests"])
+    if not alive:
+        del engines
+        torch.cuda.empty_cache()
+    return out
 
 
 def _counted():

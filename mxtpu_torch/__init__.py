@@ -3,7 +3,8 @@
 The JAX package ``mxtpu`` is the reference; this package mirrors its
 module names (``context``, ``ndarray``, ``autograd``, ``rtc``,
 ``ops.attention``, ``models.llama``, ``models.resnet``,
-``parallel.step``) so a reader finds each counterpart; ``ops.conv``
+``parallel.step``, ``serve``, ``telemetry``) so a reader finds each
+counterpart; ``prng`` is the key chain of ``jax.random``; ``ops.conv``
 ports the ResNet shape experiment's conv; ``parallel.optim`` holds the
 optax transforms the train step takes, and ``tools`` the scripts that
 measure the port. Plain tensor code is PyTorch; every kernel ``mxtpu``

@@ -1,5 +1,6 @@
-"""What the imperative frontend needs of ``mxtpu/base.py``: the error
-class, the numeric type tuples and the dtype-name table.
+"""What the port needs of ``mxtpu/base.py``: the error class, the
+numeric type tuples and the dtype-name table (the imperative frontend),
+and the env-var helpers (telemetry and serving).
 
 This is a copy, not an import: ``mxtpu`` is never imported by the port.
 The table maps MXNet's dtype names to ``torch.dtype``; ``bfloat16`` is a
@@ -7,13 +8,14 @@ dtype like any other (numpy has none, so no numpy dtype stands for it).
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict
 
 import numpy as _np
 import torch
 
 __all__ = ["MXNetError", "numeric_types", "integer_types", "DTYPES",
-           "dtype_torch", "dtype_name"]
+           "dtype_torch", "dtype_name", "env_int", "env_bool", "env_str"]
 
 
 class MXNetError(RuntimeError):
@@ -55,3 +57,26 @@ def dtype_torch(dtype: Any) -> torch.dtype:
 def dtype_name(dtype: Any) -> str:
     """Printable dtype name ('float32', 'bfloat16', ...)."""
     return _NAMES[dtype_torch(dtype)]
+
+
+# ---------------------------------------------------------------------------
+# Env-var knobs. ``doc`` documents the knob at its call site (the
+# reference also keeps a registry of them; the port has no reader of
+# one yet).
+# ---------------------------------------------------------------------------
+def env_int(name: str, default: int, doc: str = "") -> int:
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+def env_bool(name: str, default: bool, doc: str = "") -> bool:
+    val = os.environ.get(name)
+    if val is None:
+        return default
+    return val.lower() not in ("0", "false", "off", "")
+
+
+def env_str(name: str, default: str, doc: str = "") -> str:
+    return os.environ.get(name, default)

@@ -13,7 +13,11 @@ What is ported: ``forward`` (the full-sequence scoring pass),
 or sampled through :func:`sample_logits` on the Threefry chain of
 :mod:`mxtpu_torch.prng`, ``chunked_prefill``, int8 weight-only serving
 (``quantize_params_int8``: the cached path dequantises each weight as
-it reads it), and the training loss ``loss_fn`` (``forward_hidden``
+it reads it), the serving engine's dense slot programs
+(``init_slot_cache``, ``prefill_slot``, ``decode_slots``,
+``prefill_detached``, ``prefill_detached_chunk``, ``inject_slot_kv``;
+:mod:`mxtpu_torch.serve` schedules them), and the training loss
+``loss_fn`` (``forward_hidden``
 with per-layer recomputation, then the streamed
 ``chunked_softmax_xent``), which
 ``mxtpu_torch.parallel.step.make_train_step`` differentiates. Under
@@ -28,6 +32,7 @@ operands, which is exact for bf16.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from functools import partial
@@ -41,13 +46,17 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .. import prng
 from ..context import DeviceLike, resolve_device
-from ..ops.attention import dense_attention, flash_attention
+from ..ops.attention import (dense_attention, flash_attention,
+                             slot_decode_attention)
 from ._numpy_tree import params_from_numpy, params_to_numpy
 
 __all__ = ["LlamaConfig", "CONFIGS", "init_params", "rms_norm",
            "rope_tables", "apply_rope", "forward_hidden", "forward",
            "init_cache", "prefill", "chunked_prefill", "decode_step",
            "sample_logits", "generate", "quantize_params_int8",
+           "init_slot_cache", "slot_cache_specs", "decode_slots",
+           "prefill_slot", "prefill_detached", "prefill_detached_chunk",
+           "inject_slot_kv",
            "chunked_softmax_xent", "loss_fn", "params_from_numpy",
            "params_to_numpy", "Llama"]
 
@@ -106,7 +115,8 @@ _MOE_SLICE = ("the MoE expert bank (moe_experts > 0) comes with a later "
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "mesh sharding comes with the multi-device slice; pass mesh=None")
+            "mesh sharding comes with the multi-device slice (ROADMAP "
+            "Queue A item 11); pass mesh=None")
 
 
 # ---------------------------------------------------------------------------
@@ -186,6 +196,16 @@ def rope_tables(cfg: LlamaConfig, seq_len: int, offset: int = 0,
                      device=device)
     freqs = torch.outer(t, inv_freq)
     return torch.cos(freqs), torch.sin(freqs)
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_cached(cfg: LlamaConfig, max_len: int, device: torch.device):
+    """The (max_len, hd/2) RoPE tables of the cached and slot paths,
+    built once per config, max_len and device for the eager steps,
+    which only pick rows from them. The cache drops its least recent
+    entry, so a captured step holds tables of its own
+    (:func:`decode_slots`' ``rope``)."""
+    return rope_tables(cfg, max_len, device=device)
 
 
 def apply_rope(x, cos, sin):
@@ -536,10 +556,13 @@ def _layer_cached(cfg: LlamaConfig, cos, sin, pos, x, lp, ck, cv):
 
 
 def _forward_cached(cfg: LlamaConfig, params, tokens, cache,
-                    last_only: bool = False):
+                    last_only: bool = False, last_index=None):
     """Shared prefill/decode body: runs the stack over the cache and
     returns (logits (b, s, V) f32, cache). ``last_only`` applies the
-    lm_head to the final position only."""
+    lm_head to the final position only; ``last_index`` (a 0-d int
+    tensor on the tokens' device) to that one position instead, picked
+    by an index op: a bucketed serving prefill pads its prompt, so the
+    last real position is not the last row."""
     s = tokens.shape[1]
     max_len = cache["k"].shape[3]
     pos = int(cache["pos"])
@@ -548,13 +571,15 @@ def _forward_cached(cfg: LlamaConfig, params, tokens, cache,
         raise ValueError(f"cache overflow: pos {pos} + {s} new tokens > "
                          f"max_len {max_len}")
     x = _embed(cfg, params, tokens)
-    cos_t, sin_t = rope_tables(cfg, max_len, device=x.device)
+    cos_t, sin_t = _rope_cached(cfg, max_len, x.device)
     cos, sin = cos_t[pos:pos + s], sin_t[pos:pos + s]
     for i in range(cfg.n_layers):
         x = _layer_cached(cfg, cos, sin, pos, x, _layer_params(params, i),
                           cache["k"][i], cache["v"][i])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if last_only:
+    if last_index is not None:
+        x = x.index_select(1, last_index.reshape(1).long())
+    elif last_only:
         x = x[:, -1:]
     logits = _logits(cfg, params, x)
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + s}
@@ -605,9 +630,12 @@ def _is_static(temperature, top_k, top_p) -> bool:
 
 
 def sample_logits(rng, lg, temperature=0.0, top_k=None, top_p=None):
-    """The sampler of :func:`generate` (and of the serving engine, when
-    it is ported): lg (b, V) f32 logits → (b,) int32 tokens, drawn with
-    ``prng.categorical`` on the key ``rng``, as ``mxtpu``'s.
+    """The sampler of :func:`generate` and of the serving engine: lg
+    (b, V) f32 logits → (b,) int32 tokens, drawn with
+    ``prng.categorical`` on the key ``rng``, as ``mxtpu``'s. ``rng`` may
+    also be (b, 2) keys, row i drawn from key i over its own (1, V) row:
+    ``jax.vmap`` of ``mxtpu``'s sampler over per-row keys, which is how
+    :func:`decode_slots` advances each slot's own chain.
 
     Two modes that give the same tokens on the same logits:
 
@@ -711,6 +739,224 @@ def generate(cfg: LlamaConfig, params, prompt, max_new_tokens: int, *,
         tok = sample(logits)
         out.append(tok[:, None].to(prompt.dtype))
     return torch.cat(out, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# continuous-batching serving: the dense slot bank (the model half of
+# mxtpu_torch.serve; the scheduler lives there)
+# ---------------------------------------------------------------------------
+# ``generate`` serves a whole batch that starts together. The slot
+# programs serve a fixed bank of ``max_slots`` independent rows instead:
+# admission overwrites a finished row in place, and per-slot length,
+# token and key vectors drive one decode step for the whole bank, so
+# requests entering and leaving never change its shapes (the engine
+# captures it once as a CUDA graph). Where ``mxtpu`` donates the bank to
+# each program, these write it in place.
+
+_SLOT_MESH = ("the slot bank's mesh placement comes with the multi-device "
+              "slice (ROADMAP Queue A item 11)")
+
+
+def slot_cache_specs(cfg: LlamaConfig, mesh):
+    """``mxtpu``'s PartitionSpecs of the slot state on a mesh: raises
+    until the multi-device slice."""
+    raise NotImplementedError(_SLOT_MESH)
+
+
+def init_slot_cache(cfg: LlamaConfig, max_slots: int, max_len: int,
+                    mesh=None, device: DeviceLike = None):
+    """The serving engine's device state: the slot KV bank ``k``/``v``
+    of (L, max_slots, n_kv_heads, max_len, hd) in the compute dtype,
+    and per slot ``lengths`` (valid cache entries, int32), ``tokens``
+    (the next input token, int32) and ``rngs`` ((max_slots, 2) int64
+    keys of :mod:`mxtpu_torch.prng`, each request's own chain)."""
+    if mesh is not None:
+        raise NotImplementedError(_SLOT_MESH)
+    device = resolve_device(device)
+    shape = (cfg.n_layers, max_slots, cfg.n_kv_heads, max_len,
+             cfg.head_dim)
+    i32 = dict(dtype=torch.int32, device=device)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "lengths": torch.zeros((max_slots,), **i32),
+            "tokens": torch.zeros((max_slots,), **i32),
+            "rngs": torch.zeros((max_slots, 2), dtype=torch.int64,
+                                device=device)}
+
+
+def _layer_slots(cfg: LlamaConfig, cos, sin, pos, x, lp, ck, cv):
+    """One block of the slot decode: x (S, 1, dim), one new token per
+    slot; ck/cv (S, kvh, max_len, hd), one layer of the bank. Each slot
+    writes its new K/V at its own position ``pos[i]`` (one scatter for
+    the bank) and attends its own prefix [0, pos[i] + 1)."""
+    b, s, _ = x.shape
+    hd, dt = cfg.head_dim, cfg.dtype
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, lp, h, cos, sin)
+    at = pos.reshape(b, 1, 1, 1).expand(b, cfg.n_kv_heads, 1, hd)
+    ck.scatter_(2, at, k.to(dt))
+    cv.scatter_(2, at, v.to(dt))
+    o = slot_decode_attention(q, ck, cv, pos + 1)
+    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
+    x = x + o @ _wq8(lp["wo"], dt)
+    h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+    return x + _ffn(cfg, lp, h)
+
+
+def decode_slots(cfg: LlamaConfig, params, kv, sv, active, temperature,
+                 top_k, top_p, mesh=None, rope=None):
+    """One continuous-batching decode step over the whole slot bank: the
+    one program the serving engine keeps hot. Per-slot position and
+    length vectors drive the RoPE rows, the cache write and the
+    length-masked attention, so requests entering and leaving the bank
+    never change its shapes.
+
+    kv: {"k", "v"}, the bank, written in place. sv: {"lengths",
+    "tokens", "rngs"}, written in place too. active: (S,) bool; an
+    inactive slot still flows through (fixed shapes), but its length
+    does not advance and the engine discards its sample. temperature,
+    top_k, top_p: (S,) per-slot tensors (``sample_logits``' traced
+    mode, so a mixed batch shares the step). Each slot advances its own
+    key as a batch-1 :func:`generate` would (``key, sub = split(key)``,
+    then a draw on its (1, V) row), which makes the engine's tokens
+    equal per-request generation. Nothing here reads a device value
+    back to the host, so the step can be captured as a CUDA graph.
+    rope: the (max_len, hd/2) (cos, sin) tables of :func:`rope_tables`;
+    None takes the shared cached ones. A captured step must be given
+    tables its owner holds: the shared cache may drop an entry, and a
+    graph keeps reading the addresses it was captured with.
+    Returns (sampled (S,) int32, kv, sv)."""
+    _no_mesh(mesh)
+    max_len = kv["k"].shape[3]
+    lengths = sv["lengths"]
+    pos = lengths.clamp(max=max_len - 1).long()    # each slot's write row
+    x = _embed(cfg, params, sv["tokens"][:, None])
+    cos_t, sin_t = rope or _rope_cached(cfg, max_len, x.device)
+    cos = cos_t[pos][:, None, None, :]             # (S, 1, 1, hd/2)
+    sin = sin_t[pos][:, None, None, :]
+    for i in range(cfg.n_layers):
+        x = _layer_slots(cfg, cos, sin, pos, x, _layer_params(params, i),
+                         kv["k"][i], kv["v"][i])
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _logits(cfg, params, x)[:, 0]
+    keys = prng.split(sv["rngs"])                  # (S, 2, 2): carry, sub
+    sampled = sample_logits(keys[:, 1], logits, temperature, top_k, top_p)
+    sv["lengths"].add_(active.to(lengths.dtype))
+    sv["tokens"].copy_(sampled)
+    sv["rngs"].copy_(keys[:, 0])
+    return sampled, kv, sv
+
+
+def _scalar(x, dtype, device):
+    """A host int or a 0-d tensor as a 0-d tensor on ``device``."""
+    return torch.as_tensor(x, dtype=dtype, device=device).reshape(())
+
+
+def _prefill_bucket(cfg: LlamaConfig, params, tokens, true_len, rng,
+                    temperature, top_k, top_p):
+    """The bucketed prompt through the cached stack, then the first
+    token from ``split(rng)``'s subkey: (tok (1,), bucket cache, the
+    carried key). Shared by :func:`prefill_slot` and
+    :func:`prefill_detached`."""
+    b, bucket = tokens.shape
+    tmp = init_cache(cfg, b, bucket, device=tokens.device)
+    true_len = _scalar(true_len, torch.int64, tokens.device)
+    logits, tmp = _forward_cached(cfg, params, tokens, tmp,
+                                  last_index=true_len - 1)
+    rng, sub = prng.split(rng)
+    tok = sample_logits(sub, logits[:, 0], temperature, top_k, top_p)
+    return tok, tmp, rng
+
+
+def _seat_slot(kv, sv, k_block, v_block, true_len, slot, token, rng):
+    """Write one request's (L, kvh, n, hd) K/V into positions [0, n) of
+    bank row ``slot`` and its length, next token and key into the slot
+    vectors, all by index ops on the bank's device."""
+    dev = kv["k"].device
+    at = _scalar(slot, torch.int64, dev).reshape(1)
+    n = k_block.shape[2]
+    for name, blk in (("k", k_block), ("v", v_block)):
+        kv[name][:, :, :, :n].index_copy_(
+            1, at, blk[:, None].to(kv[name].dtype))
+    sv["lengths"].index_copy_(0, at, _scalar(true_len, torch.int32,
+                                             dev).reshape(1))
+    sv["tokens"].index_copy_(0, at, _scalar(token, torch.int32,
+                                            dev).reshape(1))
+    sv["rngs"].index_copy_(0, at, rng.reshape(1, 2).to(dev))
+
+
+def prefill_slot(cfg: LlamaConfig, params, tokens, true_len, slot, kv, sv,
+                 rng, temperature, top_k, top_p, mesh=None):
+    """Admission: run one request's prompt, end-padded to its bucket,
+    through the cached stack, write its K/V into row ``slot`` of the
+    bank, seed the slot's length, next token and key, and sample the
+    first generated token. End padding is exact: causal masking keeps
+    every real position off the pads, the slot's length masks the pad
+    K/V, and decode overwrites each before the length reaches it.
+
+    tokens: (1, bucket) int; true_len, slot: ints or 0-d tensors; rng:
+    the request's (2,) key; kv/sv as in :func:`decode_slots`, written
+    in place. Returns (first token (1,) int32, kv, sv)."""
+    _no_mesh(mesh)
+    tok, tmp, rng = _prefill_bucket(cfg, params, tokens, true_len, rng,
+                                    temperature, top_k, top_p)
+    _seat_slot(kv, sv, tmp["k"][:, 0], tmp["v"][:, 0], true_len, slot,
+               tok.reshape(()), rng)
+    return tok, kv, sv
+
+
+def prefill_detached(cfg: LlamaConfig, params, tokens, true_len, rng,
+                     temperature, top_k, top_p, mesh=None):
+    """Prefill one request without a slot bank (the prefill half of a
+    disaggregated handoff): the end-padded prompt through the cached
+    stack, with the same sampler and key chain as
+    :func:`prefill_slot`. Returns (first token (1,), k_block, v_block,
+    the carried key), the blocks (L, n_kv_heads, bucket, hd)."""
+    _no_mesh(mesh)
+    tok, tmp, rng = _prefill_bucket(cfg, params, tokens, true_len, rng,
+                                    temperature, top_k, top_p)
+    return tok, tmp["k"][:, 0], tmp["v"][:, 0], rng
+
+
+def prefill_detached_chunk(cfg: LlamaConfig, params, chunk, cache,
+                           true_len, rng, temperature, top_k, top_p,
+                           mesh=None):
+    """One chunk of a streamed detached prefill: ``chunk`` (1, cw),
+    positions ``cache["pos"]`` to ``pos + cw`` of the end-padded prompt,
+    through the cached stack. Iterated over the bucket it is one
+    :func:`prefill_detached`: each position masks the same causal
+    prefix of the same bucket-sized cache, and each chunk splits the
+    same request key once. ``cache``: the (L, 1, n_kv_heads, bucket, hd)
+    buffers of :func:`init_cache` and ``pos``, carried across calls.
+    Returns (tok (1,), k_chunk, v_chunk, the carried key, cache), the
+    chunks (L, n_kv_heads, cw, hd); ``tok`` and the key mean something
+    only from the chunk that holds position ``true_len - 1``."""
+    _no_mesh(mesh)
+    cw = chunk.shape[1]
+    pos0 = int(cache["pos"])
+    true_len = _scalar(true_len, torch.int64, chunk.device)
+    last = (true_len - 1 - pos0).clamp(0, cw - 1)
+    logits, cache = _forward_cached(cfg, params, chunk, cache,
+                                    last_index=last)
+    rng, sub = prng.split(rng)
+    tok = sample_logits(sub, logits[:, 0], temperature, top_k, top_p)
+    k_chunk = cache["k"][:, 0, :, pos0:pos0 + cw].clone()
+    v_chunk = cache["v"][:, 0, :, pos0:pos0 + cw].clone()
+    return tok, k_chunk, v_chunk, rng, cache
+
+
+def inject_slot_kv(cfg: LlamaConfig, k_block, v_block, true_len, slot,
+                   token, rng, kv, sv, mesh=None):
+    """Decode-side admission of a handed-off prefill: the scatter half
+    of :func:`prefill_slot`. Writes the (L, n_kv_heads, bucket, hd) K/V
+    into row ``slot`` of the bank and seeds the slot's length, token and
+    key (the key after the first token's split). Returns (kv, sv)."""
+    _no_mesh(mesh)
+    dev = kv["k"].device
+    _seat_slot(kv, sv, torch.as_tensor(k_block, device=dev),
+               torch.as_tensor(v_block, device=dev), true_len, slot, token,
+               rng)
+    return kv, sv
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,10 @@ and then the dK/dV kernel of ``csrc/flash_attn_bwd.cu`` through
 :func:`flash_attention_bwd`; their plain version is
 :func:`flash_attention_bwd_plain`. There is no fallback from a kernel to
 a plain version, by shape or by exception.
-``slot_decode_attention``, ``paged_decode_attention``,
-``ring_attention`` and ``ulysses_attention`` come with later slices.
+:func:`slot_decode_attention`, the serving engine's length-masked
+attention over the slot bank, is plain PyTorch, as ``mxtpu``'s is plain
+``jnp``. ``paged_decode_attention``, ``ring_attention`` and
+``ulysses_attention`` come with later slices.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch.nn.functional as F
 __all__ = ["dense_attention", "blockwise_attention", "flash_attention",
            "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
-           "flash_attention_bwd_plain"]
+           "flash_attention_bwd_plain", "slot_decode_attention"]
 
 _NEG_INF = -1e30  # finite "minus infinity": keeps fully-masked rows NaN-free
 _KERNEL_HEAD_DIMS = (64, 128)
@@ -161,6 +163,66 @@ def blockwise_attention(q, k, v, *, causal: bool = False,
     if not return_lse:
         return out
     return out, torch.where(l == 0.0, math.inf, m + torch.log(l))
+
+
+def slot_decode_attention(q, k, v, lengths, *,
+                          scale: Optional[float] = None, kv_block: int = 512):
+    """Length-masked decode attention over a slot KV cache, the serving
+    engine's attention (``mxtpu``'s ``slot_decode_attention``, plain
+    ``jnp`` there, so plain PyTorch here): slot i holds its own request,
+    whose cache row is valid only up to its own length.
+
+    q: (slots, n_heads, s, hd), s = 1 in decode. k, v: (slots,
+    n_kv_heads, max_len, hd), one layer of the slot bank; GQA groups the
+    queries per kv head and never repeats the cache. lengths: (slots,)
+    int, slot i attends keys [0, lengths[i]); or (slots, s), query j of
+    slot i attends [0, lengths[i, j]) (the speculative verify step's
+    causal mask).
+
+    Blockwise online softmax over ``kv_block``-wide slices with running
+    (max, denominator, numerator) in f32: one block of k and v is cast
+    to f32 at a time, never the bank; the tail block is padded and its
+    padding masked by position. Rows with no visible key (length 0)
+    come out as zeros."""
+    b, hq, sq, d = q.shape
+    hkv, max_len = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"{hq} q heads not divisible by {hkv} kv heads")
+    rep = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kv_block = min(kv_block, max_len)
+    if lengths.ndim == 2:     # per query: (b, 1, 1, sq, 1) against kpos
+        lim = lengths.reshape(b, 1, 1, sq, 1)
+    else:
+        lim = lengths.reshape(b, 1, 1, 1, 1)
+    # the rep query heads of a kv head and their s queries share its keys:
+    # rows of one (b, hkv) product, so no head is repeated
+    qg = q.reshape(b, hkv, rep * sq, d).float()
+    m = torch.full((b, hkv, rep, sq), _NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hkv, rep, sq), dtype=torch.float32, device=q.device)
+    o = torch.zeros((b, hkv, rep, sq, d), dtype=torch.float32,
+                    device=q.device)
+    kpos0 = torch.arange(kv_block, device=q.device)
+    for lo in range(0, max_len, kv_block):
+        kb = k[:, :, lo:lo + kv_block].float()
+        vb = v[:, :, lo:lo + kv_block].float()
+        if kb.shape[2] < kv_block:          # the tail: pad, mask by position
+            pad = kv_block - kb.shape[2]
+            kb = F.pad(kb, (0, 0, 0, pad))
+            vb = F.pad(vb, (0, 0, 0, pad))
+        scores = torch.matmul(qg, kb.transpose(-1, -2)) * scale
+        scores = scores.reshape(b, hkv, rep, sq, kv_block)
+        allowed = (kpos0 + lo) < lim
+        scores = torch.where(allowed, scores, _NEG_INF)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.where(allowed, torch.exp(scores - m_new[..., None]), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.matmul(p.reshape(b, hkv, rep * sq, kv_block), vb)
+        o = o * corr[..., None] + pv.reshape(b, hkv, rep, sq, d)
+        m = m_new
+    return _finalize(m, l, o, q.dtype).reshape(b, hq, sq, d)
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = False,

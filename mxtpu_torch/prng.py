@@ -9,8 +9,14 @@ dropout masks and crash replays carry over.
 
 A key is an int64 tensor of shape ``(2,)`` that holds two uint32
 words, on any device; what a function draws lands on its key's
-device. The arithmetic runs on int64 lanes masked to 32 bits (add,
-then mask; rotate as ``((x << r) | (x >> (32 - r))) & mask``), since
+device. A batch of keys, shape ``(S, 2)``, has ``jax.vmap``'s
+semantics over its rows: :func:`split` gives ``(S, num, 2)``,
+:func:`fold_in` ``(S, 2)``, and a draw of ``shape`` gives
+``(S, *shape)``, row i from key i over the row's own counters, in one
+broadcast pass (key words ``(S, 1, ...)`` against the counters).
+
+The arithmetic runs on int64 lanes masked to 32 bits (add, then mask;
+rotate as ``((x << r) | (x >> (32 - r))) & mask``), since
 torch's ``uint32`` lacks most ops. A 64-bit draw comes back as the
 int64 with the same bit pattern as jax's uint64.
 
@@ -39,10 +45,11 @@ Shape = Union[int, Sequence[int]]
 
 def _check_key(key) -> torch.Tensor:
     if not isinstance(key, torch.Tensor) or key.dtype != torch.int64 \
-            or tuple(key.shape) != (2,):
+            or key.ndim not in (1, 2) or key.shape[-1] != 2:
         raise TypeError("a key is an int64 tensor of shape (2,) holding two "
                         "uint32 words (PRNGKey, split, fold_in, "
-                        f"key_from_numpy); got {_describe(key)}")
+                        "key_from_numpy), or a batch of them (S, 2); got "
+                        f"{_describe(key)}")
     if key.device.type == "meta":
         raise ValueError("a key on the meta device holds no value")
     return key
@@ -88,18 +95,30 @@ def threefry_2x32(k1, k2, x1: torch.Tensor, x2: torch.Tensor):
     return x0, x1
 
 
+def _words(key: torch.Tensor, ndim: int):
+    """A key's two words, shaped to broadcast against ``ndim`` counter
+    dims: 0-d for one key, (S, 1, ..., 1) for a batch (vmap's rows)."""
+    key = _check_key(key)
+    k1, k2 = key[..., 0], key[..., 1]
+    if key.ndim == 2:
+        k1, k2 = (k.reshape((-1,) + (1,) * ndim) for k in (k1, k2))
+    return k1, k2
+
+
 def _hash_iota(key: torch.Tensor, shape: Tuple[int, ...]):
     """Threefry of the row-major flat index over ``shape``, split into
-    its high and low words (jax's ``iota_2x32_shape``)."""
-    key = _check_key(key)
+    its high and low words (jax's ``iota_2x32_shape``); a batch of S
+    keys hashes the same counters under each key, (S, *shape)."""
+    k1, k2 = _words(key, len(shape))
     count = torch.arange(int(np.prod(shape, dtype=np.int64)),
                          dtype=torch.int64, device=key.device).reshape(shape)
-    return threefry_2x32(key[0], key[1], count >> 32, count & MASK)
+    return threefry_2x32(k1, k2, count >> 32, count & MASK)
 
 
 def split(key: torch.Tensor, num: Shape = 2) -> torch.Tensor:
     """``jax.random.split``: ``num`` keys (an int or a shape), stacked
-    on a leading axis; key i is the hash of the counter i."""
+    on a leading axis; key i is the hash of the counter i. A batch of S
+    keys gives (S, *num, 2)."""
     bits1, bits2 = _hash_iota(key, _shape(num))
     return torch.stack([bits1, bits2], dim=-1)
 
@@ -107,8 +126,9 @@ def split(key: torch.Tensor, num: Shape = 2) -> torch.Tensor:
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: the hash of the counter (0, data), where
     data is a uint32 (a Python int in [0, 2**32), or a 0-d integer
-    tensor taken modulo 2**32 as jax's ``astype`` does)."""
-    key = _check_key(key)
+    tensor taken modulo 2**32 as jax's ``astype`` does). A batch of S
+    keys folds the same data into each, (S, 2)."""
+    k1, k2 = _words(key, 0)
     if isinstance(data, torch.Tensor):
         if data.ndim or data.is_floating_point():
             raise TypeError("fold_in takes one integer, got "
@@ -119,8 +139,8 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
         if not 0 <= data <= MASK:
             raise OverflowError(f"fold_in data {data} is not a uint32")
         data = torch.tensor(data, dtype=torch.int64, device=key.device)
-    out0, out1 = threefry_2x32(key[0], key[1], torch.zeros_like(data), data)
-    return torch.stack([out0, out1])
+    out0, out1 = threefry_2x32(k1, k2, torch.zeros_like(data), data)
+    return torch.stack(torch.broadcast_tensors(out0, out1), dim=-1)
 
 
 def random_bits(key: torch.Tensor, bit_width: int = 32,
@@ -186,7 +206,9 @@ def uniform(key: torch.Tensor, shape: Shape = (),
     fused multiply-add, rounded once, which :func:`_fma` reproduces
     exactly; where ``maxval - minval`` is a power of two (the default
     [0, 1), gumbel's [tiny, 1)) the product is exact and the plain sum
-    rounds once already."""
+    rounds once already. That branch copies nothing from the host, so a
+    step captured as a CUDA graph can draw on it (the other copies its
+    two constants from the host)."""
     if dtype not in _FLOAT_LAYOUT:
         raise TypeError(f"uniform draws float32 or float64, not {dtype}")
     nbits, nmant, itype, one, splitter = _FLOAT_LAYOUT[dtype]
@@ -222,12 +244,20 @@ def gumbel(key: torch.Tensor, shape: Shape = (),
 def categorical(key: torch.Tensor, logits: torch.Tensor,
                 axis: int = -1) -> torch.Tensor:
     """``jax.random.categorical`` with replacement: the Gumbel-max
-    draw ``argmax(gumbel + logits)`` (the first index on ties), int64."""
+    draw ``argmax(gumbel + logits)`` (the first index on ties), int64.
+    With a batch of S keys, logits (S, ...) and row i is drawn from key
+    i over the row's own shape (``jax.vmap`` over keys and rows)."""
     key = _check_key(key)
     if key.device != logits.device:
         raise ValueError(f"the key is on {key.device}, the logits on "
                          f"{logits.device}")
-    noise = gumbel(key, tuple(logits.shape), logits.dtype)
+    shape = tuple(logits.shape)
+    if key.ndim == 2:
+        if not shape or shape[0] != key.shape[0]:
+            raise ValueError(f"{key.shape[0]} keys for logits of shape "
+                             f"{shape}: a batch of keys draws one row each")
+        shape = shape[1:]
+    noise = gumbel(key, shape, logits.dtype)
     return torch.argmax(noise + logits, dim=axis)
 
 
@@ -235,8 +265,11 @@ def bernoulli(key: torch.Tensor, p=0.5,
               shape: Optional[Shape] = None) -> torch.Tensor:
     """``jax.random.bernoulli`` in its "low" mode: ``uniform < p``,
     drawn in p's float dtype; a Python ``p`` draws in float32, as jax
-    does outside its 64-bit mode (in it, pass a float64 tensor)."""
+    does outside its 64-bit mode (in it, pass a float64 tensor). One
+    key only: a batch of keys raises."""
     key = _check_key(key)
+    if key.ndim != 1:
+        raise TypeError(f"bernoulli takes one key, got {_describe(key)}")
     if not isinstance(p, torch.Tensor):
         p = torch.tensor(p, dtype=torch.float32, device=key.device)
     if not p.is_floating_point():

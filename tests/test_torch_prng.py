@@ -166,8 +166,10 @@ def test_keys_cross_as_numpy_and_bad_keys_raise():
     meta = torch.zeros(2, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="meta"):
         prng.split(meta)
+    # (2, 2) is a batch of two keys now (jax.vmap's semantics); a batch
+    # of batches is refused
     for bad in (torch.zeros(3, dtype=torch.int64),
-                torch.zeros((2, 2), dtype=torch.int64),
+                torch.zeros((2, 2, 2), dtype=torch.int64),
                 torch.zeros(2, dtype=torch.int32), np.zeros(2, np.uint32)):
         with pytest.raises(TypeError, match="shape \\(2,\\)"):
             prng.uniform(bad, (3,))
