@@ -112,7 +112,35 @@ host's cost of a call.
    freed and poisoned before every replay (``rope_evicted``); and two
    engines serving from ``run_forever`` threads at once, each capturing
    while the other works, give every stream of a synchronous engine's
-   run, one capture each (``threaded_engines``).
+   run, one capture each (``threaded_engines``). (g)
+   ``paged_attention``: at 16 slots, hq 32, hkv 8, hd 128, max_len 768,
+   a random bf16 bank paged into 16- and 64-token pages in shuffled
+   order (two slots aliasing pages): ``paged_decode_attention`` equals
+   ``slot_decode_attention`` on the bank bit for bit, with 1-D and
+   per-query lengths, each timed as a captured graph; the int8 codes,
+   scales and dequantised gather on the card equal the CPU's; its
+   launches counted from zero. (h)
+   ``paged_engine``: ``bench.py``'s ``bench_paged_kv`` (4 dense slots
+   against 49 pages of 64 tokens, the same KV bytes, under a 16-slot
+   ceiling; 32 requests of 96 + 96 tokens): peak active slots, their
+   ratio (at least 3), tok/s and reserved GB; time to first token of a
+   384 + 8 token prompt cold and warm (a prefix hit); the serve stream
+   of (f) through 16-token pages (tok/s, p50, p99, peak pages, at most
+   buckets + 2 programs, one capture, streams against the dense
+   engine's printed) and through int8 pages twice (equal); at 4 layers
+   in f32 the paged engine equals the dense one or parts at a near-tie.
+   (i) ``spec_engine``: ``bench.py``'s ``bench_spec`` (k = 4 against
+   k = 0, 2 slots, 16-token pages, max_len 256, 6 greedy requests of
+   200 tokens): tok/s, accepted tokens a slot-step and the accept rate
+   (reported, not checked: the weights are random), an oracle drafter
+   reading the k = 0 streams and an adversarial one, each stream equal
+   to k = 0's or parting first where the two tokens' decision values
+   lie within 2^-6 of |max| (a bf16 near-tie); at 4 layers in f32 the n-gram, oracle and adversarial engines and a
+   journaled resume after 5 tokens equal k = 0 or part at a near-tie,
+   the oracle in fewer steps than tokens; at most buckets + 3 programs
+   and one capture each of the paged and verify steps. (g)-(i) print
+   the card's name and power limit and launch none of the port's
+   kernels.
 6. train: ``CONFIGS["llama3_8b"]`` at full width and 4 layers, with the
    reference's training dtypes (f32 params, bf16 compute), remat and the
    8192-wide chunked cross-entropy. (a) The loss and the grads of
@@ -249,6 +277,25 @@ SERVE_MEAN_GAP = 4.0
 # engine vs batch-1 generate in f32 at 4 layers: a differing token is
 # allowed only at a near-tie of generate's decision values
 SERVE_LAYERS, SERVE_TIE_REL = 4, 1e-5
+# the paged pool's admission test: bench.py's bench_paged_kv at its own
+# parameters (4 dense slots against the same HBM in 64-token pages under a
+# 16-slot ceiling; 32 requests of 96 + 96 tokens; max_len 768, buckets
+# from 64), whose contract is a peak-slot ratio of 3 or more
+PAGED_DENSE_SLOTS, PAGED_CEILING, PAGED_PAGE = 4, 16, 64
+PAGED_REQUESTS, PAGED_PROMPT, PAGED_NEW = 32, 96, 96
+PAGED_ADMIT_RATIO = 3
+TTFT_SYSTEM, TTFT_SUFFIX = 384, 8   # bench_paged_kv's warm/cold prompt
+# speculative decoding: bench.py's bench_spec (k = 4, 2 slots, pages of
+# 16, max_len 256, 6 greedy requests of 200 new tokens on two prompts)
+SPEC_K, SPEC_SLOTS, SPEC_MAX_LEN, SPEC_PAGE = 4, 2, 256, 16
+SPEC_REQUESTS, SPEC_NEW = 6, 200
+SPEC_PROMPTS = ([140, 141, 140], [175, 243, 166])
+SPEC_F32_NEW, SPEC_RESUME_AT = 48, 5
+# in bf16 at full width a speculative stream may part from k = 0 only at a
+# near-tie: the two tokens' decision values within 2^-6 of |max|, eight
+# bf16 half-ulps (each rounding of an activation moves it up to 2^-9 of
+# itself), where a token from a faulty verify step lies about |max| below
+SPEC_BF16_TIE_REL = 2 ** -6
 GUMBEL_ULPS = 2            # card vs CPU, in ulps of max(|g|, 1)
 RNG_SEEDS = (0, 42, 2 ** 31 - 1)
 RNG_SHAPES = ((7,), (3, 5, 11), (4, 128256))
@@ -654,10 +701,13 @@ def slice_phase():
         if not torch.equal(out, out2):
             raise AssertionError("greedy generate is not reproducible")
 
+        engine_launches, dense_streams = serve_engine_phase(cfg, params)
         serve = [sampled_phase(cfg, params, prompts, out, min(t1, t2)),
                  chunked_phase(cfg, params, gen),
-                 int8_phase(cfg, params, prompts),
-                 serve_engine_phase(cfg, params)]
+                 int8_phase(cfg, params, prompts), engine_launches,
+                 paged_attention_phase(),
+                 paged_engine_phase(cfg, params, dense_streams),
+                 spec_engine_phase(cfg, params)]
     return {k: launches[k] + sum(n[k] for n in serve)
             for k in LAUNCH_COUNTERS}
 
@@ -943,12 +993,12 @@ def generate_one(cfg, params, req, n_new):
     return out[0, prompt.shape[1]:].cpu().numpy()
 
 
-def decision_gap(cfg, params, req, toks, j):
+def decision_values(cfg, params, req, toks, j):
     """At generated position j, where ``generate`` chose ``toks[j]``:
-    the gap between its decision value and the best other token's, and
-    |max|. The decision values are the logits (greedy) or the sampler's
-    perturbed ones: the Gumbel noise of emission j's subkey plus the
-    scaled, top-k and nucleus masked logits."""
+    every token's decision value (V,), from a batch-1 prefill of the
+    prompt and ``toks[:j]``. The decision values are the logits (greedy)
+    or the sampler's perturbed ones: the Gumbel noise of emission j's
+    subkey plus the scaled, top-k and nucleus masked logits."""
     import torch
     from mxtpu_torch import prng
     from mxtpu_torch.models import llama
@@ -970,8 +1020,7 @@ def decision_gap(cfg, params, req, toks, j):
             val = llama._nucleus_mask(val[None], torch.tensor(
                 [[req.top_p]], device="cuda"))[0]
         val = val + prng.gumbel(sub, (1, val.shape[0]))[0]
-    top2 = torch.topk(val, 2).values
-    return (top2[0] - top2[1]).item(), top2[0].abs().item()
+    return val
 
 
 def serve_engine_phase(cfg, params):
@@ -1094,7 +1143,7 @@ def serve_engine_phase(cfg, params):
                              f"synchronous runs or failed: {threaded}")
     if launches != only():
         raise AssertionError(f"serve_engine launched {launches}")
-    return launches
+    return launches, first
 
 
 def f32_layers(cfg, params):
@@ -1115,30 +1164,61 @@ def f32_engine_vs_generate(cfg4, p4):
     difference, and there generate's decision gap at most SERVE_TIE_REL
     of |max| (a near-tie)."""
     import torch
-    from mxtpu_torch.serve import Request, ServeEngine
-    rng = np.random.default_rng(SEED + 2)
-    reqs = [Request(prompt=rng.integers(0, cfg4.vocab_size, plen),
-                    max_new_tokens=32, seed=100 + i,
-                    **(SAMPLING if i >= 2 else {}))
-            for i, plen in enumerate((64, 128, 64, 128))]
+    from mxtpu_torch.serve import ServeEngine
+    reqs = f32_requests(cfg4)
     engine = ServeEngine(cfg4, p4, max_slots=4, max_len=256, min_bucket=64,
                          device="cuda")
     got = serve_stream(engine, reqs, range(len(reqs)))
-    rows, ok = [], True
-    for i, r in enumerate(reqs):
-        want = generate_one(cfg4, p4, r, r.max_new_tokens)
-        diff = np.flatnonzero(want != got[i])
-        row = {"sampled": bool(r.temperature), "equal": not diff.size}
-        if diff.size:
-            j = int(diff[0])
-            gap, top = decision_gap(cfg4, p4, r, want, j)
-            row.update(first_difference=j, gap=gap, max_abs=top,
-                       near_tie=gap <= SERVE_TIE_REL * top)
-            ok = ok and row["near_tie"]
-        rows.append(row)
+    want = {i: generate_one(cfg4, p4, r, r.max_new_tokens)
+            for i, r in enumerate(reqs)}
+    rows, ok = near_tie_rows(cfg4, p4, reqs, want, got)
     del engine
     torch.cuda.empty_cache()
     return {"layers": SERVE_LAYERS, "rows": rows, "ok": ok}
+
+
+def f32_requests(cfg4):
+    """``f32_engine_vs_generate``'s requests: 2 greedy and 2 sampled,
+    prompts 64 and 128, 32 new tokens each."""
+    from mxtpu_torch.serve import Request
+    rng = np.random.default_rng(SEED + 2)
+    return [Request(prompt=rng.integers(0, cfg4.vocab_size, plen),
+                    max_new_tokens=32, seed=100 + i,
+                    **(SAMPLING if i >= 2 else {}))
+            for i, plen in enumerate((64, 128, 64, 128))]
+
+
+def near_tie_rows(cfg4, p4, reqs, want, got):
+    """Streams ``got`` against ``want`` ({index: tokens}): each equal, or
+    parting first at a near-tie of ``want``'s decision values (the gap
+    between the best two at most SERVE_TIE_REL of |max|). Returns (rows,
+    ok)."""
+    return parting_rows(cfg4, p4, reqs, want, got,
+                        lambda gap, pair, top: gap <= SERVE_TIE_REL * top)
+
+
+def parting_rows(cfg, params, reqs, want, got, near):
+    """Streams ``got`` against ``want`` ({index: tokens}), each equal or
+    parting first at a position j where ``near(gap, pair, top)`` holds
+    on ``want``'s decision values there (``decision_values``): gap is
+    the best one's lead over the second, pair the value of ``want``'s
+    token less that of ``got``'s, top |max|. Returns (rows, ok)."""
+    rows, ok = [], True
+    for i, r in enumerate(reqs):
+        a, b = np.asarray(want[i]), np.asarray(got[i])
+        diff = np.flatnonzero(a != b)
+        row = {"sampled": bool(r.temperature), "equal": not diff.size}
+        if diff.size:
+            j = int(diff[0])
+            val = decision_values(cfg, params, r, a, j)
+            top2 = val.topk(2).values
+            gap, top = (top2[0] - top2[1]).item(), top2[0].abs().item()
+            pair = (val[int(a[j])] - val[int(b[j])]).item()
+            row.update(first_difference=j, gap=gap, pair_gap=pair,
+                       max_abs=top, near_tie=bool(near(gap, pair, top)))
+            ok = ok and row["near_tie"]
+        rows.append(row)
+    return rows, ok
 
 
 def decode_graph_owns_its_tables(cfg4, p4, steps=4):
@@ -1267,6 +1347,486 @@ def engines_on_threads(cfg4, p4):
         del engines
         torch.cuda.empty_cache()
     return out
+
+
+def paged_attention_phase():
+    """``paged_decode_attention`` against ``slot_decode_attention`` on the
+    dense bank it was paged from: llama3_8b's attention widths (hq 32,
+    hkv 8, hd 128), 16 slots at max_len 768, a random bf16 bank paged
+    into 16- and 64-token pages in shuffled order, slot 1's first 256
+    positions aliasing slot 0's pages. Bit for bit with 1-D lengths and
+    with per-query ones (5 queries a slot, the verify step's mask); the
+    device time of each, captured as a graph (a layer's attention at the
+    engine's decode shape), beside the live K/V's byte bound. Then
+    the int8 pool: ``_q8_token`` of the 64-token pages on the card and on
+    the CPU, and the dequantised gather of every slot's row, bit for
+    bit."""
+    import torch
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.ops.attention import (gather_pages,
+                                           paged_decode_attention,
+                                           slot_decode_attention)
+    from mxtpu_torch.tools.timing import graphed, time_ms
+    reset_launches()
+    S, hq, hkv, hd, L, alias = SERVE_SLOTS, 32, 8, 128, SERVE_MAX_LEN, 256
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    k = torch.randn((S, hkv, L, hd), generator=gen, **bf)
+    v = torch.randn((S, hkv, L, hd), generator=gen, **bf)
+    k[1, :, :alias], v[1, :, :alias] = k[0, :, :alias], v[0, :, :alias]
+    q1 = torch.randn((S, hq, 1, hd), generator=gen, **bf)
+    q5 = torch.randn((S, hq, 5, hd), generator=gen, **bf)
+    lengths = torch.randint(1, L - 4, (S,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    lengths[:2] = torch.tensor([L - 5, alias], dtype=torch.int32)
+    per_query = lengths[:, None] + torch.arange(1, 6, device="cuda",
+                                                dtype=torch.int32)
+    live_bytes = 2 * hkv * hd * 2 * int(lengths.sum())
+    rows, pools = [], {}
+    with torch.no_grad():
+        for ps in (16, 64):
+            n = L // ps
+            table = (torch.randperm(S * n, generator=gen, device="cuda")
+                     + 1).reshape(S, n)
+            table[1, :alias // ps] = table[0, :alias // ps]
+            pool = {}
+            for name, bank in (("k", k), ("v", v)):
+                pool[name] = torch.zeros((1 + S * n, hkv, ps, hd), **bf)
+                pool[name].index_copy_(
+                    0, table.reshape(-1), bank.reshape(S, hkv, n, ps, hd)
+                    .transpose(1, 2).reshape(S * n, hkv, ps, hd))
+            table = table.int()
+            pools[ps] = (pool, table)
+            row = {"page_size": ps}
+            for tag, q, lim in (("1d", q1, lengths), ("2d", q5, per_query)):
+                dense = slot_decode_attention(q, k, v, lim)
+                paged = paged_decode_attention(q, pool["k"], pool["v"],
+                                               table, lim)
+                row[f"equal_{tag}"] = bool(torch.equal(dense, paged))
+            # device times: each call captured as a graph (eager calls
+            # cost the host more than a window's spin)
+            row["paged_ms"] = time_ms(graphed(lambda: paged_decode_attention(
+                q1, pool["k"], pool["v"], table, lengths)), 10)
+            row["slot_ms"] = time_ms(graphed(
+                lambda: slot_decode_attention(q1, k, v, lengths)), 10)
+            row["live_kv_bound_ms"] = live_bytes / PEAK_HBM_BYTES * 1e3
+            rows.append(row)
+        pool, table = pools[64]
+        codes, scales = llama._q8_token(pool["k"])
+        c_cpu, s_cpu = llama._q8_token(pool["k"].cpu())
+        q8_equal = bool(torch.equal(codes.cpu(), c_cpu)
+                        and torch.equal(scales.cpu(), s_cpu))
+        got = gather_pages(codes, table, 0, L, scales, torch.bfloat16)
+        want = gather_pages(c_cpu, table.cpu(), 0, L, s_cpu, torch.bfloat16)
+        gather_equal = bool(torch.equal(got.cpu(), want))
+    launches = read_launches()
+    out = {"phase": "paged_attention", "card": nvidia_smi(), "slots": S,
+           "hq": hq, "hkv": hkv, "hd": hd, "max_len": L,
+           "aliased_positions": alias, "rows": rows,
+           "int8_q8_token_card_vs_cpu_equal": q8_equal,
+           "int8_gather_card_vs_cpu_equal": gather_equal,
+           "launches": launches}
+    emit(out)
+    bad = [r for r in rows if not (r["equal_1d"] and r["equal_2d"])]
+    if bad:
+        raise AssertionError(f"paged attention differs from slot attention "
+                             f"on the bank it was paged from: {bad}")
+    if not (q8_equal and gather_equal):
+        raise AssertionError("the int8 pool's codes, scales or dequantised "
+                             "gather differ between the card and the CPU")
+    if launches != only():
+        raise AssertionError(f"paged_attention launched {launches}")
+    return launches
+
+
+def admission_run(cfg, params, paged):
+    """bench_paged_kv's ``one_mode``: the dense bank (PAGED_DENSE_SLOTS
+    slots) or the pool of the same bytes (PAGED_CEILING slots), one
+    warm-up request, then PAGED_REQUESTS requests of PAGED_PROMPT +
+    PAGED_NEW tokens at once. Returns the row and the streams."""
+    import torch
+    from mxtpu_torch.serve import Request, ServeEngine
+    n_pages = PAGED_DENSE_SLOTS * (SERVE_MAX_LEN // PAGED_PAGE) + 1
+    engine = ServeEngine(
+        cfg, params, max_len=SERVE_MAX_LEN, min_bucket=SERVE_PROMPTS[0],
+        max_slots=PAGED_CEILING if paged else PAGED_DENSE_SLOTS,
+        paged=paged, page_size=PAGED_PAGE if paged else None,
+        n_pages=n_pages if paged else None, device="cuda")
+    rng = np.random.default_rng(SEED)
+    engine.submit(Request(prompt=rng.integers(0, cfg.vocab_size,
+                                              PAGED_PROMPT),
+                          max_new_tokens=2))
+    engine.run()
+    engine.reset_stats()
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, PAGED_PROMPT),
+                    max_new_tokens=PAGED_NEW)
+            for _ in range(PAGED_REQUESTS)]
+    peak = [0]
+
+    def watch(rid, tok):
+        peak[0] = max(peak[0], engine.load()["active"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = serve_stream(engine, reqs, range(len(reqs)), watch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    n_tok = PAGED_REQUESTS * PAGED_NEW
+    row = {"slots": engine.max_slots, "peak_active_slots": peak[0],
+           "seconds": seconds, "tok_per_s": n_tok / seconds,
+           "kv_reserved_gb": engine.kv_cache_stats()["reserved_bytes"] / 1e9,
+           "exact_counts": all(len(t) == PAGED_NEW
+                               and ((t >= 0) & (t < cfg.vocab_size)).all()
+                               for t in got.values())}
+    del engine
+    torch.cuda.empty_cache()
+    return row
+
+
+def ttft_cold_warm(cfg, params):
+    """bench_paged_kv's time to first token on a fresh paged engine (4
+    slots, 64-token pages): a TTFT_SYSTEM-token system prompt plus
+    TTFT_SUFFIX tokens, cold (the prompt registers), then warm (only the
+    suffix's bucket is prefilled over the shared pages), after the same
+    pair on a throw-away prefix."""
+    from mxtpu_torch.serve import Request, ServeEngine
+    engine = ServeEngine(cfg, params, max_len=SERVE_MAX_LEN,
+                         min_bucket=SERVE_PROMPTS[0], max_slots=4,
+                         paged=True, page_size=PAGED_PAGE, device="cuda")
+    rng = np.random.default_rng(SEED + 1)
+
+    def timed(prompt):
+        stamp = {}
+        engine.submit(Request(prompt=prompt, max_new_tokens=2,
+                              on_token=lambda rid, tok:
+                              stamp.setdefault("t", time.perf_counter())))
+        t0 = time.perf_counter()
+        engine.run()
+        return 1e3 * (stamp["t"] - t0)
+
+    def prompt(prefix):
+        return np.concatenate([prefix, rng.integers(0, cfg.vocab_size,
+                                                    TTFT_SUFFIX)])
+    warm_up = rng.integers(0, cfg.vocab_size, TTFT_SYSTEM)
+    timed(prompt(warm_up))
+    timed(prompt(warm_up))
+    system = rng.integers(0, cfg.vocab_size, TTFT_SYSTEM)
+    cold, warm = timed(prompt(system)), timed(prompt(system))
+    st = engine.kv_cache_stats()
+    return {"ttft_cold_ms": cold, "ttft_warm_ms": warm,
+            "prefix_hits": st["prefix_hits"], "cow_forks": st["cow_forks"]}
+
+
+def paged_serve_run(cfg, params, reqs, **kw):
+    """The serve stream through a paged engine (16 slots, max_len 768,
+    buckets from 64, the default pool of 16-token pages), every bucket
+    warmed first: streams, and its numbers."""
+    import torch
+    from mxtpu_torch.serve import Request, ServeEngine
+    engine = ServeEngine(cfg, params, max_slots=SERVE_SLOTS,
+                         max_len=SERVE_MAX_LEN, min_bucket=SERVE_PROMPTS[0],
+                         paged=True, device="cuda", **kw)
+    rng = np.random.default_rng(SEED + 1)
+    for j, plen in enumerate(SERVE_PROMPTS):
+        engine.submit(Request(prompt=rng.integers(0, cfg.vocab_size, plen),
+                              max_new_tokens=2, seed=j))
+    engine.run()
+    engine.reset_stats()
+    peak = [0]
+
+    def watch(rid, tok):
+        peak[0] = max(peak[0], engine._pages.used_pages)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = serve_stream(engine, reqs, range(len(reqs)), watch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    lat = engine.latency_stats()
+    st = engine.kv_cache_stats()
+    n_tok = sum(r.max_new_tokens for r in reqs)
+    row = {"seconds": seconds, "tok_per_s": n_tok / seconds,
+           "p50_token_ms": lat["p50_token_ms"],
+           "p99_token_ms": lat["p99_token_ms"], "page_size": st["page_size"],
+           "pages_total": st["pages_total"], "peak_pages_used": peak[0],
+           "kv_reserved_gb": st["reserved_bytes"] / 1e9,
+           "prefix_hits": st["prefix_hits"],
+           "compile_count": engine.compile_count,
+           "n_buckets": engine.n_buckets,
+           "decode_captures": engine._decode.captures,
+           "exact_counts": all(len(got[i]) == r.max_new_tokens
+                               and ((got[i] >= 0)
+                                    & (got[i] < cfg.vocab_size)).all()
+                               for i, r in enumerate(reqs))}
+    del engine
+    torch.cuda.empty_cache()
+    return row, got
+
+
+def shared_tokens(a, b):
+    """Per stream, how many leading tokens two runs share."""
+    out = []
+    for i in sorted(a):
+        diff = np.flatnonzero(np.asarray(a[i]) != np.asarray(b[i]))
+        out.append(int(diff[0]) if diff.size else len(a[i]))
+    return out
+
+
+def paged_engine_phase(cfg, params, dense_streams):
+    """The paged engine on the slice's weights (32 layers, bf16): (a)
+    bench_paged_kv's admission test, dense against paged at the same KV
+    bytes: peak active slots, their ratio (at least PAGED_ADMIT_RATIO),
+    tok/s, reserved GB, every request exactly its tokens; (b) time to
+    first token, cold and warm (at least one prefix hit); (c) the
+    ``serve_engine`` stream through a paged engine of 16-token pages:
+    tok/s, p50 and p99, peak pages used, at most buckets + 2 programs,
+    one capture of the paged step, and how many tokens each stream
+    shares with the dense engine's (printed); at 4 layers in f32 the
+    dense and paged engines equal on ``f32_requests``, or parting at a
+    near-tie; (d) the stream over int8 pages, twice, equal, and its
+    agreement with the bf16 pool (printed); (e) no kernel launches."""
+    import torch
+    from mxtpu_torch.serve import ServeEngine
+    reset_launches()
+    admit = {"dense": admission_run(cfg, params, False),
+             "paged": admission_run(cfg, params, True)}
+    ratio = (admit["paged"]["peak_active_slots"]
+             / max(1, admit["dense"]["peak_active_slots"]))
+    ttft = ttft_cold_warm(cfg, params)
+    reqs = serve_requests(cfg)
+    stream, paged = paged_serve_run(cfg, params, reqs, page_size=16)
+    # stream: the run's numbers; paged: its tokens
+    int8_runs = [paged_serve_run(cfg, params, reqs, page_size=16,
+                                 int8_pages=True) for _ in range(2)]
+    int8_equal = all(np.array_equal(int8_runs[0][1][i], int8_runs[1][1][i])
+                     for i in range(len(reqs)))
+    cfg4, p4 = f32_layers(cfg, params)
+    f32_reqs = f32_requests(cfg4)
+    f32_runs = []
+    for kw in ({}, {"paged": True, "page_size": 16}):
+        engine = ServeEngine(cfg4, p4, max_slots=4, max_len=256,
+                             min_bucket=64, device="cuda", **kw)
+        f32_runs.append(serve_stream(engine, f32_reqs, range(len(f32_reqs))))
+        del engine
+    f32_rows, f32_ok = near_tie_rows(cfg4, p4, f32_reqs, *f32_runs)
+    del p4
+    torch.cuda.empty_cache()
+    launches = read_launches()
+    emit({"phase": "paged_engine", "card": nvidia_smi(),
+          "config": "llama3_8b", "n_layers": cfg.n_layers,
+          "admission": {**admit, "peak_slot_ratio": ratio,
+                        "pages": PAGED_DENSE_SLOTS
+                        * (SERVE_MAX_LEN // PAGED_PAGE) + 1,
+                        "page_size": PAGED_PAGE,
+                        "requests": PAGED_REQUESTS,
+                        "prompt": PAGED_PROMPT, "new": PAGED_NEW},
+          "ttft": ttft, "serve_stream": stream,
+          "bf16_streams_equal_to_dense": sum(
+              np.array_equal(dense_streams[i], paged[i]) for i in paged),
+          "bf16_tokens_shared_with_dense": shared_tokens(dense_streams,
+                                                         paged),
+          "int8": {**int8_runs[0][0], "repeat_equal": int8_equal,
+                   "tokens_shared_with_bf16_pool": shared_tokens(
+                       paged, int8_runs[0][1])},
+          "f32_paged_vs_dense": {"layers": SERVE_LAYERS, "rows": f32_rows,
+                                 "ok": f32_ok},
+          "launches": launches})
+    if not (admit["dense"]["exact_counts"] and admit["paged"]["exact_counts"]
+            and stream["exact_counts"] and int8_runs[0][0]["exact_counts"]):
+        raise AssertionError("paged_engine: a request got the wrong count "
+                             "of tokens or a bad token")
+    if not ratio >= PAGED_ADMIT_RATIO:
+        raise AssertionError(f"paged admission ran {ratio} times the dense "
+                             f"bank's slots, under {PAGED_ADMIT_RATIO}")
+    if not ttft["prefix_hits"] >= 1:
+        raise AssertionError(f"the warm admission missed its prefix: {ttft}")
+    if not (stream["compile_count"] <= stream["n_buckets"] + 2
+            and stream["decode_captures"] == 1):
+        raise AssertionError(f"the paged engine built more than its buckets "
+                             f"+ 2 programs or captured its step other than "
+                             f"once: {stream}")
+    if not int8_equal:
+        raise AssertionError("the int8 pool served another stream the "
+                             "second time")
+    if not f32_ok:
+        raise AssertionError(f"paged and dense engines in f32 part away "
+                             f"from a near-tie: {f32_rows}")
+    if launches != only():
+        raise AssertionError(f"paged_engine launched {launches}")
+    return launches
+
+
+def spec_run(cfg, params, reqs, k, drafter=None, warm_up=True):
+    """bench_spec's ``one_mode``: a paged engine (SPEC_SLOTS slots,
+    max_len SPEC_MAX_LEN, pages of SPEC_PAGE, buckets from 8) with
+    ``speculate_k=k``, a warm-up request long enough to draft, then the
+    requests: streams, and the run's numbers."""
+    import torch
+    from mxtpu_torch.serve import Request, ServeEngine
+    engine = ServeEngine(cfg, params, max_slots=SPEC_SLOTS,
+                         max_len=SPEC_MAX_LEN, min_bucket=8, paged=True,
+                         page_size=SPEC_PAGE, speculate_k=k,
+                         drafter=drafter, device="cuda")
+    if warm_up:
+        engine.submit(Request(prompt=np.asarray(SPEC_PROMPTS[0], np.int32),
+                              max_new_tokens=16))
+        engine.run()
+        engine.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = serve_stream(engine, reqs, range(len(reqs)))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    n_tok = sum(r.max_new_tokens for r in reqs)
+    lat, st = engine.latency_stats(), engine.kv_cache_stats()
+    row = {"speculate_k": k, "seconds": seconds,
+           "tok_per_s": n_tok / seconds, "steps": engine.steps_run,
+           "accepted_tok_per_slot_step":
+           n_tok / max(1, engine.steps_run) / SPEC_SLOTS,
+           "p50_token_ms": lat["p50_token_ms"],
+           "p99_token_ms": lat["p99_token_ms"],
+           "accept_rate": st.get("spec_accept_rate", 0.0),
+           "spec_steps": st.get("spec_steps", 0),
+           "compile_count": engine.compile_count,
+           "n_buckets": engine.n_buckets,
+           "step_captures": engine._decode.captures,
+           "verify_captures": (engine._spec_decode.captures
+                               if engine._spec_decode else 0)}
+    del engine
+    torch.cuda.empty_cache()
+    return row, got
+
+
+def oracle_drafter(reqs, streams):
+    """A drafter that reads ``streams``: the history's prompt names the
+    request (equal prompts have equal greedy streams)."""
+    by_prompt = {tuple(int(t) for t in r.prompt): np.asarray(streams[i])
+                 for i, r in enumerate(reqs)}
+
+    def draft(hist, k):
+        for p, s in by_prompt.items():
+            if tuple(hist[:len(p)]) == p:
+                n = len(hist) - len(p)
+                return s[n:n + k].astype(np.int32)
+        return np.empty(0, np.int32)
+    return draft
+
+
+def spec_engine_phase(cfg, params):
+    """Speculative decoding on the slice's weights, bench_spec's protocol
+    (SPEC_*): k = SPEC_K against k = 0 on 6 greedy requests: tok/s,
+    accepted tokens a slot-step, the accept rate (random weights, so
+    reported only), the agreement of the streams (in bf16 the verify
+    step's products have S·W rows where the plain step's have S, and may
+    round otherwise); an oracle drafter reading the k = 0 streams and an
+    adversarial one (a constant token). Each of the three streams equals
+    k = 0's or parts first at a bf16 near-tie of k = 0's decision values
+    (the two tokens within SPEC_BF16_TIE_REL of |max|). At 4 layers in
+    f32 (SPEC_F32_NEW new tokens): the n-gram, oracle and adversarial
+    engines equal the k = 0 streams, or part at a near-tie; the oracle in fewer steps than tokens; and a request
+    resumed after SPEC_RESUME_AT tokens through ``submit_prefilled``
+    with ``resume_key`` on a fresh speculative engine continues the
+    stream. At most buckets + 3 programs, one capture each of the paged
+    and the verify step; no kernel launches."""
+    import torch
+    from mxtpu_torch import prng
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.serve import KVHandoff, Request, ServeEngine, resume_key
+    reset_launches()
+
+    def requests(n, mnew):
+        return [Request(prompt=np.asarray(SPEC_PROMPTS[i % 2], np.int32),
+                        max_new_tokens=mnew) for i in range(n)]
+    reqs = requests(SPEC_REQUESTS, SPEC_NEW)
+    base, base_got = spec_run(cfg, params, reqs, 0)
+    spec, spec_got = spec_run(cfg, params, reqs, SPEC_K)
+    oracle, oracle_got = spec_run(cfg, params, reqs, SPEC_K,
+                                  oracle_drafter(reqs, base_got))
+    adv, adv_got = spec_run(cfg, params, reqs, SPEC_K,
+                            lambda h, k: np.full(k, 3, np.int32))
+    full = {"k0": base, f"k{SPEC_K}": spec, "oracle": oracle,
+            "adversarial": adv,
+            "tokens_shared_with_k0": {
+                f"k{SPEC_K}": shared_tokens(base_got, spec_got),
+                "oracle": shared_tokens(base_got, oracle_got),
+                "adversarial": shared_tokens(base_got, adv_got)}}
+    full["partings"] = {}
+    for name, got in ((f"k{SPEC_K}", spec_got), ("oracle", oracle_got),
+                      ("adversarial", adv_got)):
+        rows, ok = parting_rows(
+            cfg, params, reqs, base_got, got,
+            lambda gap, pair, top: abs(pair) <= SPEC_BF16_TIE_REL * top)
+        full["partings"][name] = {"rows": rows, "ok": ok}
+
+    cfg4, p4 = f32_layers(cfg, params)
+    reqs4 = requests(2, SPEC_F32_NEW)
+    _, want = spec_run(cfg4, p4, reqs4, 0, warm_up=False)
+    f32 = {}
+    for name, drafter in (("ngram", None),
+                          ("oracle", oracle_drafter(reqs4, want)),
+                          ("adversarial",
+                           lambda h, k: np.full(k, 3, np.int32))):
+        row, got = spec_run(cfg4, p4, reqs4, SPEC_K, drafter, warm_up=False)
+        rows, ok = near_tie_rows(cfg4, p4, reqs4, want, got)
+        f32[name] = {"steps": row["steps"], "spec_steps": row["spec_steps"],
+                     "rows": rows, "ok": ok}
+    # the journaled resume: request 0's prompt prefilled alone, seated
+    # after SPEC_RESUME_AT emitted tokens with the chain fast-forwarded
+    r0, n = reqs4[0], SPEC_RESUME_AT
+    prompt = torch.zeros((1, 8), dtype=torch.int32, device="cuda")
+    prompt[0, :len(r0.prompt)] = torch.as_tensor(r0.prompt)
+    with torch.no_grad():
+        tok, kb, vb, key = llama.prefill_detached(
+            cfg4, p4, prompt, len(r0.prompt), prng.PRNGKey(0, "cuda"), 0.0,
+            None, None)
+    h = KVHandoff(k=kb.cpu(), v=vb.cpu(), true_len=len(r0.prompt),
+                  token=int(tok[0]), rng=prng.key_to_numpy(key))
+    resumed = Request(prompt=np.concatenate([r0.prompt, want[0][:n]]),
+                      max_new_tokens=r0.max_new_tokens - n,
+                      rng=resume_key(0, n))
+    engine = ServeEngine(cfg4, p4, max_slots=SPEC_SLOTS,
+                         max_len=SPEC_MAX_LEN, min_bucket=8, paged=True,
+                         page_size=SPEC_PAGE, speculate_k=SPEC_K,
+                         drafter=oracle_drafter(reqs4, want), device="cuda")
+    rid = engine.submit_prefilled(h, resumed)
+    tail = engine.run()[rid]
+    resume_rows, resume_ok = near_tie_rows(
+        cfg4, p4, [r0], {0: want[0]},
+        {0: np.concatenate([want[0][:n], tail])})
+    f32["resume"] = {"after": n,
+                     "first_token_equal": bool(h.token == want[0][0]),
+                     "rows": resume_rows, "ok": resume_ok}
+    del engine, p4
+    torch.cuda.empty_cache()
+    launches = read_launches()
+    emit({"phase": "spec_engine", "card": nvidia_smi(),
+          "config": "llama3_8b", "n_layers": cfg.n_layers,
+          "slots": SPEC_SLOTS, "max_len": SPEC_MAX_LEN,
+          "page_size": SPEC_PAGE, "requests": SPEC_REQUESTS,
+          "new_tokens": SPEC_NEW, "full_width_bf16": full,
+          "f32": {"layers": SERVE_LAYERS, "new_tokens": SPEC_F32_NEW, **f32},
+          "launches": launches})
+    runs = (base, spec, oracle, adv)
+    if not all(r["compile_count"] <= r["n_buckets"] + 3 for r in runs):
+        raise AssertionError(f"a speculative engine built more than its "
+                             f"buckets + 3 programs: {runs}")
+    if not (oracle["step_captures"] == 1 and oracle["verify_captures"] == 1):
+        raise AssertionError(f"the oracle engine captured its paged or "
+                             f"verify step other than once: {oracle}")
+    bad = {k: v for k, v in full["partings"].items() if not v["ok"]}
+    if bad:
+        raise AssertionError(f"speculative streams in bf16 part from k = 0 "
+                             f"away from a near-tie: {bad}")
+    bad = {k: v for k, v in f32.items() if not v["ok"]}
+    if bad:
+        raise AssertionError(f"speculative streams in f32 part from k = 0 "
+                             f"away from a near-tie: {bad}")
+    if not f32["oracle"]["steps"] < SPEC_F32_NEW:
+        raise AssertionError(f"the oracle drafter took {f32['oracle']} "
+                             f"steps for {SPEC_F32_NEW} tokens a slot")
+    if not f32["resume"]["first_token_equal"]:
+        raise AssertionError("the detached prefill's first token differs")
+    if launches != only():
+        raise AssertionError(f"spec_engine launched {launches}")
+    return launches
 
 
 def _counted():

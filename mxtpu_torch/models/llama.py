@@ -15,8 +15,11 @@ or sampled through :func:`sample_logits` on the Threefry chain of
 (``quantize_params_int8``: the cached path dequantises each weight as
 it reads it), the serving engine's dense slot programs
 (``init_slot_cache``, ``prefill_slot``, ``decode_slots``,
-``prefill_detached``, ``prefill_detached_chunk``, ``inject_slot_kv``;
-:mod:`mxtpu_torch.serve` schedules them), and the training loss
+``prefill_detached``, ``prefill_detached_chunk``, ``inject_slot_kv``),
+its paged pool (``init_paged_cache``, ``prefill_slot_paged``,
+``decode_slots_paged``, ``inject_paged_kv``, ``copy_page``, with int8
+pages) and speculative verify step (``decode_slots_spec``), which
+:mod:`mxtpu_torch.serve` schedules, and the training loss
 ``loss_fn`` (``forward_hidden``
 with per-layer recomputation, then the streamed
 ``chunked_softmax_xent``), which
@@ -46,8 +49,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .. import prng
 from ..context import DeviceLike, resolve_device
-from ..ops.attention import (dense_attention, flash_attention,
-                             slot_decode_attention)
+from ..ops.attention import (dense_attention, flash_attention, gather_pages,
+                             paged_decode_attention, slot_decode_attention)
 from ._numpy_tree import params_from_numpy, params_to_numpy
 
 __all__ = ["LlamaConfig", "CONFIGS", "init_params", "rms_norm",
@@ -56,7 +59,9 @@ __all__ = ["LlamaConfig", "CONFIGS", "init_params", "rms_norm",
            "sample_logits", "generate", "quantize_params_int8",
            "init_slot_cache", "slot_cache_specs", "decode_slots",
            "prefill_slot", "prefill_detached", "prefill_detached_chunk",
-           "inject_slot_kv",
+           "inject_slot_kv", "paged_cache_specs", "init_paged_cache",
+           "decode_slots_paged", "prefill_slot_paged", "inject_paged_kv",
+           "copy_page", "decode_slots_spec",
            "chunked_softmax_xent", "loss_fn", "params_from_numpy",
            "params_to_numpy", "Llama"]
 
@@ -784,23 +789,62 @@ def init_slot_cache(cfg: LlamaConfig, max_slots: int, max_len: int,
                                 device=device)}
 
 
-def _layer_slots(cfg: LlamaConfig, cos, sin, pos, x, lp, ck, cv):
-    """One block of the slot decode: x (S, 1, dim), one new token per
-    slot; ck/cv (S, kvh, max_len, hd), one layer of the bank. Each slot
-    writes its new K/V at its own position ``pos[i]`` (one scatter for
-    the bank) and attends its own prefix [0, pos[i] + 1)."""
+def _layer_slots(cfg: LlamaConfig, cos, sin, x, lp, attend):
+    """One block of a slot step: x (S, W, dim), W new tokens per slot
+    (1 in decode, k + 1 in the speculative verify step). ``attend(q, k,
+    v)`` writes the new K/V into the slot's cache and returns its
+    attention over the slot's prefix: the dense bank and the page pool
+    differ only there."""
     b, s, _ = x.shape
-    hd, dt = cfg.head_dim, cfg.dtype
+    dt = cfg.dtype
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q, k, v = _qkv(cfg, lp, h, cos, sin)
-    at = pos.reshape(b, 1, 1, 1).expand(b, cfg.n_kv_heads, 1, hd)
-    ck.scatter_(2, at, k.to(dt))
-    cv.scatter_(2, at, v.to(dt))
-    o = slot_decode_attention(q, ck, cv, pos + 1)
-    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
+    o = attend(q, k, v)
+    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
     x = x + o @ _wq8(lp["wo"], dt)
     h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
     return x + _ffn(cfg, lp, h)
+
+
+def _bank_attend(kv, pos):
+    """``attend`` of :func:`_slot_forward` over the dense bank: slot i
+    writes its new K/V at ``pos[i]`` of its row (one scatter for the
+    bank) and attends its prefix [0, pos[i] + 1)."""
+    def attend(i, q, k, v):
+        ck, cv = kv["k"][i], kv["v"][i]
+        at = pos.reshape(-1, 1, 1, 1).expand(-1, *k.shape[1:])
+        ck.scatter_(2, at, k)
+        cv.scatter_(2, at, v)
+        return slot_decode_attention(q, ck, cv, pos + 1)
+    return attend
+
+
+def _slot_forward(cfg: LlamaConfig, params, tokens, cw, rope, attend):
+    """Every slot's tokens (S, W) at positions ``cw`` (S, W) through the
+    stack, layer i attending through ``attend(i, q, k, v)``: the f32
+    logits (S, W, V)."""
+    x = _embed(cfg, params, tokens)
+    cos_t, sin_t = rope
+    cos, sin = cos_t[cw][:, None], sin_t[cw][:, None]   # (S, 1, W, hd/2)
+    for i in range(cfg.n_layers):
+        x = _layer_slots(cfg, cos, sin, x, _layer_params(params, i),
+                         partial(attend, i))
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(cfg, params, x)
+
+
+def _sample_slots(logits, sv, active, temperature, top_k, top_p):
+    """The sampler and key chain of a one-token slot step: each slot
+    splits its own key (``key, sub = split(key)``) and draws on its own
+    (1, V) row, as a batch-1 :func:`generate` would; ``lengths``
+    advance by ``active``, and ``tokens`` and ``rngs`` take the draw
+    and the carried keys, in place."""
+    keys = prng.split(sv["rngs"])                  # (S, 2, 2): carry, sub
+    sampled = sample_logits(keys[:, 1], logits, temperature, top_k, top_p)
+    sv["lengths"].add_(active.to(sv["lengths"].dtype))
+    sv["tokens"].copy_(sampled)
+    sv["rngs"].copy_(keys[:, 0])
+    return sampled
 
 
 def decode_slots(cfg: LlamaConfig, params, kv, sv, active, temperature,
@@ -828,22 +872,12 @@ def decode_slots(cfg: LlamaConfig, params, kv, sv, active, temperature,
     Returns (sampled (S,) int32, kv, sv)."""
     _no_mesh(mesh)
     max_len = kv["k"].shape[3]
-    lengths = sv["lengths"]
-    pos = lengths.clamp(max=max_len - 1).long()    # each slot's write row
-    x = _embed(cfg, params, sv["tokens"][:, None])
-    cos_t, sin_t = rope or _rope_cached(cfg, max_len, x.device)
-    cos = cos_t[pos][:, None, None, :]             # (S, 1, 1, hd/2)
-    sin = sin_t[pos][:, None, None, :]
-    for i in range(cfg.n_layers):
-        x = _layer_slots(cfg, cos, sin, pos, x, _layer_params(params, i),
-                         kv["k"][i], kv["v"][i])
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _logits(cfg, params, x)[:, 0]
-    keys = prng.split(sv["rngs"])                  # (S, 2, 2): carry, sub
-    sampled = sample_logits(keys[:, 1], logits, temperature, top_k, top_p)
-    sv["lengths"].add_(active.to(lengths.dtype))
-    sv["tokens"].copy_(sampled)
-    sv["rngs"].copy_(keys[:, 0])
+    pos = sv["lengths"].clamp(max=max_len - 1).long()  # each slot's write row
+    logits = _slot_forward(cfg, params, sv["tokens"][:, None], pos[:, None],
+                           rope or _rope_cached(cfg, max_len, pos.device),
+                           _bank_attend(kv, pos))
+    sampled = _sample_slots(logits[:, 0], sv, active, temperature, top_k,
+                            top_p)
     return sampled, kv, sv
 
 
@@ -853,19 +887,35 @@ def _scalar(x, dtype, device):
 
 
 def _prefill_bucket(cfg: LlamaConfig, params, tokens, true_len, rng,
-                    temperature, top_k, top_p):
+                    temperature, top_k, top_p, cache=None):
     """The bucketed prompt through the cached stack, then the first
-    token from ``split(rng)``'s subkey: (tok (1,), bucket cache, the
-    carried key). Shared by :func:`prefill_slot` and
-    :func:`prefill_detached`."""
+    token from ``split(rng)``'s subkey: (tok (1,), cache, the carried
+    key). ``cache`` defaults to a fresh bucket-sized one; a paged warm
+    admission passes its gathered view with ``pos`` at the prefix
+    length, and ``true_len`` counts the prefix too. Shared by
+    :func:`prefill_slot`, :func:`prefill_detached` and
+    :func:`prefill_slot_paged`."""
     b, bucket = tokens.shape
-    tmp = init_cache(cfg, b, bucket, device=tokens.device)
-    true_len = _scalar(true_len, torch.int64, tokens.device)
-    logits, tmp = _forward_cached(cfg, params, tokens, tmp,
-                                  last_index=true_len - 1)
+    if cache is None:
+        cache = init_cache(cfg, b, bucket, device=tokens.device)
+    last = _scalar(true_len, torch.int64, tokens.device) - cache["pos"] - 1
+    logits, cache = _forward_cached(cfg, params, tokens, cache,
+                                    last_index=last)
     rng, sub = prng.split(rng)
     tok = sample_logits(sub, logits[:, 0], temperature, top_k, top_p)
-    return tok, tmp, rng
+    return tok, cache, rng
+
+
+def _seat_vectors(sv, true_len, slot, token, rng):
+    """Seed slot ``slot``'s length, next token and key, by index ops on
+    the vectors' device."""
+    dev = sv["lengths"].device
+    at = _scalar(slot, torch.int64, dev).reshape(1)
+    sv["lengths"].index_copy_(0, at, _scalar(true_len, torch.int32,
+                                             dev).reshape(1))
+    sv["tokens"].index_copy_(0, at, _scalar(token, torch.int32,
+                                            dev).reshape(1))
+    sv["rngs"].index_copy_(0, at, rng.reshape(1, 2).to(dev))
 
 
 def _seat_slot(kv, sv, k_block, v_block, true_len, slot, token, rng):
@@ -878,11 +928,7 @@ def _seat_slot(kv, sv, k_block, v_block, true_len, slot, token, rng):
     for name, blk in (("k", k_block), ("v", v_block)):
         kv[name][:, :, :, :n].index_copy_(
             1, at, blk[:, None].to(kv[name].dtype))
-    sv["lengths"].index_copy_(0, at, _scalar(true_len, torch.int32,
-                                             dev).reshape(1))
-    sv["tokens"].index_copy_(0, at, _scalar(token, torch.int32,
-                                            dev).reshape(1))
-    sv["rngs"].index_copy_(0, at, rng.reshape(1, 2).to(dev))
+    _seat_vectors(sv, true_len, slot, token, rng)
 
 
 def prefill_slot(cfg: LlamaConfig, params, tokens, true_len, slot, kv, sv,
@@ -957,6 +1003,292 @@ def inject_slot_kv(cfg: LlamaConfig, k_block, v_block, true_len, slot,
                torch.as_tensor(v_block, device=dev), true_len, slot, token,
                rng)
     return kv, sv
+
+
+# ---------------------------------------------------------------------------
+# the paged pool (PagedAttention, Kwon et al. SOSP '23): the K/V of every
+# slot lives in fixed-size pages of one pool, and a host-owned page table
+# maps each slot's logical pages to pool pages. Admission is bounded by
+# free pages, not slots, and read-only prefix pages are shared between
+# slots (the refcounted allocator and the prefix cache live in
+# mxtpu_torch.serve; these are their device halves). Page 0 is scratch:
+# the engine never hands it out, zeroed table rows name it, and
+# redirected writes land there, never attended.
+# ---------------------------------------------------------------------------
+
+def paged_cache_specs(cfg: LlamaConfig, mesh):
+    """``mxtpu``'s PartitionSpecs of the paged pool on a mesh: raises
+    until the multi-device slice."""
+    raise NotImplementedError(_SLOT_MESH)
+
+
+def init_paged_cache(cfg: LlamaConfig, max_slots: int, n_pages: int,
+                     page_size: int, mesh=None, int8: bool = False,
+                     device: DeviceLike = None):
+    """The paged engine's device state: K/V pools ``k``/``v`` of (L,
+    n_pages, n_kv_heads, page_size, hd) in the compute dtype, and the
+    per-slot ``lengths``, ``tokens`` and ``rngs`` of
+    :func:`init_slot_cache`. Page tables stay on the host, a small
+    int32 operand of each step. ``int8=True`` stores int8 pools with f32
+    per-token-per-head scales ``ks``/``vs`` of (L, n_pages, n_kv_heads,
+    page_size), dequantised as they are gathered."""
+    if mesh is not None:
+        raise NotImplementedError(_SLOT_MESH)
+    device = resolve_device(device)
+    shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, page_size,
+             cfg.head_dim)
+    if int8:
+        pools = {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "ks": torch.ones(shape[:4], dtype=torch.float32,
+                                  device=device),
+                 "vs": torch.ones(shape[:4], dtype=torch.float32,
+                                  device=device)}
+    else:
+        pools = {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                 "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    i32 = dict(dtype=torch.int32, device=device)
+    pools.update({"lengths": torch.zeros((max_slots,), **i32),
+                  "tokens": torch.zeros((max_slots,), **i32),
+                  "rngs": torch.zeros((max_slots, 2), dtype=torch.int64,
+                                      device=device)})
+    return pools
+
+
+def _q8_token(x):
+    """Per-token-per-head symmetric int8 over the last axis: codes
+    ``clip(round(x / s), ±127)``, rounding half to even, with
+    ``s = max(max|x| / 127, 1e-8)`` in f32. The divisors are tensors on
+    x's device: a division by a host scalar on the card is a multiply
+    by its reciprocal, which can land an ulp away."""
+    x32 = x.float()
+    s = x32.abs().amax(dim=-1)
+    s = (s / torch.full_like(s, 127.0)).clamp_min(1e-8)
+    q = torch.round(x32 / s[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, s
+
+
+def _paged_attend(kv, page_table, phys, off, qlen):
+    """``attend`` of :func:`_slot_forward` over the page pool: the new
+    K/V of slot s's position j go to pool page ``phys[s, j]`` at
+    in-page offset ``off[s, j]`` (one advanced-index write a pool;
+    inactive slots and redirected positions all name scratch page 0, so
+    those writes collide there, harmlessly), quantised first in an int8
+    pool, then each query attends its own prefix [0, qlen[s, j])."""
+    def attend(i, q, k, v):
+        knew, vnew = k.transpose(1, 2), v.transpose(1, 2)  # (S, W, kvh, hd)
+        ck, cv = kv["k"][i], kv["v"][i]
+        if "ks" not in kv:
+            ck[phys, :, off] = knew.to(ck.dtype)
+            cv[phys, :, off] = vnew.to(cv.dtype)
+            return paged_decode_attention(q, ck, cv, page_table, qlen)
+        cks, cvs = kv["ks"][i], kv["vs"][i]
+        for pool, scales, new in ((ck, cks, knew), (cv, cvs, vnew)):
+            pool[phys, :, off], scales[phys, :, off] = _q8_token(new)
+        return paged_decode_attention(q, ck, cv, page_table, qlen,
+                                      k_scales=cks, v_scales=cvs)
+    return attend
+
+
+def _paged_logits(cfg: LlamaConfig, params, kv, sv, page_table, tokens,
+                  rope):
+    """Each slot's W tokens (S, W) at positions lengths + [0, W) through
+    the stack over the pool: f32 logits (S, W, V). A position at or past
+    the row's capacity writes to scratch page 0, never clamped onto the
+    slot's last page; its RoPE row and query length are clamped."""
+    ps = kv["k"].shape[3]
+    cap = page_table.shape[1] * ps
+    pt = page_table.long()
+    pos = sv["lengths"].clamp(max=cap - 1).long()
+    wpos = pos[:, None] + torch.arange(tokens.shape[1], device=pos.device)
+    cw = wpos.clamp(max=cap - 1)
+    phys = torch.where(wpos >= cap, 0, pt.gather(1, cw // ps))
+    attend = _paged_attend(kv, pt, phys, cw % ps, wpos + 1)
+    return _slot_forward(cfg, params, tokens, cw,
+                         rope or _rope_cached(cfg, cap, pos.device), attend)
+
+
+def decode_slots_paged(cfg: LlamaConfig, params, kv, sv, active,
+                       page_table, temperature, top_k, top_p, mesh=None,
+                       rope=None):
+    """One decode step over the paged pool: :func:`decode_slots` with
+    each slot's bank row replaced by its row of ``page_table`` (S,
+    pages_per_slot) int32, a small per-step operand the host owns.
+    Inactive slots carry zeroed rows, so their write lands in scratch
+    page 0. Sampling, the key chain and the length mask are
+    :func:`decode_slots`' own. kv: the pools of
+    :func:`init_paged_cache` (with ``ks``/``vs`` when int8); sv, active,
+    the knobs and ``rope`` (of the row's capacity) as for
+    :func:`decode_slots`. Returns (sampled (S,) int32, kv, sv)."""
+    _no_mesh(mesh)
+    logits = _paged_logits(cfg, params, kv, sv, page_table,
+                           sv["tokens"][:, None], rope)
+    sampled = _sample_slots(logits[:, 0], sv, active, temperature, top_k,
+                            top_p)
+    return sampled, kv, sv
+
+
+def _scatter_slot_pages(kv, pages_row, tmp_k, tmp_v, prefix_len, bucket):
+    """Write positions [prefix_len, prefix_len + bucket) of a slot's
+    contiguous (L, 1, kvh, n, hd) prefill view into the pool pages of
+    ``pages_row``, quantised in an int8 pool; every other position keeps
+    its stored bytes (quantise∘dequantise is not idempotent, so shared
+    pages are never rewritten). Positions past the row's real pages
+    name scratch page 0."""
+    ps = kv["k"].shape[3]
+    p = torch.arange(prefix_len, prefix_len + bucket, device=pages_row.device)
+    phys, off = pages_row[p // ps], p % ps
+    for name, tmp in (("k", tmp_k), ("v", tmp_v)):
+        span = tmp[:, 0, :, prefix_len:prefix_len + bucket].permute(2, 0, 1, 3)
+        if "ks" in kv:                         # (bucket, L, kvh, hd)
+            kv[name][:, phys, :, off], kv[name + "s"][:, phys, :, off] = \
+                _q8_token(span)
+        else:
+            kv[name][:, phys, :, off] = span.to(kv[name].dtype)
+
+
+def prefill_slot_paged(cfg: LlamaConfig, params, tokens, true_len,
+                       prefix_len, pages_row, slot, kv, sv, rng,
+                       temperature, top_k, top_p, mesh=None):
+    """Paged admission, cold or warm: gather the slot's pages into a
+    contiguous view, run the suffix tokens (end-padded to their bucket)
+    through the cached stack at ``pos=prefix_len``, write the span back
+    into the pages, seed the slot vectors, and sample the first token.
+
+    Warm admission (``prefix_len > 0``) is what prefix sharing buys:
+    the shared pages hold positions [0, prefix_len), the suffix attends
+    them through the causal mask as ``chunked_prefill`` attends an
+    earlier chunk, and only the suffix pays forward work. Cold
+    admission is the same program at ``prefix_len=0``. The view holds
+    only the positions < prefix_len + bucket (the reference gathers the
+    whole row; later positions are masked either way), so a cold
+    admission attends over the keys the dense prefill does.
+
+    tokens: (1, bucket) suffix; true_len: the total valid length
+    (prefix + real suffix); prefix_len: a host int; pages_row:
+    (pages_per_slot,) int, the slot's table row (scratch-0 entries past
+    its pages). The engine keeps [prefix_len, prefix_len + bucket)
+    inside the row and every page it touches private (forked). kv/sv
+    are written in place. Returns (first token (1,) int32, kv, sv)."""
+    _no_mesh(mesh)
+    bucket = tokens.shape[1]
+    ps = kv["k"].shape[3]
+    m = int(prefix_len)
+    n = m + bucket
+    row = torch.as_tensor(pages_row, device=kv["k"].device).long()
+    view = row[:-(-n // ps)]
+    cache = {name: gather_pages(kv[name], view[None], 0, n,
+                                kv.get(name + "s"), cfg.dtype).contiguous()
+             for name in ("k", "v")}
+    cache["pos"] = m
+    tok, cache, rng = _prefill_bucket(cfg, params, tokens, true_len, rng,
+                                      temperature, top_k, top_p, cache)
+    _scatter_slot_pages(kv, row, cache["k"], cache["v"], m, bucket)
+    _seat_vectors(sv, true_len, slot, tok.reshape(()), rng)
+    return tok, kv, sv
+
+
+def inject_paged_kv(cfg: LlamaConfig, k_block, v_block, true_len,
+                    pages_row, slot, token, rng, kv, sv, mesh=None):
+    """Decode-side admission of a handed-off prefill into the pool: the
+    (L, n_kv_heads, bucket, hd) blocks, end-padded to whole pages,
+    split into page_size chunks at the slot's first ceil(bucket / ps)
+    pages (quantised per token in an int8 pool), and the slot's length,
+    token and key seeded. Pad K/V past ``true_len`` lands in the slot's
+    own pages, masked by its length. Returns (kv, sv)."""
+    _no_mesh(mesh)
+    dev = kv["k"].device
+    ps = kv["k"].shape[3]
+    row = torch.as_tensor(pages_row, device=dev).long()
+    for name, blk in (("k", k_block), ("v", v_block)):
+        blk = torch.as_tensor(blk, device=dev)
+        L, hkv, bucket, hd = blk.shape
+        n_blk = -(-bucket // ps)
+        pages = torch.nn.functional.pad(
+            blk, (0, 0, 0, n_blk * ps - bucket)).reshape(
+                L, hkv, n_blk, ps, hd).transpose(1, 2)
+        dst = row[:n_blk]
+        if "ks" in kv:
+            q, sc = _q8_token(pages)
+            kv[name].index_copy_(1, dst, q)
+            kv[name + "s"].index_copy_(1, dst, sc)
+        else:
+            kv[name].index_copy_(1, dst, pages.to(kv[name].dtype))
+    _seat_vectors(sv, true_len, slot, token, rng)
+    return kv, sv
+
+
+def copy_page(kv, src, dst):
+    """Copy pool page ``src`` onto page ``dst`` in every pool array (k,
+    v, and ks, vs when int8): the engine's copy-on-write fork, one
+    ``index_copy_`` an array for any src and dst (host ints or 0-d
+    tensors). The slot vectors are untouched. Returns kv."""
+    dev = kv["k"].device
+    s = _scalar(src, torch.int64, dev).reshape(1)
+    d = _scalar(dst, torch.int64, dev).reshape(1)
+    for name in ("k", "v", "ks", "vs"):
+        if name in kv:
+            kv[name].index_copy_(1, d, kv[name].index_select(1, s))
+    return kv
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: one batched verify forward over each slot's
+# current token and its k drafted tokens against the pool, with an
+# exact-match accept oracle (a draft is accepted iff it is the token the
+# slot's own key chain would emit there), so the served stream is
+# per-request generate's whatever the drafter proposes. Drafting is the
+# host's (mxtpu_torch.serve.engine.ngram_drafter).
+# ---------------------------------------------------------------------------
+
+def decode_slots_spec(cfg: LlamaConfig, params, kv, sv, active,
+                      page_table, drafts, temperature, top_k, top_p,
+                      mesh=None, rope=None):
+    """One speculative step over the pool: each slot's current token
+    and its k drafts (W = k + 1 positions) through one forward, query j
+    attending its own prefix [0, length + j + 1), then the accept oracle
+    down each slot's key chain.
+
+    Emission i + 1 of a slot is ``sample_logits`` of the logits after
+    position length + i, drawn as :func:`decode_slots_paged` draws (one
+    split per valid emission; a rejected position never advances the
+    chain, so ``serve.resume_key(seed, n_emitted)`` stays exact).
+    Emission i + 1 is valid iff every earlier draft equalled its
+    emission, so a slot emits 1 to W tokens; the K/V written past the
+    accepted run are masked by the new length and overwritten later.
+
+    drafts: (S, k) int32, < 0 for no draft (a slot without drafts emits
+    exactly the plain step's token). Writes past the row's capacity go
+    to scratch page 0. page_table, the knobs and ``rope`` as for
+    :func:`decode_slots_paged`. Returns (toks (S, W) int32, emits (S, W)
+    bool, kv, sv): the engine emits ``toks[s, :emits[s].sum()]``."""
+    _no_mesh(mesh)
+    S, W = drafts.shape[0], drafts.shape[1] + 1
+    tokens = torch.cat([sv["tokens"][:, None],
+                        drafts.to(sv["tokens"].dtype)], dim=1)
+    logits = _paged_logits(cfg, params, kv, sv, page_table, tokens, rope)
+    # the draft emission i verifies (none after the last position)
+    nxt = torch.cat([drafts.to(torch.int32),
+                     torch.full((S, 1), -1, dtype=torch.int32,
+                                device=drafts.device)], dim=1)
+    key = sv["rngs"]
+    ok = torch.ones(S, dtype=torch.bool, device=key.device)
+    toks, emits = [], []
+    for i in range(W):           # W is static: the oracle, batched over S
+        keys = prng.split(key)
+        tok = sample_logits(keys[:, 1], logits[:, i], temperature, top_k,
+                            top_p)
+        emits.append(ok)
+        toks.append(tok)
+        key = torch.where(ok[:, None], keys[:, 0], key)
+        ok = ok & (nxt[:, i] >= 0) & (tok == nxt[:, i])
+    toks, emits = torch.stack(toks, dim=1), torch.stack(emits, dim=1)
+    n_emit = emits.sum(dim=1, dtype=torch.int32)           # (S,) in 1..W
+    last = toks.gather(1, (n_emit - 1).clamp(min=0).long()[:, None])[:, 0]
+    sv["lengths"].add_(n_emit * active.to(torch.int32))
+    sv["tokens"].copy_(last)
+    sv["rngs"].copy_(key)
+    return toks, emits, kv, sv
 
 
 # ---------------------------------------------------------------------------

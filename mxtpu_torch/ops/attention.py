@@ -14,9 +14,10 @@ and then the dK/dV kernel of ``csrc/flash_attn_bwd.cu`` through
 :func:`flash_attention_bwd`; their plain version is
 :func:`flash_attention_bwd_plain`. There is no fallback from a kernel to
 a plain version, by shape or by exception.
-:func:`slot_decode_attention`, the serving engine's length-masked
-attention over the slot bank, is plain PyTorch, as ``mxtpu``'s is plain
-``jnp``. ``paged_decode_attention``, ``ring_attention`` and
+:func:`slot_decode_attention` and :func:`paged_decode_attention`, the
+serving engine's length-masked attention over the slot bank and the
+page pool, are plain PyTorch, as ``mxtpu``'s are plain ``jnp``; they
+share one online-softmax body. ``ring_attention`` and
 ``ulysses_attention`` come with later slices.
 """
 from __future__ import annotations
@@ -30,7 +31,8 @@ import torch.nn.functional as F
 __all__ = ["dense_attention", "blockwise_attention", "flash_attention",
            "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
-           "flash_attention_bwd_plain", "slot_decode_attention"]
+           "flash_attention_bwd_plain", "slot_decode_attention",
+           "paged_decode_attention", "gather_pages"]
 
 _NEG_INF = -1e30  # finite "minus infinity": keeps fully-masked rows NaN-free
 _KERNEL_HEAD_DIMS = (64, 128)
@@ -165,6 +167,54 @@ def blockwise_attention(q, k, v, *, causal: bool = False,
     return out, torch.where(l == 0.0, math.inf, m + torch.log(l))
 
 
+def _slot_attention(q, lengths, n_keys, hkv, block, scale, kv_block):
+    """The online-softmax body of :func:`slot_decode_attention` and
+    :func:`paged_decode_attention`: ``block(lo, width)`` gives keys and
+    values [lo, lo + width) of every slot, (slots, hkv, width, hd) in
+    any float dtype, for ``kv_block``-wide blocks over ``n_keys`` keys.
+    Each block is cast to f32, the tail block is padded and its padding
+    masked by position, and running (max, denominator, numerator) carry
+    in f32. Rows with no visible key (length 0) come out as zeros."""
+    b, hq, sq, d = q.shape
+    if hq % hkv:
+        raise ValueError(f"{hq} q heads not divisible by {hkv} kv heads")
+    rep = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kv_block = min(kv_block, n_keys)
+    if lengths.ndim == 2:     # per query: (b, 1, 1, sq, 1) against kpos
+        lim = lengths.reshape(b, 1, 1, sq, 1)
+    else:
+        lim = lengths.reshape(b, 1, 1, 1, 1)
+    # the rep query heads of a kv head and their s queries share its keys:
+    # rows of one (b, hkv) product, so no head is repeated
+    qg = q.reshape(b, hkv, rep * sq, d).float()
+    m = torch.full((b, hkv, rep, sq), _NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hkv, rep, sq), dtype=torch.float32, device=q.device)
+    o = torch.zeros((b, hkv, rep, sq, d), dtype=torch.float32,
+                    device=q.device)
+    kpos0 = torch.arange(kv_block, device=q.device)
+    for lo in range(0, n_keys, kv_block):
+        kb, vb = block(lo, min(kv_block, n_keys - lo))
+        kb, vb = kb.float(), vb.float()
+        if kb.shape[2] < kv_block:          # the tail: pad, mask by position
+            pad = kv_block - kb.shape[2]
+            kb = F.pad(kb, (0, 0, 0, pad))
+            vb = F.pad(vb, (0, 0, 0, pad))
+        scores = torch.matmul(qg, kb.transpose(-1, -2)) * scale
+        scores = scores.reshape(b, hkv, rep, sq, kv_block)
+        allowed = (kpos0 + lo) < lim
+        scores = torch.where(allowed, scores, _NEG_INF)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.where(allowed, torch.exp(scores - m_new[..., None]), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.matmul(p.reshape(b, hkv, rep * sq, kv_block), vb)
+        o = o * corr[..., None] + pv.reshape(b, hkv, rep, sq, d)
+        m = m_new
+    return _finalize(m, l, o, q.dtype).reshape(b, hq, sq, d)
+
+
 def slot_decode_attention(q, k, v, lengths, *,
                           scale: Optional[float] = None, kv_block: int = 512):
     """Length-masked decode attention over a slot KV cache, the serving
@@ -184,45 +234,69 @@ def slot_decode_attention(q, k, v, lengths, *,
     to f32 at a time, never the bank; the tail block is padded and its
     padding masked by position. Rows with no visible key (length 0)
     come out as zeros."""
-    b, hq, sq, d = q.shape
-    hkv, max_len = k.shape[1], k.shape[2]
-    if hq % hkv:
-        raise ValueError(f"{hq} q heads not divisible by {hkv} kv heads")
-    rep = hq // hkv
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    kv_block = min(kv_block, max_len)
-    if lengths.ndim == 2:     # per query: (b, 1, 1, sq, 1) against kpos
-        lim = lengths.reshape(b, 1, 1, sq, 1)
-    else:
-        lim = lengths.reshape(b, 1, 1, 1, 1)
-    # the rep query heads of a kv head and their s queries share its keys:
-    # rows of one (b, hkv) product, so no head is repeated
-    qg = q.reshape(b, hkv, rep * sq, d).float()
-    m = torch.full((b, hkv, rep, sq), _NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((b, hkv, rep, sq), dtype=torch.float32, device=q.device)
-    o = torch.zeros((b, hkv, rep, sq, d), dtype=torch.float32,
-                    device=q.device)
-    kpos0 = torch.arange(kv_block, device=q.device)
-    for lo in range(0, max_len, kv_block):
-        kb = k[:, :, lo:lo + kv_block].float()
-        vb = v[:, :, lo:lo + kv_block].float()
-        if kb.shape[2] < kv_block:          # the tail: pad, mask by position
-            pad = kv_block - kb.shape[2]
-            kb = F.pad(kb, (0, 0, 0, pad))
-            vb = F.pad(vb, (0, 0, 0, pad))
-        scores = torch.matmul(qg, kb.transpose(-1, -2)) * scale
-        scores = scores.reshape(b, hkv, rep, sq, kv_block)
-        allowed = (kpos0 + lo) < lim
-        scores = torch.where(allowed, scores, _NEG_INF)
-        m_new = torch.maximum(m, scores.amax(dim=-1))
-        corr = torch.exp(m - m_new)
-        p = torch.where(allowed, torch.exp(scores - m_new[..., None]), 0.0)
-        l = l * corr + p.sum(dim=-1)
-        pv = torch.matmul(p.reshape(b, hkv, rep * sq, kv_block), vb)
-        o = o * corr[..., None] + pv.reshape(b, hkv, rep, sq, d)
-        m = m_new
-    return _finalize(m, l, o, q.dtype).reshape(b, hq, sq, d)
+    return _slot_attention(
+        q, lengths, k.shape[2], k.shape[1],
+        lambda lo, w: (k[:, :, lo:lo + w], v[:, :, lo:lo + w]),
+        scale, kv_block)
+
+
+def gather_pages(pool, page_table, lo, width, scales=None, dtype=None):
+    """Keys [lo, lo + width) of every slot of a paged pool, contiguous:
+    (..., slots, n_kv_heads, width, hd). pool: (..., n_pages, n_kv_heads,
+    page_size, hd), any leading axes (a layer axis); page_table: (slots,
+    pages_per_slot) int, slot i's logical page j at pool index
+    ``page_table[i, j]``. Only the pages that cover the span are read.
+    An int8 pool comes with its f32 per-token ``scales`` (..., n_pages,
+    n_kv_heads, page_size) and is dequantised as ``mxtpu`` does it,
+    ``f32(q) · s``, then cast to ``dtype``."""
+    *lead, _, hkv, ps, d = pool.shape
+    slots = page_table.shape[0]
+    p0 = lo // ps
+    p1 = -(-(lo + width) // ps)
+    idx = page_table[:, p0:p1].reshape(-1).long()
+    g = pool.index_select(-4, idx)
+    if scales is not None:
+        g = g.float() * scales.index_select(-3, idx)[..., None]
+    g = g.view(*lead, slots, p1 - p0, hkv, ps, d).transpose(-4, -3).reshape(
+        *lead, slots, hkv, (p1 - p0) * ps, d)
+    g = g[..., lo - p0 * ps:lo - p0 * ps + width, :]
+    return g if dtype is None else g.to(dtype)
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
+                           scale: Optional[float] = None,
+                           kv_block: int = 512, k_scales=None,
+                           v_scales=None):
+    """Decode attention over a paged KV pool (vLLM's PagedAttention, Kwon
+    et al. SOSP '23; ``mxtpu``'s ``paged_decode_attention``): the cache
+    is a flat pool of fixed-size pages and slot i's logical sequence is
+    the concatenation of the pages its row of ``page_table`` names.
+
+    q: (slots, n_heads, s, hd); k_pages, v_pages: (n_pages,
+    n_kv_heads, page_size, hd); page_table: (slots, pages_per_slot)
+    int; lengths: (slots,) or per query (slots, s), as for
+    :func:`slot_decode_attention`. Page 0 is the engine's scratch page,
+    which no attended position names. An int8 pool passes its f32
+    ``k_scales``/``v_scales`` (n_pages, n_kv_heads, page_size); each
+    block is dequantised to q's dtype (the reference dequantises the
+    gathered row the same way before its slot attention).
+
+    ``mxtpu`` gathers each slot's whole row and runs the slot attention
+    on it. Here each ``kv_block``-wide block gathers only the pages that
+    cover it (:func:`gather_pages`) and goes through the same online
+    softmax body, so every product sees the operand the dense path
+    would: paged attention equals :func:`slot_decode_attention` on the
+    bank it was paged from, bit for bit, for any page size."""
+    if q.shape[0] != page_table.shape[0]:
+        raise ValueError(
+            f"page_table rows {page_table.shape[0]} != slots {q.shape[0]}")
+    cap = page_table.shape[1] * k_pages.shape[2]
+    dt = None if k_scales is None else q.dtype
+    return _slot_attention(
+        q, lengths, cap, k_pages.shape[1],
+        lambda lo, w: (gather_pages(k_pages, page_table, lo, w, k_scales, dt),
+                       gather_pages(v_pages, page_table, lo, w, v_scales, dt)),
+        scale, kv_block)
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = False,

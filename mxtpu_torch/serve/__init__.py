@@ -1,8 +1,11 @@
 """mxtpu_torch.serve — continuous-batching serving over the llama slot
-bank, the port of ``mxtpu.serve``'s dense engine (the paged pool,
-speculative decoding and the gateway come with later slices)."""
-from .engine import (KVHandoff, Request, ServeEngine, bucket_for,
-                     cancel_counter, resume_key)
+bank or a paged KV pool, with speculative decoding over the pool: the
+port of ``mxtpu.serve``'s engine (the gateway comes with a later
+slice)."""
+from .engine import (KVHandoff, PageAllocator, PrefixCache, Request,
+                     ServeEngine, bucket_for, cancel_counter, ngram_drafter,
+                     resume_key)
 
 __all__ = ["Request", "KVHandoff", "ServeEngine", "bucket_for",
-           "resume_key", "cancel_counter"]
+           "resume_key", "cancel_counter", "PageAllocator", "PrefixCache",
+           "ngram_drafter"]

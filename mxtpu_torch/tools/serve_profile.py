@@ -20,9 +20,22 @@ longest and the device time by group. One JSON object, with the card's
 name and power limit, and the bytes bound of the step: the weights it
 reads (every layer, the final norm, the head, and one embedding row a
 slot) and the live K/V prefixes, over the card's memory rate.
+
+The same bank paged into a pool of 16-token pages, in shuffled order,
+gives the paged step (``decode_slots_paged``) and the speculative verify
+step (``decode_slots_spec``, 4 drafts a slot), each captured as the
+engine captures them: their replayed device time and host time a call,
+against the same bound (the drafts add 4 K/V entries a slot and 4 rows
+to each product, which read no more weight bytes). On the same pool, one
+eager paged prefill cold (a 392-token prompt, bucket 512) and one warm
+(8 tokens over a shared 384-token prefix, bucket 64), the admissions of
+``chip_smoke.py``'s time-to-first-token pair: the wall time of each with
+its sync, the host time of the call, and the device time of its kernels
+(``torch.profiler``).
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import time
@@ -36,26 +49,10 @@ from .. import prng
 from ..models import llama
 from ..ops.attention import slot_decode_attention
 from ..serve.engine import _DecodeGraph
-from .timing import time_ms
+from .timing import graphed, time_ms
 
 SLOTS, MAX_LEN, LENGTH = 16, 768, 300
 PEAK_HBM_BYTES = 3.35e12
-
-
-def _graphed(fn):
-    """``fn`` captured as a CUDA graph (warmed on a side stream first):
-    its replay, whose host cost is far below the device time, so a
-    queued window times the card even where eager calls are
-    host-bound."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return graph.replay
 
 
 def _group(name: str) -> str:
@@ -66,6 +63,80 @@ def _group(name: str) -> str:
     if "sort" in n or "radix" in n:
         return "sort"
     return "other"
+
+
+def _paged_steps(cfg, params, kv, sv, knobs, gen, reps, ps=16, k=4):
+    """The dense bank's contents paged into a shuffled pool (scratch page
+    0 first), and the paged and verify steps over it, replayed as the
+    engine replays them: device ms, and host ms a call."""
+    n = MAX_LEN // ps
+    table = (torch.randperm(SLOTS * n, generator=gen, device="cuda")
+             + 1).reshape(SLOTS, n)
+    L, kvh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    pool = {}
+    for name in ("k", "v"):
+        pages = kv[name].reshape(L, SLOTS, kvh, n, ps, hd).transpose(
+            2, 3).reshape(L, SLOTS * n, kvh, ps, hd)
+        pool[name] = torch.zeros((L, 1 + SLOTS * n, kvh, ps, hd),
+                                 dtype=cfg.dtype, device="cuda")
+        pool[name].index_copy_(1, table.reshape(-1), pages)
+    pt = table.int().cpu().numpy()
+    drafts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SLOTS, k)).astype(np.int32)
+    out = {"page_size": ps, "drafts": k}
+    for name, program, extra in (
+            ("paged_step", llama.decode_slots_paged, (pt,)),
+            ("verify_step", llama.decode_slots_spec, (pt, drafts))):
+        psv = {n: t.clone() for n, t in sv.items()}
+        step = _DecodeGraph(cfg, params, pool, psv, program, MAX_LEN)
+        call = (knobs[0],) + extra + knobs[1:]
+        step(*call)                                # warm-up and capture
+        psv["lengths"].fill_(LENGTH)
+        out[f"{name}_ms"] = time_ms(step._graph.replay, reps)
+        host = 0.0
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(*call)
+            host += time.perf_counter() - t0
+        out[f"{name}_host_ms"] = host / reps * 1e3
+        torch.cuda.synchronize()
+        del step
+    psv = {n: t.clone() for n, t in sv.items()}
+    for name, prefix, suffix, bucket in (("cold", 0, 392, 512),
+                                         ("warm", 384, 8, 64)):
+        tokens = torch.randint(0, cfg.vocab_size, (1, bucket), generator=gen,
+                               device="cuda")
+
+        def prefill():
+            with torch.no_grad():
+                llama.prefill_slot_paged(
+                    cfg, params, tokens, prefix + suffix, prefix, pt[0], 0,
+                    pool, psv, prng.PRNGKey(0, "cuda"), 0.0, None, None)
+        prefill()                                     # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        out[f"prefill_{name}"] = {
+            "bucket": bucket, "prefix": prefix, "host_ms": host * 1e3,
+            "wall_ms": (time.perf_counter() - t0) * 1e3,
+            "device_ms": _device_ms(prefill)}
+    return out
+
+
+def _device_ms(fn):
+    """The device time of one call of ``fn``: its kernels' sum in a
+    ``torch.profiler`` trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.device_time_total for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA) / 1e3
 
 
 def main() -> None:
@@ -127,6 +198,7 @@ def main() -> None:
     out["step_host_ms"] = host / reps * 1e3
     torch.cuda.synchronize()
     sv["lengths"].fill_(LENGTH)
+    out.update(_paged_steps(cfg, params, kv, sv, knobs, gen, reps))
 
     with torch.no_grad():
         dev_knobs = [torch.from_numpy(k).cuda() for k in knobs]
@@ -140,15 +212,16 @@ def main() -> None:
                         generator=gen, device="cuda", dtype=cfg.dtype)
         logits = torch.randn((SLOTS, cfg.vocab_size), generator=gen,
                              device="cuda")
+        attend = functools.partial(llama._bank_attend(kv, pos), 0)
         parts = {
-            "layer": lambda: llama._layer_slots(cfg, cos, sin, pos, x, lp,
-                                                ck, cv),
+            "layer": lambda: llama._layer_slots(cfg, cos, sin, x, lp,
+                                                attend),
             "attention": lambda: slot_decode_attention(q, ck, cv, pos + 1),
             "logits_head": lambda: llama._logits(cfg, params, x),
             "sampler": lambda: llama.sample_logits(
                 prng.split(sv["rngs"])[:, 1], logits, *dev_knobs[1:]),
         }
-        out["parts_ms"] = {k: time_ms(_graphed(f), reps)
+        out["parts_ms"] = {k: time_ms(graphed(f), reps)
                            for k, f in parts.items()}
         out["layers_ms"] = out["parts_ms"]["layer"] * cfg.n_layers
         with profile(activities=[ProfilerActivity.CPU,

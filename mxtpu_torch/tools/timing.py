@@ -3,7 +3,9 @@ and the tools.
 
 :func:`time_ms` enqueues its window behind a spin of the card, so it
 times the card alone and not the host's cost of each call, which
-:func:`host_ms` reports beside it.
+:func:`host_ms` reports beside it. A call of many eager ops can cost the
+host more than the spin; :func:`graphed` captures it as a CUDA graph,
+whose replay costs the host one launch.
 """
 from __future__ import annotations
 
@@ -52,3 +54,19 @@ def host_ms(fn, reps=20):
     ms = (time.perf_counter() - t0) / reps * 1e3
     torch.cuda.synchronize()
     return ms
+
+
+def graphed(fn):
+    """``fn`` captured as a CUDA graph (warmed on a side stream first):
+    its replay, whose host cost is far below the device time, so a
+    queued window times the card even where eager calls are
+    host-bound."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay

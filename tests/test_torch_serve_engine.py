@@ -11,7 +11,7 @@ bucket; the int8 tree rides the same programs; tokens stream through
 callbacks; ``submit`` refuses what ``generate`` refuses; cancel and
 deadlines (on an injected clock) free slots at step boundaries; a
 detached prefill handed off through ``submit_prefilled`` equals the
-colocated path; ``resume_key`` equals mxtpu's; the telemetry counters
+colocated path (a resume needs a paged engine); ``resume_key`` equals mxtpu's; the telemetry counters
 stay exact with two engines on threads; a request's trace context tags
 its events; the decode program holds its own RoPE tables. Every engine that meets the
 reference keeps ``llama_refs``' engine shape (2 slots, ``max_len`` 32,
@@ -425,13 +425,14 @@ def test_an_engine_built_in_inference_mode_serves_on_threads(model):
 
 
 def test_what_the_engine_refuses(model):
+    """What mxtpu's engine refuses (a negative ``speculate_k``, and
+    ``speculate_k`` without ``paged``), and what waits for a later slice
+    (a mesh)."""
     _, _, tcfg, tparams = model
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        ServeEngine(tcfg, tparams, **SHAPE, paged=True)
-    with pytest.raises(NotImplementedError, match="item 5c"):
+    with pytest.raises(ValueError, match="speculate_k must be >= 0"):
+        ServeEngine(tcfg, tparams, **SHAPE, paged=True, speculate_k=-1)
+    with pytest.raises(ValueError, match="requires paged=True"):
         ServeEngine(tcfg, tparams, **SHAPE, speculate_k=2)
-    with pytest.raises(ValueError, match="speculate_k"):
-        ServeEngine(tcfg, tparams, **SHAPE, speculate_k=-1)
     with pytest.raises(NotImplementedError, match="item 11"):
         ServeEngine(tcfg, tparams, **SHAPE, mesh=object())
     # the card by default, and params are never moved
