@@ -231,6 +231,34 @@ host's cost of a call.
    and the three weights against ``torch.autograd`` on the same function
    within 1e-2 relative; step time and peak memory; no kernel launches.
    (c) The rtc launch under ``record()`` on arrays on the tape raises.
+12. nd_random: ``mx.random.seed(0)``, then through ``mx.nd.random`` on
+   the card: ``uniform``, ``normal``, ``randint`` (0, 128256),
+   ``exponential`` and ``bernoulli`` (0.3) at llama3_8b's FFN weight
+   shape (14336, 4096); ``gamma`` for alpha 0.3, 1 and 5 and
+   ``poisson`` for lam 0, 0.5, 4, 9.99, 10, 40 and 1000 at 2^20
+   elements and again at 2^16; ``multinomial`` over a seeded (32,
+   128256) softmax table, 4 draws a row, with ``get_prob``; ``shuffle``
+   of arange(3,000,000) (3 sort rounds). The CPU replays the same
+   draws after the same seed at small shapes (a Threefry element
+   depends on its index only, so the card's first 2^16 elements meet
+   them): uniform, randint, bernoulli, multinomial (draws and log
+   probabilities) and shuffle equal, normal within 2 ulps, exponential
+   within 1, and gamma and poisson at 2^16 parting only where the
+   CPU's margin at an accept test is within 4 ulps. Every draw's
+   sample mean and variance within 6 standard errors of the
+   distribution's (the multinomial's standardised per row), the
+   shuffle a permutation. Device ms (queued window) and host ms of
+   each draw at its size, ``torch.randn`` beside them as a yardstick
+   only; launch counts from 0 (none: no hand kernel on this path).
+13. serde: one llama3_8b layer's bf16 weights (9 arrays, 218 M
+   parameters, seeded) saved from the card with ``mx.nd.save`` to a
+   temporary file and loaded back to the card (as float32, since
+   ``load`` makes float entries float32 as the reference's does): bit
+   for bit once cast back to bf16; the file
+   byte for byte a save of the same arrays from the CPU;
+   ``tests/artifacts/r5/arrays.bin`` (written by the reference) loads
+   on the card with its values and dtypes; seconds and GB/s of the
+   save and the load; launch counts from 0 (none).
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result when no
@@ -2457,6 +2485,292 @@ def frontend_phase():
     return launches
 
 
+# nd_random: llama3_8b's FFN weight shape, the gamma/poisson size and
+# parameters, the multinomial table, the shuffle length
+RANDOM_SHAPE = (14336, 4096)
+RANDOM_CHECK = 2 ** 16        # elements held against the CPU per draw
+RANDOM_LOOP_N = 2 ** 20
+GAMMA_ALPHAS = (0.3, 1.0, 5.0)
+POISSON_LAMS = (0.0, 0.5, 4.0, 9.99, 10.0, 40.0, 1000.0)
+RANDINT_HIGH = 128256
+BERNOULLI_P = 0.3
+MULTINOMIAL_TABLE = (32, 128256)
+MULTINOMIAL_DRAWS = 4
+SHUFFLE_N = 3_000_000
+STAT_SE = 6                   # sample moments within 6 standard errors
+NEAR_TIE_ULPS = 4
+
+
+def _f32_ulps(got, want):
+    import torch
+    return (got.view(torch.int32).long()
+            - want.view(torch.int32).long()).abs()
+
+
+def _moments_ok(x, mean, var, mu4):
+    """Sample mean and variance of ``x`` (on the card, in f64) against
+    the distribution's mean, variance and fourth central moment: each
+    within STAT_SE standard errors (sqrt(var/n), sqrt((mu4 - var^2)/n))."""
+    x = x.double().reshape(-1)
+    n = x.numel()
+    m, v = x.mean().item(), x.var(unbiased=False).item()
+    se_m = math.sqrt(var / n)
+    se_v = math.sqrt(max(mu4 - var * var, 0.0) / n)
+    z_m = abs(m - mean) / se_m if se_m else (0.0 if m == mean else math.inf)
+    z_v = abs(v - var) / se_v if se_v else (0.0 if v == var else math.inf)
+    return {"mean": m, "var": v, "want_mean": mean, "want_var": var,
+            "z_mean": z_m, "z_var": z_v,
+            "ok": z_m <= STAT_SE and z_v <= STAT_SE}
+
+
+def _random_draws(mx, ctx, big, loop_n, probs):
+    """The phase's draws in order through ``mx.nd.random`` on ``ctx``:
+    uniform, normal, randint, exponential and bernoulli at ``big``;
+    gamma per alpha and poisson per lam at ``loop_n`` and then at
+    RANDOM_CHECK; multinomial of ``probs``; shuffle of
+    arange(SHUFFLE_N). The key chain advances once a draw, so the CPU
+    replays it at small shapes and meets the card's keys."""
+    r = mx.nd.random
+    out = {"uniform": r.uniform(shape=big, ctx=ctx),
+           "normal": r.normal(shape=big, ctx=ctx),
+           "randint": r.randint(0, RANDINT_HIGH, shape=big, ctx=ctx),
+           "exponential": r.exponential(shape=big, ctx=ctx),
+           "bernoulli": r.bernoulli(BERNOULLI_P, shape=big, ctx=ctx)}
+    for a in GAMMA_ALPHAS:
+        out[f"gamma_{a}"] = r.gamma(a, shape=(loop_n,), ctx=ctx)
+        out[f"gamma_{a}_check"] = r.gamma(a, shape=(RANDOM_CHECK,), ctx=ctx)
+    for lam in POISSON_LAMS:
+        out[f"poisson_{lam}"] = r.poisson(lam, shape=(loop_n,), ctx=ctx)
+        out[f"poisson_{lam}_check"] = r.poisson(lam, shape=(RANDOM_CHECK,),
+                                                ctx=ctx)
+    out["multinomial"], out["multinomial_logp"] = r.multinomial(
+        probs, shape=MULTINOMIAL_DRAWS, get_prob=True)
+    out["shuffle"] = r.shuffle(mx.nd.arange(SHUFFLE_N, ctx=ctx,
+                                            dtype="int64"))
+    return {k: v._data for k, v in out.items()}
+
+
+def _random_stats(draws, probs):
+    """(b) for every draw: moments against the distribution's, and the
+    shuffle a permutation."""
+    import torch
+    n_hi = RANDINT_HIGH
+    p = BERNOULLI_P
+    stats = {
+        "uniform": _moments_ok(draws["uniform"], 0.5, 1 / 12, 1 / 80),
+        "normal": _moments_ok(draws["normal"], 0.0, 1.0, 3.0),
+        "randint": _moments_ok(draws["randint"], (n_hi - 1) / 2,
+                               (n_hi ** 2 - 1) / 12,
+                               (n_hi ** 2 - 1) * (3 * n_hi ** 2 - 7) / 240),
+        "exponential": _moments_ok(draws["exponential"], 1.0, 1.0, 9.0),
+        "bernoulli": _moments_ok(draws["bernoulli"], p, p * (1 - p),
+                                 p * (1 - p) * (1 - 3 * p + 3 * p * p))}
+    for a in GAMMA_ALPHAS:
+        stats[f"gamma_{a}"] = _moments_ok(draws[f"gamma_{a}"], a, a,
+                                          3 * a * a + 6 * a)
+    for lam in POISSON_LAMS:
+        stats[f"poisson_{lam}"] = _moments_ok(draws[f"poisson_{lam}"], lam,
+                                              lam, lam * (1 + 3 * lam))
+    # multinomial: the drawn indices against each row's own distribution
+    pr = probs._data.double()
+    idx = torch.arange(pr.shape[-1], device=pr.device, dtype=torch.float64)
+    e = (pr * idx).sum(-1, keepdim=True)
+    var = (pr * (idx - e) ** 2).sum(-1)
+    mu4 = (pr * (idx - e) ** 4).sum(-1)
+    res = draws["multinomial"].double() - e
+    stats["multinomial"] = _moments_ok(
+        res / var.sqrt()[:, None], 0.0, 1.0,
+        (mu4 / var ** 2).mean().item())
+    sh = draws["shuffle"]
+    stats["shuffle"] = {"ok": bool(torch.equal(
+        torch.sort(sh).values, torch.arange(SHUFFLE_N, device=sh.device)))}
+    return stats
+
+
+def _random_vs_cpu(card, cpu, order):
+    """(a) the card's first RANDOM_CHECK elements against the CPU's
+    (``order``: the draws' names in the order they took their keys)."""
+    import torch
+    from mxtpu_torch import prng
+    out = {}
+    for name in ("uniform", "randint", "bernoulli"):
+        got = card[name].reshape(-1)[:RANDOM_CHECK].cpu()
+        out[name] = {"equal": bool(torch.equal(got, cpu[name]))}
+    for name, bound in (("normal", 2), ("exponential", 1)):
+        u = _f32_ulps(card[name].reshape(-1)[:RANDOM_CHECK].cpu(), cpu[name])
+        out[name] = {"max_ulps": u.max().item(), "bound_ulps": bound,
+                     "bit_equal_share": (u == 0).double().mean().item(),
+                     "ok": u.max().item() <= bound}
+    # gamma and poisson at RANDOM_CHECK on both sides; an element that
+    # parts must sit at a near-tie of its accept tests (the CPU's margin)
+    for name in [f"gamma_{a}" for a in GAMMA_ALPHAS] + \
+            [f"poisson_{lam}" for lam in POISSON_LAMS]:
+        got, want = card[name + "_check"].cpu(), cpu[name + "_check"]
+        dist, par = name.split("_")
+        draw = prng.gamma if dist == "gamma" else prng.poisson
+        _, margin = draw(_chain_key(order, name + "_check"), float(par),
+                         (RANDOM_CHECK,), margins=True)
+        far = (_f32_ulps(got, want) > 2) if dist == "gamma" else got != want
+        out[name] = {"parted": int(far.sum()),
+                     "margins": margin[far].tolist()[:8],
+                     "ok": bool((margin[far] <= NEAR_TIE_ULPS).all())}
+    for name in ("multinomial", "multinomial_logp"):
+        out[name] = {"equal": bool(torch.equal(card[name].cpu(),
+                                               cpu[name]))}
+    out["shuffle"] = {"equal": bool(torch.equal(
+        card["shuffle"][:RANDOM_CHECK].cpu(), cpu["shuffle"][:RANDOM_CHECK]))}
+    for r in out.values():
+        r.setdefault("ok", r.get("equal", False))
+    return out
+
+
+def _chain_key(order, name):
+    """The subkey the draw ``name`` took after seed(SEED)."""
+    from mxtpu_torch import prng
+    key = prng.PRNGKey(SEED, "cpu")
+    for n in order:
+        key, sub = prng.split(key)
+        if n == name:
+            return sub
+    raise KeyError(name)
+
+
+def nd_random_phase():
+    """mx.random on the card at the sizes users draw, each draw (a)
+    against the port on the CPU for the same seed, (b) its moments
+    against the distribution's, (c) timed."""
+    import torch
+    import mxtpu_torch as mx
+    from mxtpu_torch.tools.timing import host_ms, time_ms
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    probs = torch.softmax(torch.randn(MULTINOMIAL_TABLE, generator=gen,
+                                      device="cuda") * 2, dim=-1)
+    probs_c = mx.nd.array(probs, ctx=mx.gpu())
+    probs_h = mx.nd.array(probs, ctx="cpu")
+    torch.cuda.synchronize()
+    reset_launches()
+    mx.random.seed(SEED)
+    t0 = time.perf_counter()
+    card = _random_draws(mx, mx.gpu(), RANDOM_SHAPE, RANDOM_LOOP_N, probs_c)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    launches = read_launches()
+    mx.random.seed(SEED)
+    cpu = _random_draws(mx, "cpu", (RANDOM_CHECK,), 1, probs_h)
+    stats = _random_stats(card, probs_c)
+    vs_cpu = _random_vs_cpu(card, cpu, [k for k in card
+                                        if k != "multinomial_logp"])
+    del card
+    torch.cuda.empty_cache()
+
+    # (c) each draw at its size, device ms (queued window) and host ms
+    r = mx.nd.random
+    big, gpu = RANDOM_SHAPE, mx.gpu()
+    calls = {"uniform": lambda: r.uniform(shape=big, ctx=gpu),
+             "normal": lambda: r.normal(shape=big, ctx=gpu),
+             "randint": lambda: r.randint(0, RANDINT_HIGH, shape=big,
+                                          ctx=gpu),
+             "exponential": lambda: r.exponential(shape=big, ctx=gpu),
+             "bernoulli": lambda: r.bernoulli(BERNOULLI_P, shape=big,
+                                              ctx=gpu),
+             "gamma_1.0": lambda: r.gamma(1.0, shape=(RANDOM_LOOP_N,),
+                                          ctx=gpu),
+             "poisson_4.0": lambda: r.poisson(4.0, shape=(RANDOM_LOOP_N,),
+                                              ctx=gpu),
+             "poisson_1000.0": lambda: r.poisson(1000.0,
+                                                 shape=(RANDOM_LOOP_N,),
+                                                 ctx=gpu),
+             "multinomial": lambda: r.multinomial(probs_c,
+                                                  shape=MULTINOMIAL_DRAWS),
+             "shuffle": lambda: r.shuffle(mx.nd.arange(
+                 SHUFFLE_N, ctx=gpu, dtype="int64")),
+             "torch_randn": lambda: torch.randn(big, device="cuda")}
+    times = {name: {"ms": time_ms(f, 3, warmup=1), "host_ms": host_ms(f, 3)}
+             for name, f in calls.items()}
+    bad = [k for k, v in stats.items() if not v["ok"]] + \
+        [k for k, v in vs_cpu.items() if not v["ok"]]
+    emit({"phase": "nd_random", "shape": list(RANDOM_SHAPE),
+          "loop_n": RANDOM_LOOP_N, "check_n": RANDOM_CHECK,
+          "first_pass_seconds": draw_s, "stats": stats, "vs_cpu": vs_cpu,
+          "times": times, "launches": launches,
+          "nvidia_smi": nvidia_smi()})
+    if bad:
+        raise AssertionError(f"nd_random: {bad} failed their checks")
+    if launches != only():
+        raise AssertionError(f"nd_random launched {launches}")
+    return launches
+
+
+def serde_phase():
+    """One llama3_8b layer's bf16 weights saved from the card and loaded
+    back (float32, bit for bit once cast back to bf16), the file against
+    a save of the same arrays from the CPU (byte for byte), and the
+    round-5 artifact loaded on the card."""
+    import os
+    import tempfile
+    import torch
+    import mxtpu_torch as mx
+    from mxtpu_torch.models import llama
+    cfg = llama.CONFIGS["llama3_8b"]
+    d, h, kv = cfg.dim, cfg.hidden_dim, cfg.n_kv_heads * cfg.head_dim
+    shapes = {"wq": (d, d), "wk": (d, kv), "wv": (d, kv), "wo": (d, d),
+              "w_gate": (d, h), "w_up": (d, h), "w_down": (h, d),
+              "attn_norm": (d,), "ffn_norm": (d,)}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    layer = {k: mx.nd.array(torch.randn(s, generator=gen, device="cuda")
+                            .to(torch.bfloat16), ctx=mx.gpu())
+             for k, s in shapes.items()}
+    n_params = sum(math.prod(s) for s in shapes.values())
+    nbytes = 2 * n_params
+    torch.cuda.synchronize()
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        path, path_h = (os.path.join(tmp, f) for f in ("card.params",
+                                                       "cpu.params"))
+        t0 = time.perf_counter()
+        mx.nd.save(path, layer)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = mx.nd.load(path, ctx=mx.gpu())
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        launches = read_launches()
+        # load makes float entries float32, as the reference's does;
+        # bf16 -> f32 -> bf16 is exact, so the bits must come back
+        equal = sorted(back) == sorted(layer) and all(
+            back[k].dtype == torch.float32 and torch.equal(
+                back[k]._data.to(torch.bfloat16).view(torch.int16),
+                layer[k]._data.view(torch.int16)) for k in layer)
+        mx.nd.save(path_h, {k: mx.nd.array(v, ctx="cpu")
+                            for k, v in layer.items()})
+        size = os.path.getsize(path)
+        with open(path, "rb") as f1, open(path_h, "rb") as f2:
+            same_bytes = f1.read() == f2.read()
+    r5 = mx.nd.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "tests", "artifacts", "r5", "arrays.bin"),
+                    ctx=mx.gpu())
+    r5_ok = (r5["w"].dtype == torch.float32 and r5["idx"].dtype == torch.int32
+             and r5["w"].context.type == "cuda"
+             and np.array_equal(r5["w"].asnumpy(),
+                                np.arange(12, dtype=np.float32).reshape(3, 4))
+             and np.array_equal(r5["idx"].asnumpy(),
+                                np.arange(5, dtype=np.int32)))
+    emit({"phase": "serde", "arrays": len(layer), "params": n_params,
+          "file_bytes": size, "save_seconds": save_s,
+          "save_gb_per_s": nbytes / save_s / 1e9, "load_seconds": load_s,
+          "load_gb_per_s": nbytes / load_s / 1e9, "round_trip_equal": equal,
+          "bytes_equal_cpu_save": same_bytes, "r5_loads": r5_ok,
+          "launches": launches, "nvidia_smi": nvidia_smi()})
+    if not (equal and same_bytes and r5_ok):
+        raise AssertionError(f"serde: round trip {equal}, bytes equal to "
+                             f"the CPU's {same_bytes}, r5 {r5_ok}")
+    if launches != only():
+        raise AssertionError(f"serde launched {launches}")
+    del layer, back
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _leaves_with_keys(tree):
     """(last key, leaf) of a nested dict, in order."""
     for k, v in tree.items():
@@ -2577,8 +2891,11 @@ def main():
     resnet_launches = resnet_phase()
     probe_launches = experiment_probe2_phase()
     frontend_launches = frontend_phase()
+    random_launches = nd_random_phase()
+    serde_launches = serde_phase()
     launches = {k: fwd_launches[k] + train_launches[k] + resnet_launches[k]
                 + probe_launches[k] + frontend_launches[k]
+                + random_launches[k] + serde_launches[k]
                 for k in LAUNCH_COUNTERS}
 
     main_row, bwd = rows["llama3_8b"], bwd_rows["llama3_8b"]

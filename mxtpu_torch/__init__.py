@@ -4,7 +4,9 @@ The JAX package ``mxtpu`` is the reference; this package mirrors its
 module names (``context``, ``ndarray``, ``autograd``, ``rtc``,
 ``ops.attention``, ``models.llama``, ``models.resnet``,
 ``parallel.step``, ``serve``, ``telemetry``) so a reader finds each
-counterpart; ``prng`` is the key chain of ``jax.random``; ``ops.conv``
+counterpart; ``prng`` is the key chain of ``jax.random`` (its float32
+roundings of XLA's CPU math in ``xla_math``), ``random`` is
+``mx.random``, ``serde`` the ``.params`` container; ``ops.conv``
 ports the ResNet shape experiment's conv; ``parallel.optim`` holds the
 optax transforms the train step takes, and ``tools`` the scripts that
 measure the port. Plain tensor code is PyTorch; every kernel ``mxtpu``
@@ -20,8 +22,9 @@ in ``mx.nd``).
 from . import autograd, context, ndarray, rtc
 from .base import MXNetError
 from .context import cpu, gpu, default_device
+from .ndarray import random
 
 nd = ndarray
 
-__all__ = ["autograd", "context", "ndarray", "nd", "rtc", "MXNetError",
-           "cpu", "gpu", "default_device"]
+__all__ = ["autograd", "context", "ndarray", "nd", "random", "rtc",
+           "MXNetError", "cpu", "gpu", "default_device"]

@@ -18,8 +18,10 @@ Where the port differs from the reference, deliberately:
   on, where ``int32 * 2.5`` and ``float32 * np.float64(2)`` are
   float64; here (as in jax with x64 off) they are float32.
 - ``asnumpy()`` of a bfloat16 array returns float32, an exact widening.
-- ``dot``/``pad`` (the op registry), ``save``/``load`` (serde) and the
-  profiler hook wait for their slices and raise ``NotImplementedError``.
+- ``load`` takes ``ctx``, None being the card; like the reference's,
+  it makes float entries float32.
+- ``dot``/``pad`` (the op registry) and the profiler hook wait for
+  their slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -41,8 +43,6 @@ _NAIVE = os.environ.get("MXNET_ENGINE_TYPE", "ThreadedEngine") == "NaiveEngine"
 
 OPS_SLICE = ("the op registry (mx.nd.<op>, NDArray.dot and NDArray.pad) "
              "comes with ROADMAP Queue A item 10.1b")
-SERDE_SLICE = ("mx.nd.save/load (the .params container) come with the "
-               "serde slice, ROADMAP Queue A item 10.1d")
 PROFILER_SLICE = ("the per-op profiler hook comes with the profiler, "
                   "ROADMAP Queue A item 10.4")
 
@@ -715,8 +715,14 @@ def waitall() -> None:
 # serialization — the reference's NDArray::Save/Load container
 # ---------------------------------------------------------------------------
 def save(fname: str, data) -> None:
-    raise NotImplementedError(SERDE_SLICE)
+    """Write an NDArray, a list of them or a dict of them to ``fname``
+    in MXNet's ``.params`` format (``mxtpu_torch.serde``)."""
+    from ..serde import save_ndarrays
+    save_ndarrays(fname, data)
 
 
-def load(fname: str):
-    raise NotImplementedError(SERDE_SLICE)
+def load(fname: str, ctx: DeviceLike = None):
+    """Read a ``.params`` file: a list of NDArrays, or a dict when the
+    file names its arrays, on ``ctx`` (None: the card)."""
+    from ..serde import load_ndarrays
+    return load_ndarrays(fname, ctx)

@@ -176,7 +176,9 @@ def test_port_imports_no_jax():
             "mxtpu_torch.ndarray, mxtpu_torch.autograd, mxtpu_torch.rtc, "
             "mxtpu_torch.ops._build, mxtpu_torch.tools.rtc_kernels, "
             "mxtpu_torch.prng, mxtpu_torch.serve, mxtpu_torch.serve.engine, "
-            "mxtpu_torch.telemetry\n"
+            "mxtpu_torch.telemetry, "
+            "mxtpu_torch.ndarray.random, mxtpu_torch.serde, "
+            "mxtpu_torch.xla_math\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxtpu' or "
             "m.startswith('mxtpu.')]\n"

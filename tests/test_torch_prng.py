@@ -10,7 +10,18 @@ the inner log's ulp carries into the outer one as an absolute error of
 one ulp of 1. This file runs under the suite's 64-bit jax
 (``tests/conftest.py``), so a Python ``p`` draws in float64 there, and
 the port is held against the dtype jax really used.
+
+The rest of ``jax.random``: float32 ``normal`` and ``exponential`` bit
+for bit (``mxtpu_torch.xla_math`` writes out XLA's CPU float32 ``log``,
+``log1p``, ``erf_inv`` and ``lgamma``, also held alone), float64
+``normal`` within 4 ulps and ``exponential`` within 1 (torch's float64
+``log`` against the glibc one XLA calls), ``randint``, ``permutation``
+and ``categorical(shape=)`` bit for bit, ``gamma`` within 2 float32
+ulps and ``poisson`` equal, except where the port's smallest accept-test
+margin is within 4 ulps (printed; none on these seeds).
 """
+from fractions import Fraction
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -184,3 +195,250 @@ def test_keys_cross_as_numpy_and_bad_keys_raise():
         prng.random_bits(key, 16, (3,))
     with pytest.raises(ValueError, match="meta"):
         prng.categorical(key, torch.zeros(2, 5, device="meta"))
+
+
+# --- the rest of jax.random: normal, exponential, randint, permutation,
+# categorical(shape=), gamma, poisson. Float32 normals and exponentials
+# use the port's copy of XLA's CPU math (mxtpu_torch.xla_math); float64
+# ones call torch's log, within an ulp of the glibc log XLA calls.
+
+def _ulps(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    it = {np.float32: np.int32, np.float64: np.int64}[want.dtype.type]
+    return np.abs(got.view(it).astype(np.int64)
+                  - want.view(it).astype(np.int64))
+
+
+@pytest.mark.parametrize("dtype,max_ulps", [("float32", 0), ("float64", 4)])
+def test_normal_matches_jax(dtype, max_ulps):
+    for seed in SEEDS[:4]:
+        key, jkey = prng.PRNGKey(seed, device="cpu"), \
+            jax.random.PRNGKey(seed)
+        for shape in SHAPES[1:]:
+            got = prng.normal(key, shape, getattr(torch, dtype)).numpy()
+            want = np.asarray(jax.random.normal(jkey, shape,
+                                                jnp.dtype(dtype)))
+            assert _ulps(got, want).max() <= max_ulps, seed
+    # a batch of keys draws row i from key i (jax.vmap)
+    keys = prng.split(prng.PRNGKey(5, device="cpu"), 3)
+    jkeys = jax.random.split(jax.random.PRNGKey(5), 3)
+    got = prng.normal(keys, (4,), getattr(torch, dtype)).numpy()
+    want = np.asarray(jax.vmap(lambda k: jax.random.normal(
+        k, (4,), jnp.dtype(dtype)))(jkeys))
+    assert _ulps(got, want).max() <= max_ulps
+
+
+def test_xla_math_matches_xla_cpu_float32():
+    """log, log1p, erf_inv and lgamma (x >= 0.5) bit for bit with XLA's
+    CPU code on 2^16 inputs each, special values included (NaN where
+    XLA gives NaN)."""
+    from mxtpu_torch import xla_math as xm
+    rng = np.random.default_rng(11)
+    pos = np.concatenate([np.exp(rng.uniform(-80, 80, 1 << 16)),
+                          [0, -0.0, -1, np.inf, np.nan, 1e-40, 1]]
+                         ).astype(np.float32)
+    x1 = np.concatenate([rng.uniform(-1, 3, 1 << 15),
+                         rng.uniform(-0.5, 0.5, 1 << 15),
+                         [-1, 0, np.inf]]).astype(np.float32)
+    u = np.nextafter(rng.uniform(-1, 1, 1 << 16).astype(np.float32),
+                     np.float32(0))
+    u = np.concatenate([u, [-1, 1, 0]]).astype(np.float32)
+    k = np.concatenate([np.arange(1, 2 ** 14), rng.uniform(0.5, 2e3, 2 ** 14)]
+                       ).astype(np.float32)
+    for fn, jfn, x in ((xm.log, jnp.log, pos), (xm.log1p, jnp.log1p, x1),
+                       (xm.erf_inv, jax.lax.erf_inv, u),
+                       (xm.lgamma, jax.lax.lgamma, k)):
+        got = fn(torch.from_numpy(x)).numpy()
+        want = np.asarray(jax.jit(jfn)(x))
+        nan = np.isnan(want)             # XLA's NaN is all ones, torch's not
+        np.testing.assert_array_equal(np.isnan(got), nan)
+        np.testing.assert_array_equal(got[~nan].view(np.int32),
+                                      want[~nan].view(np.int32))
+
+
+def _round_exact(fr, np_dtype):
+    """The Fraction ``fr`` rounded once to ``np_dtype``, ties to even."""
+    x = np_dtype(float(fr))              # within an ulp (float32: maybe
+    cands = [np.nextafter(x, np_dtype(-np.inf)), x,   # rounded twice)
+             np.nextafter(x, np_dtype(np.inf))]
+    itype = np.int32 if np_dtype == np.float32 else np.int64
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - fr),
+                                     int(np.array(c).view(itype)) & 1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_fma_rounds_once(dtype):
+    """``xla_math.fma`` is ``a * b + c`` rounded once, against exact
+    rational arithmetic: random triples, cancellations, and float32
+    cases where ``a * b + c`` rounded to float64 first lands on a
+    float32 midpoint (rounded twice, it goes the wrong way)."""
+    from mxtpu_torch import xla_math as xm
+    np_dtype = getattr(np, dtype)
+    rng = np.random.default_rng(3)
+    a, b, c = (rng.standard_normal(600) * np.exp2(rng.integers(-20, 20, 600))
+               for _ in range(3))
+    a, b = a.astype(np_dtype), b.astype(np_dtype)
+    c = np.concatenate([c[:300], -(a[300:].astype(np.float64)
+                                   * b[300:])]).astype(np_dtype)
+    eps = np.finfo(np_dtype).eps
+    e = rng.integers(-30, 30, 200).astype(np.float64)
+    k = 2 * rng.integers(1, 2 ** 20, 200) + 1          # odd mantissas
+    sign = rng.choice([-1.0, 1.0], 200)
+    a = np.concatenate([a, sign * np.exp2(e) * (1 + eps)]).astype(np_dtype)
+    b = np.concatenate([b, np.full(200, 1 - eps)]).astype(np_dtype)
+    c = np.concatenate([c, sign * np.exp2(e + 24) * (1 + k * eps)]
+                       ).astype(np_dtype)
+    got = xm.fma(torch.from_numpy(a), torch.from_numpy(b),
+                 torch.from_numpy(c)).numpy()
+    want = np.array([_round_exact(Fraction(float(x)) * Fraction(float(y))
+                                  + Fraction(float(z)), np_dtype)
+                     for x, y, z in zip(a, b, c)], np_dtype)
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+    # Python floats for b and c take the same path
+    np.testing.assert_array_equal(
+        xm.fma(torch.from_numpy(a[:5]), float(b[0]), float(c[0])).numpy(),
+        [_round_exact(Fraction(float(x)) * Fraction(float(b[0]))
+                      + Fraction(float(c[0])), np_dtype) for x in a[:5]])
+    if dtype == "float32":               # the double rounding is real
+        last = slice(-200, None)
+        twice = ((a[last].astype(np.float64) * b[last] + c[last])
+                 .astype(np.float32))
+        assert (twice != want[last]).any()
+
+
+def test_exponential_matches_jax():
+    for seed in SEEDS[:4]:
+        key, jkey = prng.PRNGKey(seed, device="cpu"), \
+            jax.random.PRNGKey(seed)
+        got = prng.exponential(key, (3, 1000), torch.float32).numpy()
+        _bits_equal(got, jax.random.exponential(jkey, (3, 1000),
+                                                jnp.float32))
+        got = prng.exponential(key, (3, 1000), torch.float64).numpy()
+        want = np.asarray(jax.random.exponential(jkey, (3, 1000)))
+        assert _ulps(got, want).max() <= 1
+        assert _ulps(got.astype(np.float32),
+                     want.astype(np.float32)).max() <= 1
+
+
+RANDINT_BOUNDS = [(0, 1), (0, 7), (-3, 4), (0, 2 ** 31), (-2 ** 31, 2 ** 31),
+                  (5, 5), (7, 3), (-100, 2 ** 40), (0, 256),
+                  (-2 ** 63, 2 ** 63 - 1), (1, 2 ** 63 - 1), (-2 ** 62, 3)]
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64", "int8", "uint8"])
+def test_randint_matches_jax(dtype):
+    """Spans of 1, 7, 2^31 and past the dtype's largest value, empty and
+    reversed ranges: XLA's unsigned arithmetic, bit for bit."""
+    for seed in SEEDS[:3]:
+        key, jkey = prng.PRNGKey(seed, device="cpu"), \
+            jax.random.PRNGKey(seed)
+        for lo, hi in RANDINT_BOUNDS:
+            got = prng.randint(key, (2, 500), lo, hi, getattr(torch, dtype))
+            want = np.asarray(jax.random.randint(jkey, (2, 500), lo, hi,
+                                                 jnp.dtype(dtype)))
+            np.testing.assert_array_equal(got.numpy(), want)
+            assert str(got.dtype) == "torch." + str(want.dtype)
+
+
+def test_permutation_matches_jax():
+    """1 round up to n = 1625, 2 past it; an (n, 3) array is indexed by a
+    shuffled arange."""
+    for seed in SEEDS[:3]:
+        key, jkey = prng.PRNGKey(seed, device="cpu"), \
+            jax.random.PRNGKey(seed)
+        for n in (1, 10, 1625, 1626, 5000):
+            np.testing.assert_array_equal(
+                prng.permutation(key, n).numpy(),
+                np.asarray(jax.random.permutation(jkey, n)))
+        x = np.arange(36).reshape(12, 3)
+        for axis in (0, 1):
+            np.testing.assert_array_equal(
+                prng.permutation(key, torch.from_numpy(x), axis).numpy(),
+                np.asarray(jax.random.permutation(jkey, x, axis)))
+
+
+def test_categorical_with_shape_matches_jax():
+    lg = np.random.default_rng(4).standard_normal((3, 4, 10)) \
+        .astype(np.float32)
+    # jitted, as eager jax costs seconds a call here; the jit adds no
+    # multiply to fuse (noise + logits, then argmax)
+    cat = jax.jit(jax.random.categorical, static_argnums=(2, 3))
+    for seed in SEEDS[:3]:
+        key, jkey = prng.PRNGKey(seed, device="cpu"), \
+            jax.random.PRNGKey(seed)
+        for shape, axis in ((None, -1), ((5, 3, 4), -1), ((6, 2, 3, 4), 2)):
+            np.testing.assert_array_equal(
+                prng.categorical(key, torch.from_numpy(lg), axis, shape)
+                .numpy(), np.asarray(cat(jkey, lg, axis, shape)))
+    with pytest.raises(ValueError, match="batch shape"):
+        prng.categorical(key, torch.from_numpy(lg), shape=(3, 5))
+
+
+def _decisions_agree(got, want, margin, ulps, bound):
+    """Elements that differ are allowed only at a near-tie: the port's
+    smallest accept-test margin there is within ``bound`` ulps."""
+    differ = ulps > 0
+    if differ.any():
+        print("differing elements", int(differ.sum()), "margins",
+              margin[differ])
+    assert (margin[differ] <= bound).all(), margin[differ]
+
+
+@pytest.mark.parametrize("alpha", [0.3, 1.0, 5.0])
+def test_gamma_matches_jax(alpha):
+    """Per-element key chains and accept loops as jax vmaps them:
+    float32 results within 2 ulps wherever the accept decisions agree
+    (the float64 inside differs from XLA's by an ulp of log)."""
+    for seed in SEEDS[:3]:
+        key, jkey = prng.PRNGKey(seed, device="cpu"), \
+            jax.random.PRNGKey(seed)
+        got, margin = prng.gamma(key, alpha, (2048,), margins=True)
+        want = np.asarray(jax.random.gamma(jkey, alpha, (2048,)))
+        assert got.dtype == torch.float64
+        ulps = _ulps(got.numpy().astype(np.float32), want.astype(np.float32))
+        print("alpha", alpha, "seed", seed, "f32 bit-equal share",
+              (ulps == 0).mean(), "min margin (f64 ulps)", margin.min())
+        _decisions_agree(got, want, margin.numpy(),
+                         np.where(ulps > 2, ulps, 0), 4)
+    # float32 draws and an array of alphas take the same path
+    a = np.array([[0.5, 2.0, 9.0]])
+    got = prng.gamma(key, torch.from_numpy(a), (4, 3), torch.float32)
+    want = np.asarray(jax.random.gamma(jkey, a, (4, 3), jnp.float32))
+    assert _ulps(got.numpy(), want).max() <= 2
+
+
+@pytest.mark.parametrize("lam", [0.0, 0.5, 4.0, 9.99, 10.0, 40.0, 1000.0])
+def test_poisson_matches_jax(lam):
+    """Knuth below 10, Hormann from 10, on one key: counts equal but at
+    a decision within 4 float32 ulps (none on these seeds)."""
+    for seed in SEEDS[:3]:
+        key, jkey = prng.PRNGKey(seed, device="cpu"), \
+            jax.random.PRNGKey(seed)
+        got, margin = prng.poisson(key, lam, (4096,), margins=True)
+        want = np.asarray(jax.random.poisson(jkey, lam, (4096,)))
+        assert got.dtype == torch.int64 and want.dtype == np.int64
+        print("lam", lam, "seed", seed, "min margin (f32 ulps)",
+              margin.min())
+        _decisions_agree(got, want, margin.numpy(),
+                         (got.numpy() != want).astype(np.int64), 4)
+    lams = np.array([0.0, 3.0, 12.0, np.nan], np.float32)
+    np.testing.assert_array_equal(
+        prng.poisson(key, torch.from_numpy(lams), (5, 4), torch.int32),
+        np.asarray(jax.random.poisson(jkey, lams, (5, 4), jnp.int32)))
+
+
+@pytest.mark.parametrize("dist,param", [
+    ("poisson", 4.0), ("poisson", 10.0), ("poisson", 40.0),
+    ("poisson", 1000.0), ("gamma", 0.3), ("gamma", 5.0)])
+def test_near_tie_margins_are_finite(dist, param):
+    """A margin counts only the comparisons that decided its element and
+    leaves out a distance from an infinite or NaN side (Hormann's
+    rejected k < 0, whose lgamma is NaN; a log of 0): every element's
+    margin is a number. Asking for margins leaves the draw as it is."""
+    draw = getattr(prng, dist)
+    key = prng.PRNGKey(5, device="cpu")
+    got, margin = draw(key, param, (4096,), margins=True)
+    assert margin.dtype == torch.float64
+    assert torch.isfinite(margin).all(), margin[~torch.isfinite(margin)]
+    assert torch.equal(got, draw(key, param, (4096,)))
