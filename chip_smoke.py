@@ -259,6 +259,51 @@ host's cost of a call.
    ``tests/artifacts/r5/arrays.bin`` (written by the reference) loads
    on the card with its values and dtypes; seconds and GB/s of the
    save and the load; launch counts from 0 (none).
+14. mixtral: ``CONFIGS["mixtral_8x7b"]`` at full width (dim 4096, hidden
+   14336, 8 experts, top-2, hq 32, hkv 8, vocab 32,000, rope theta 1e6)
+   and 8 of its 32 layers in bf16 (11.9 B parameters, 23.7 GB), with
+   seeded random weights, after the earlier phases freed theirs. (a)
+   ``forward`` on (1, 2048): finite f32 logits, exactly 8 flash-forward
+   launches; the choices dropped at capacity 1.25, by layer; at
+   capacity E/K (C = T, nothing dropped) the logits with flash against
+   ``attn_impl="dense"`` and the routed ``forward_hidden`` against the
+   same model through ``moe_ffn_dense``, each within 0.3 relative and
+   with a per-token median within 0.05 (a route that flips at a
+   near-tie of its router takes other experts, so the global distance
+   follows the few flipped tokens: bf16 on the CPU at 2-8 layers of a
+   narrow Mixtral gives 0.04-0.14 and medians of 0.007-0.021, a lost
+   expert 0.26-0.57 and medians from 0.46 at 4 layers, unrenormalised
+   gates 0.54 and more; ``python -m mxtpu_torch.tools.moe_tolerance``),
+   with the routes that differ by layer. (b) Greedy ``generate`` of 4 ×
+   (128 + 32) twice, equal; ``chunked_prefill`` of (1, 4000) in chunks
+   of 1024 against one shot (last logits within 5e-2, the same argmax).
+   (c) ``bench_llama_serve``'s stream through the dense engine (16
+   slots, max_len 768; every request exactly its tokens, at most
+   buckets + 1 programs, one decode capture; tok/s, p50, p99, peak GB),
+   a synchronous engine with the requests in reverse (every stream bit
+   for bit: the serving mixture routes each token by itself), and
+   16-token pages (streams against the dense engine's, printed; one
+   capture). (d) One layer (1.71 B parameters) in the reference's
+   training dtypes (f32 params, bf16 compute, remat, the chunked
+   cross-entropy): at capacity E/K the loss and the grads of
+   ``layers.moe_gate``, ``layers.w_gate`` and ``tok_embed``, flash
+   against dense, within 0.25 (the CPU tool gives 0.009-0.093 there and
+   up to 0.27 at capacity 1.25; planted backward faults 0.55 and more);
+   then 3 ``adamw(3e-4)`` steps at capacity 1.25: finite losses, the
+   first within 1.5 of ln 32000 + 0.01 (the aux at uniform routing),
+   the loss after them below the first, 2 forward launches and one of
+   each backward kernel a step; step seconds and peak GB. Launches
+   (generate, chunked, engines) counted from 0: none.
+15. bert: ``CONFIGS["bert_base"]`` (f32 params, bf16 compute) at
+   ``bench.py``'s ``bench_bert`` shape (batch 128, seq 128, 20 MLM
+   positions, NSP labels). (a) ``forward`` with the last 32 positions of
+   every other row padded: finite, and ``seq_out`` within 3e-2 of f32
+   compute on the same weights (the CPU tool: 0.0057-0.0096 at 2-8
+   layers, the position embeddings lost 0.57 and more). (b) 3
+   ``adamw(1e-4)`` steps: finite losses, the first within 1.0 of
+   ln 30522 + ln 2, the last below the first; samples/s, model TFLOP/s
+   (``bench_bert``'s count) and peak GB. Launches from 0: none, as the
+   reference's BERT runs no Pallas.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result when no
@@ -877,25 +922,26 @@ def sampled_phase(cfg, params, prompts, greedy, greedy_s):
     return launches
 
 
-def chunked_phase(cfg, params, gen):
-    """``chunked_prefill`` of a (1, CHUNK_PROMPT) prompt in chunks of
-    CHUNK_SIZE against ``prefill(last_only=True)``, with each one's
-    peak memory."""
+def chunked_phase(cfg, params, gen, prompt_len=CHUNK_PROMPT,
+                  chunk=CHUNK_SIZE, phase="chunked_prefill"):
+    """``chunked_prefill`` of a (1, prompt_len) prompt in chunks of
+    ``chunk`` against ``prefill(last_only=True)``, with each one's peak
+    memory."""
     import torch
     from mxtpu_torch.models import llama
-    prompt = torch.randint(0, cfg.vocab_size, (1, CHUNK_PROMPT),
+    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len),
                            generator=gen, device="cuda")
     reset_launches()
     found = {}
     for name in ("chunked", "one_shot"):
-        cache = llama.init_cache(cfg, 1, CHUNK_PROMPT, device="cuda")
+        cache = llama.init_cache(cfg, 1, prompt_len, device="cuda")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         if name == "chunked":
             lg, cache = llama.chunked_prefill(cfg, params, prompt, cache,
-                                              CHUNK_SIZE)
+                                              chunk)
         else:
             lg, cache = llama.prefill(cfg, params, prompt, cache,
                                       last_only=True)
@@ -908,15 +954,15 @@ def chunked_phase(cfg, params, gen):
     (lc, pc, tc, gc, dc), (l1, p1, t1, g1, d1) = found.values()
     rel = rel_dist(lc, l1)
     same_argmax = bool(torch.equal(lc.argmax(-1), l1.argmax(-1)))
-    emit({"phase": "chunked_prefill", "prompt_len": CHUNK_PROMPT,
-          "chunk": CHUNK_SIZE, "passes": -(-CHUNK_PROMPT // CHUNK_SIZE),
+    emit({"phase": phase, "prompt_len": prompt_len,
+          "chunk": chunk, "passes": -(-prompt_len // chunk),
           "logits": list(lc.shape), "pos": [pc, p1],
           "seconds": {"chunked": tc, "one_shot": t1},
           "peak_gb": {"chunked": gc, "one_shot": g1},
           "peak_gb_above_start": {"chunked": dc, "one_shot": d1},
           "rel_err": rel, "rel_err_bound": CHUNK_REL_BOUND,
           "argmax_equal": same_argmax, "launches": launches})
-    if not (pc == p1 == CHUNK_PROMPT and lc.shape == l1.shape
+    if not (pc == p1 == prompt_len and lc.shape == l1.shape
             and bool(torch.isfinite(lc).all())):
         raise AssertionError("chunked prefill: cache positions or logits")
     if not (rel <= CHUNK_REL_BOUND and same_argmax):
@@ -1051,20 +1097,16 @@ def decision_values(cfg, params, req, toks, j):
     return val
 
 
-def serve_engine_phase(cfg, params):
-    """The continuous-batching ``ServeEngine`` on the slice's weights:
-    bench_llama_serve's stream (SERVE_*), every bucket warmed first;
-    then the same requests through a second engine, synchronous and
-    submitted in reverse (equal streams); then 4 requests through an
-    engine over the first SERVE_LAYERS layers in f32 against batch-1
-    ``generate``, and the bf16 streams' agreement with it printed; on
-    the same f32 layers, the captured step against the eager one with
-    the RoPE cache emptied, and two engines on threads."""
+def dense_serve_run(cfg, params, reqs):
+    """``reqs`` through the dense engine (SERVE_SLOTS slots, max_len
+    SERVE_MAX_LEN, buckets from SERVE_PROMPTS[0]), every bucket warmed
+    first, with the launch counts set to 0 just before the timed run and
+    read just after it; then the same requests through a second engine,
+    synchronous and submitted in reverse. Returns (its numbers, whether
+    every stream of the two runs is bit-equal among them, the streams)."""
     import torch
     from mxtpu_torch import telemetry
-    from mxtpu_torch.models import llama
     from mxtpu_torch.serve import Request, ServeEngine
-    reqs = serve_requests(cfg)
     n_tok = sum(r.max_new_tokens for r in reqs)
     engine = ServeEngine(cfg, params, max_slots=SERVE_SLOTS,
                          max_len=SERVE_MAX_LEN,
@@ -1091,19 +1133,27 @@ def serve_engine_phase(cfg, params):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     after = dispatch.snapshot()
     n_disp = after[2] - before[2]
     lat = engine.latency_stats()
-    stats = {"compile_count": engine.compile_count,
-             "n_buckets": engine.n_buckets,
-             "decode_captures": engine._decode.captures,
-             "steps": engine.steps_run - steps0,
-             "kv_reserved_gb": engine.kv_cache_stats()["reserved_bytes"]
-             / 1e9}
+    row = {"seconds": seconds, "tok_per_s": n_tok / seconds,
+           "p50_token_ms": lat["p50_token_ms"],
+           "p99_token_ms": lat["p99_token_ms"],
+           "decode_dispatch_host_ms": {
+               "mean": (after[1] - before[1]) / max(n_disp, 1),
+               "p50": dispatch.interval_percentile(before[0], after[0], 50),
+               "p99": dispatch.interval_percentile(before[0], after[0], 99),
+               "dispatches": n_disp},
+           "compile_count": engine.compile_count,
+           "n_buckets": engine.n_buckets,
+           "decode_captures": engine._decode.captures,
+           "steps": engine.steps_run - steps0,
+           "kv_reserved_gb": engine.kv_cache_stats()["reserved_bytes"]
+           / 1e9, "peak_kv_occupancy": peak_occ[0],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches}
     del engine
     torch.cuda.empty_cache()
-
     sync = ServeEngine(cfg, params, max_slots=SERVE_SLOTS,
                        max_len=SERVE_MAX_LEN, min_bucket=SERVE_PROMPTS[0],
                        overlap=False, device="cuda")
@@ -1111,6 +1161,44 @@ def serve_engine_phase(cfg, params):
     invariant = all(np.array_equal(first[i], second[i]) for i in first)
     del sync
     torch.cuda.empty_cache()
+    return row, invariant, first
+
+
+def check_dense_serve(name, cfg, reqs, row, invariant, streams):
+    """Raise unless every request got exactly its tokens, all in [0, V),
+    the engine built at most its buckets + 1 programs and captured its
+    decode step once, no kernel launched, and the reversed synchronous
+    engine gave every stream bit for bit."""
+    malformed = [i for i, r in enumerate(reqs)
+                 if not (len(streams[i]) == r.max_new_tokens
+                         and ((streams[i] >= 0)
+                              & (streams[i] < cfg.vocab_size)).all())]
+    if malformed:
+        raise AssertionError(f"{name}: requests {malformed} returned the "
+                             "wrong count of tokens or a bad token")
+    if not (row["compile_count"] <= row["n_buckets"] + 1
+            and row["decode_captures"] == 1):
+        raise AssertionError(f"{name} built more than its buckets and one "
+                             f"decode capture: {row}")
+    if not invariant:
+        raise AssertionError(f"{name}: another schedule changed a stream")
+    if row["launches"] != only():
+        raise AssertionError(f"{name} launched {row['launches']}")
+
+
+def serve_engine_phase(cfg, params):
+    """The continuous-batching ``ServeEngine`` on the slice's weights:
+    bench_llama_serve's stream (SERVE_*) through :func:`dense_serve_run`
+    (the timed run, then a synchronous engine in reverse: equal
+    streams); then 4 requests through an
+    engine over the first SERVE_LAYERS layers in f32 against batch-1
+    ``generate``, and the bf16 streams' agreement with it printed; on
+    the same f32 layers, the captured step against the eager one with
+    the RoPE cache emptied, and two engines on threads."""
+    import torch
+    reqs = serve_requests(cfg)
+    n_tok = sum(r.max_new_tokens for r in reqs)
+    row, invariant, first = dense_serve_run(cfg, params, reqs)
 
     # the bf16 streams beside batch-1 generate: agreement only, printed
     agree = {}
@@ -1132,33 +1220,10 @@ def serve_engine_phase(cfg, params):
           "max_slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
           "min_bucket": SERVE_PROMPTS[0], "sampled_requests":
           sum(1 for r in reqs if r.temperature), "generated_tokens": n_tok,
-          "seconds": seconds, "tok_per_s": n_tok / seconds,
-          "p50_token_ms": lat["p50_token_ms"],
-          "p99_token_ms": lat["p99_token_ms"],
-          "decode_dispatch_host_ms": {
-              "mean": (after[1] - before[1]) / max(n_disp, 1),
-              "p50": dispatch.interval_percentile(before[0], after[0], 50),
-              "p99": dispatch.interval_percentile(before[0], after[0], 99),
-              "dispatches": n_disp},
-          **stats, "peak_kv_occupancy": peak_occ[0], "peak_gb": peak_gb,
-          "scheduling_invariant": invariant,
+          **row, "scheduling_invariant": invariant,
           "bf16_vs_generate": agree, "f32_vs_generate": f32,
-          "rope_evicted": owned, "threaded_engines": threaded,
-          "launches": launches})
-    malformed = [i for i, r in enumerate(reqs)
-                 if not (len(first[i]) == r.max_new_tokens
-                         and ((first[i] >= 0)
-                              & (first[i] < cfg.vocab_size)).all())]
-    if malformed:
-        raise AssertionError(f"serve_engine: requests {malformed} returned "
-                             "the wrong count of tokens or a bad token")
-    if not (stats["compile_count"] <= stats["n_buckets"] + 1
-            and stats["decode_captures"] == 1):
-        raise AssertionError(f"serve_engine built more than its buckets "
-                             f"and one decode capture: {stats}")
-    if not invariant:
-        raise AssertionError("serve_engine: another schedule changed a "
-                             "stream")
+          "rope_evicted": owned, "threaded_engines": threaded})
+    check_dense_serve("serve_engine", cfg, reqs, row, invariant, first)
     if not f32["ok"]:
         raise AssertionError(f"serve_engine in f32 differs from generate "
                              f"away from a near-tie: {f32}")
@@ -1169,9 +1234,7 @@ def serve_engine_phase(cfg, params):
     if not threaded["ok"]:
         raise AssertionError(f"engines on threads differ from their "
                              f"synchronous runs or failed: {threaded}")
-    if launches != only():
-        raise AssertionError(f"serve_engine launched {launches}")
-    return launches, first
+    return row["launches"], first
 
 
 def f32_layers(cfg, params):
@@ -2410,7 +2473,7 @@ def frontend_phase():
         (sw.launch(x @ wg, x @ wu, grid=blocks) @ wd).wait_to_read()
         fwd_s.append(time.perf_counter() - t0)
     lp = {"w_gate": wg._data, "w_up": wu._data, "w_down": wd._data}
-    ref = llama._ffn(cfg, lp, x._data)
+    ref = llama._ffn(cfg, lp, x._data)[0]
     rel = rel_dist(y._data, ref)
     finite = bool(torch.isfinite(y._data).all())
     exact = (np.array_equal(tripled, 3 * small)
@@ -2771,6 +2834,376 @@ def serde_phase():
     return launches
 
 
+# mixtral: Mistral AI's Mixtral-8x7B widths (CONFIGS["mixtral_8x7b"]) at
+# MIXTRAL_LAYERS of its 32 layers in bf16 for serving, and one layer in
+# the reference's training dtypes. The bounds come from bf16 on the CPU
+# at 2-8 layers of a narrow Mixtral (python -m
+# mxtpu_torch.tools.moe_tolerance): a route that flips at a near-tie of
+# its router takes other experts, so the global distance follows the few
+# flipped tokens (clean 0.04-0.14) and the per-token median the rest
+# (clean 0.007-0.021); a lost expert reaches 0.26-0.57 globally and a
+# median of 0.46 and more from 4 layers, unrenormalised gates 0.54 and
+# more in both. At one layer the flash and dense grads part by
+# 0.009-0.093 at capacity E/K and up to 0.27 at 1.25, where a flipped
+# route also moves the slots of later tokens; planted backward faults
+# reach 0.55 and more (python -m mxtpu_torch.tools.bwd_tolerance --train).
+MIXTRAL_LAYERS = 8
+MOE_REL_BOUND = 0.3        # ||a - b|| / ||b||, flash/dense, routed/mixture
+MOE_TOKEN_P50_BOUND = 0.05  # the per-token median of the same distances
+MOE_TRAIN_REL_BOUND = 0.25  # flash vs dense loss and grads, 1 layer, no drops
+MIXTRAL_CHUNK_PROMPT = 4000
+MIXTRAL_TRAIN_LAYERS = 1
+MOE_AUX_LOSS = 0.01        # moe_aux_weight × aux at uniform routing
+# bert: bench.py's bench_bert at BERT-base's widths; bf16 against f32
+# compute on the CPU at 2-8 layers of a narrow BERT 0.0057-0.0096, the
+# position embeddings lost 0.57 and more; an erf GELU or a dropped mask
+# stay at the clean distance at random init (the CPU parity tests hold
+# them at 1e-5)
+BERT_BATCH, BERT_SEQ, BERT_MLM, BERT_PAD = 128, 128, 20, 32
+BERT_REL_BOUND = 3e-2      # ||bf16 - f32 compute|| / ||f32||, seq_out
+BERT_STEPS, BERT_LR = 3, 1e-4
+
+
+def _moe_checked(name, rel, tq):
+    if not (math.isfinite(rel) and rel <= MOE_REL_BOUND
+            and tq["p50"] <= MOE_TOKEN_P50_BOUND):
+        raise AssertionError(f"{name}: {rel} > {MOE_REL_BOUND} or a "
+                             f"per-token median {tq['p50']} > "
+                             f"{MOE_TOKEN_P50_BOUND}")
+
+
+def mixtral_phase():
+    """Mixtral-8x7B at full width and MIXTRAL_LAYERS layers in bf16:
+    (a) forward, its drops, flash vs dense and routed vs mixture; (b)
+    greedy generate and chunked prefill; (c) the dense, reversed and
+    paged engines; then (d) one layer trained."""
+    import torch
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.parallel import moe
+    from mxtpu_torch.tools import moe_tolerance as mt
+    cfg = replace(llama.CONFIGS["mixtral_8x7b"], n_layers=MIXTRAL_LAYERS,
+                  param_dtype=torch.bfloat16)
+    E, K = cfg.moe_experts, cfg.moe_top_k
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for _, p in _leaves_with_keys(params))
+    emit({"phase": "mixtral_init", "config": "mixtral_8x7b",
+          "n_layers": cfg.n_layers, "params": n_params,
+          "param_dtype": "bfloat16", "gb": 2 * n_params / 1e9,
+          "experts": E, "top_k": K, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": nvidia_smi()})
+    with torch.inference_mode():
+        tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen,
+                               device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        fwd_s = []
+        for _ in range(2):             # the second with cuBLAS warm
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = llama.forward(cfg, params, tokens)
+            torch.cuda.synchronize()
+            fwd_s.append(time.perf_counter() - t0)
+            launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        finite = bool(torch.isfinite(logits).all())
+        drops = mt.dropped_by_layer(cfg, params, tokens)
+        del logits
+        nodrop = replace(cfg, moe_capacity=E / K)
+        routes = {"flash": [], "dense": []}
+        found = {}
+        for impl in ("flash", "dense"):
+            with mt.patched(llama, moe_ffn=mt.recording_routes(
+                    moe.moe_ffn, routes[impl])):
+                found[impl] = llama.forward(
+                    replace(nodrop, attn_impl=impl), params, tokens)
+        rel_fd = rel_dist(found["flash"], found["dense"])
+        tq_fd = mt.token_rel(found["flash"], found["dense"])
+        del found
+        routed = llama.forward_hidden(nodrop, params, tokens)
+        with mt.patched(llama, moe_ffn=mt._mixture):
+            mixture = llama.forward_hidden(nodrop, params, tokens)
+        rel_rm = rel_dist(routed, mixture)
+        tq_rm = mt.token_rel(routed, mixture)
+        del routed, mixture
+        emit({"phase": "mixtral_forward", "tokens": [1, 2048],
+              "logits": [1, 2048, cfg.vocab_size], "finite": finite,
+              "seconds": fwd_s, "tok_per_s": [2048 / t for t in fwd_s],
+              "peak_gb": peak_gb, "launches": launches,
+              "capacity": cfg.moe_capacity,
+              "capacity_slots": math.ceil(2048 * K / E * cfg.moe_capacity),
+              "dropped_by_layer": drops, "choices": 2048 * K,
+              "flash_vs_dense": {"rel": rel_fd, "token_rel": tq_fd,
+                                 "routes_changed": mt.routes_changed(
+                                     routes["flash"], routes["dense"])},
+              "routed_vs_mixture": {"rel": rel_rm, "token_rel": tq_rm},
+              "rel_bound": MOE_REL_BOUND,
+              "token_p50_bound": MOE_TOKEN_P50_BOUND,
+              "nvidia_smi": nvidia_smi()})
+        if not finite:
+            raise AssertionError("mixtral forward logits are not finite")
+        if launches != only(flash_attention_fwd=cfg.n_layers):
+            raise AssertionError(f"mixtral forward launched {launches}, not "
+                                 f"{cfg.n_layers} forward kernels")
+        _moe_checked("mixtral flash vs dense logits", rel_fd, tq_fd)
+        _moe_checked("mixtral routed vs mixture", rel_rm, tq_rm)
+        torch.cuda.empty_cache()
+
+        # (b) greedy generate twice, chunked prefill against one shot
+        prompts = torch.randint(0, cfg.vocab_size, (4, 128), generator=gen,
+                                device="cuda")
+        reset_launches()
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = llama.generate(cfg, params, prompts, 32)
+            torch.cuda.synchronize()
+            runs.append((out, time.perf_counter() - t0))
+        gen_launches = read_launches()
+        (out, t1), (out2, t2) = runs
+        new = out[:, 128:]
+        emit({"phase": "mixtral_generate", "requests": 4, "prompt_len": 128,
+              "new_tokens": 32, "seconds": [t1, t2],
+              "tok_per_s": [4 * 32 / t1, 4 * 32 / t2],
+              "reproducible": bool(torch.equal(out, out2)),
+              "first_tokens": new[:, :8].tolist(), "launches": gen_launches})
+        if not (tuple(out.shape) == (4, 160)
+                and torch.equal(out[:, :128], prompts)
+                and bool(((new >= 0) & (new < cfg.vocab_size)).all())):
+            raise AssertionError("mixtral generate returned malformed tokens")
+        if not torch.equal(out, out2):
+            raise AssertionError("mixtral greedy generate is not "
+                                 "reproducible")
+        if gen_launches != only():
+            raise AssertionError(f"mixtral generate launched {gen_launches}")
+        chunk_launches = chunked_phase(cfg, params, gen,
+                                       MIXTRAL_CHUNK_PROMPT, CHUNK_SIZE,
+                                       "mixtral_chunked_prefill")
+        torch.cuda.empty_cache()
+
+        # (c) the engines
+        engine_launches = mixtral_engines(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    train_launches = mixtral_train_phase()
+    return {k: launches[k] + chunk_launches[k] + engine_launches[k]
+            + train_launches[k] for k in LAUNCH_COUNTERS}
+
+
+def mixtral_engines(cfg, params):
+    """bench_llama_serve's stream (SERVE_*) through
+    :func:`dense_serve_run` (a reversed synchronous engine must give
+    every stream bit for bit: the serving mixture routes each token by
+    itself) and through 16-token pages (streams against the dense
+    engine's, printed; one paged capture)."""
+    reqs = serve_requests(cfg)
+    row, invariant, first = dense_serve_run(cfg, params, reqs)
+    reset_launches()
+    paged, paged_streams = paged_serve_run(cfg, params, reqs)
+    paged["launches"] = read_launches()
+    shared = shared_tokens(paged_streams, first)
+    emit({"phase": "mixtral_serve_engine", "config": "mixtral_8x7b",
+          "n_layers": cfg.n_layers, "requests": len(reqs),
+          "max_slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+          "generated_tokens": sum(r.max_new_tokens for r in reqs), **row,
+          "scheduling_invariant": invariant, "paged": paged,
+          "paged_equal_streams": sum(n == len(first[i]) for i, n in
+                                     zip(sorted(first), shared)),
+          "paged_shared_tokens": shared, "nvidia_smi": nvidia_smi()})
+    check_dense_serve("mixtral_serve_engine", cfg, reqs, row, invariant,
+                      first)
+    if not (paged["exact_counts"] and paged["decode_captures"] == 1
+            and paged["launches"] == only()):
+        raise AssertionError(f"mixtral paged engine: {paged}")
+    return row["launches"]
+
+
+def mixtral_train_phase():
+    """One Mixtral layer at full width in the reference's training dtypes
+    (f32 params, bf16 compute, remat, the chunked cross-entropy): flash
+    vs dense loss and grads at capacity E/K, then TRAIN_STEPS adamw
+    steps at the config's capacity through make_train_step."""
+    import torch
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.parallel import optim, step as pstep
+    cfg = replace(llama.CONFIGS["mixtral_8x7b"],
+                  n_layers=MIXTRAL_TRAIN_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = llama.init_params(cfg, gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens}
+    n_params = sum(p.numel() for _, p in _leaves_with_keys(params))
+    picked = (("layers.moe_gate", lambda t: t["layers"]["moe_gate"]),
+              ("layers.w_gate", lambda t: t["layers"]["w_gate"]),
+              ("tok_embed", lambda t: t["tok_embed"]))
+    nodrop = replace(cfg, moe_capacity=cfg.moe_experts / cfg.moe_top_k)
+    found = {}
+    for impl in ("flash", "dense"):
+        live = {k: ({lk: lv.detach().requires_grad_()
+                     for lk, lv in v.items()} if k == "layers"
+                    else v.detach().requires_grad_())
+                for k, v in params.items()}
+        loss = llama.loss_fn(replace(nodrop, attn_impl=impl))(live, batch)
+        grads = torch.autograd.grad(loss, [f(live) for _, f in picked])
+        found[impl] = (loss.detach(), grads)
+        del live, loss, grads
+    (lf, gf), (ld, gd) = found["flash"], found["dense"]
+    rels = {"loss": abs(lf.item() - ld.item()) / abs(ld.item())}
+    rels.update({n: rel_dist(a, b) for (n, _), a, b in zip(picked, gf, gd)})
+    del found, gf, gd
+    torch.cuda.empty_cache()
+    emit({"phase": "mixtral_train_vs_dense", "n_layers": cfg.n_layers,
+          "params": n_params, "capacity": nodrop.moe_capacity,
+          "loss_flash": lf.item(), "loss_dense": ld.item(), "rel": rels,
+          "bound": MOE_TRAIN_REL_BOUND})
+    if not all(math.isfinite(r) and r <= MOE_TRAIN_REL_BOUND
+               for r in rels.values()):
+        raise AssertionError(f"mixtral flash vs dense loss/grads {rels} > "
+                             f"{MOE_TRAIN_REL_BOUND}")
+
+    tx = optim.adamw(TRAIN_LR)
+    state = pstep.init_state(params, tx)
+    del params
+    step = pstep.make_train_step(llama.loss_fn(cfg), tx)
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds, launches = [], [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches.append(read_launches())
+        losses.append(loss.item())
+    final = pstep.make_eval_step(llama.loss_fn(cfg))(state.params,
+                                                     batch).item()
+    expected = math.log(cfg.vocab_size) + MOE_AUX_LOSS
+    emit({"phase": "mixtral_train", "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+          "capacity": cfg.moe_capacity, "tokens_per_step": tokens.numel(),
+          "losses": losses, "loss_after": final,
+          "ln_vocab_plus_aux": expected, "step_seconds": seconds,
+          "tokens_per_s": [tokens.numel() / t for t in seconds],
+          "launches": launches,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "nvidia_smi": nvidia_smi()})
+    want = only(flash_attention_fwd=2 * cfg.n_layers,
+                flash_attention_bwd_dkv=cfg.n_layers,
+                flash_attention_bwd_dq=cfg.n_layers)
+    if any(n != want for n in launches):
+        raise AssertionError(f"a mixtral train step launched {launches}, "
+                             f"not {want}")
+    if not all(map(math.isfinite, losses + [final])):
+        raise AssertionError(f"non-finite mixtral loss: {losses}, {final}")
+    if abs(losses[0] - expected) > 1.5:
+        raise AssertionError(f"first mixtral loss {losses[0]} is not near "
+                             f"ln(vocab) + aux = {expected}")
+    if not final < losses[0]:
+        raise AssertionError(f"mixtral loss did not fall: {losses} then "
+                             f"{final}")
+    del state, step
+    torch.cuda.empty_cache()
+    return {k: sum(n[k] for n in launches) for k in want}
+
+
+def bert_batch(cfg, rng, masked):
+    """bench_bert's batch from ``rng``: random tokens, sorted MLM
+    positions and labels, NSP labels; with ``masked`` the last BERT_PAD
+    positions of every other row are padding."""
+    import torch
+    mask = np.ones((BERT_BATCH, BERT_SEQ), np.float32)
+    if masked:
+        mask[::2, -BERT_PAD:] = 0.0
+    host = {"tokens": rng.integers(0, cfg.vocab_size,
+                                   (BERT_BATCH, BERT_SEQ)),
+            "mask": mask,
+            "mlm_positions": np.sort(rng.integers(0, BERT_SEQ, (
+                BERT_BATCH, BERT_MLM))),
+            "mlm_labels": rng.integers(0, cfg.vocab_size,
+                                       (BERT_BATCH, BERT_MLM)),
+            "mlm_weights": np.ones((BERT_BATCH, BERT_MLM), np.float32),
+            "nsp_labels": rng.integers(0, 2, (BERT_BATCH,))}
+    return {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
+
+
+def bert_phase():
+    """BERT-base pretraining at bench_bert's shape: (a) forward with
+    padding, bf16 against f32 compute; (b) BERT_STEPS adamw steps."""
+    import torch
+    from mxtpu_torch.models import bert
+    from mxtpu_torch.parallel import optim, step as pstep
+    cfg = bert.CONFIGS["bert_base"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = bert.init_params(cfg, gen, device="cuda")
+    n_params = sum(p.numel() for _, p in _leaves_with_keys(params))
+    rng = np.random.default_rng(SEED)
+    reset_launches()
+    with torch.inference_mode():
+        b = bert_batch(cfg, rng, masked=True)
+        seq, pooled = bert.forward(cfg, params, b["tokens"], mask=b["mask"])
+        want, _ = bert.forward(replace(cfg, dtype=torch.float32), params,
+                               b["tokens"], mask=b["mask"])
+        finite = bool(torch.isfinite(seq).all() and
+                      torch.isfinite(pooled).all())
+        rel = rel_dist(seq, want)
+        emit({"phase": "bert_forward", "config": "bert_base",
+              "params": n_params, "batch": BERT_BATCH, "seq": BERT_SEQ,
+              "padded_rows": BERT_BATCH // 2, "padding": BERT_PAD,
+              "seq_out": list(seq.shape), "pooled": list(pooled.shape),
+              "finite": finite, "rel_vs_f32": rel,
+              "rel_bound": BERT_REL_BOUND})
+        del seq, pooled, want
+    if not (finite and rel <= BERT_REL_BOUND):
+        raise AssertionError(f"bert forward: finite {finite}, bf16 vs f32 "
+                             f"{rel} > {BERT_REL_BOUND}")
+    batch = bert_batch(cfg, rng, masked=False)
+    tx = optim.adamw(BERT_LR)
+    state = pstep.init_state(params, tx)
+    del params
+    step = pstep.make_train_step(bert.loss_fn(cfg), tx)
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds = [], []
+    for _ in range(BERT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = read_launches()
+    # bench_bert's count of the products' work: the encoder's weights at
+    # every position, the tied decode at the MLM positions, attention
+    n_dense = n_params - sum(
+        state.params[k].numel() for k in ("tok_emb", "pos_emb", "type_emb"))
+    flops = (6 * n_dense * BERT_BATCH * BERT_SEQ
+             + 6 * cfg.dim * cfg.vocab_size * BERT_BATCH * BERT_MLM
+             + 12 * cfg.n_layers * cfg.dim * BERT_SEQ * BERT_BATCH * BERT_SEQ)
+    expected = math.log(cfg.vocab_size) + math.log(2)
+    emit({"phase": "bert_train", "steps": BERT_STEPS, "lr": BERT_LR,
+          "losses": losses, "ln_vocab_plus_ln2": expected,
+          "step_seconds": seconds,
+          "samples_per_s": [BERT_BATCH / t for t in seconds],
+          "model_tflops_per_s": [flops / t / 1e12 for t in seconds],
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": launches, "nvidia_smi": nvidia_smi()})
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite bert loss: {losses}")
+    if abs(losses[0] - expected) > 1.0:
+        raise AssertionError(f"first bert loss {losses[0]} is not within 1 "
+                             f"of ln V + ln 2 = {expected}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"bert loss did not fall: {losses}")
+    if launches != only():
+        raise AssertionError(f"bert launched {launches}")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _leaves_with_keys(tree):
     """(last key, leaf) of a nested dict, in order."""
     for k, v in tree.items():
@@ -2893,9 +3326,13 @@ def main():
     frontend_launches = frontend_phase()
     random_launches = nd_random_phase()
     serde_launches = serde_phase()
+    torch.cuda.empty_cache()
+    mixtral_launches = mixtral_phase()
+    bert_launches = bert_phase()
     launches = {k: fwd_launches[k] + train_launches[k] + resnet_launches[k]
                 + probe_launches[k] + frontend_launches[k]
                 + random_launches[k] + serde_launches[k]
+                + mixtral_launches[k] + bert_launches[k]
                 for k in LAUNCH_COUNTERS}
 
     main_row, bwd = rows["llama3_8b"], bwd_rows["llama3_8b"]

@@ -25,8 +25,12 @@ with per-layer recomputation, then the streamed
 ``chunked_softmax_xent``), which
 ``mxtpu_torch.parallel.step.make_train_step`` differentiates. Under
 grad on the card, attention's backward runs the hand-written dK/dV and
-dQ kernels. What waits for later slices, and raises here: MoE,
-ring/ulysses attention and mesh sharding.
+dQ kernels. A config with ``moe_experts > 0`` (Mixtral) swaps each
+layer's SwiGLU for the expert bank of :mod:`mxtpu_torch.parallel.moe`:
+routed with a capacity in ``forward`` and the loss (whose load-balancing
+aux ``loss_fn`` adds), the exact dropless mixture on every serving path.
+What waits for later slices, and raises here: ring/ulysses attention
+and mesh sharding.
 
 Numerics follow ``mxtpu``: ``rms_norm`` and RoPE compute in f32, and
 the three einsums that ask for f32 results from ``cfg.dtype`` operands
@@ -51,6 +55,7 @@ from .. import prng
 from ..context import DeviceLike, resolve_device
 from ..ops.attention import (dense_attention, flash_attention, gather_pages,
                              paged_decode_attention, slot_decode_attention)
+from ..parallel.moe import moe_ffn, moe_ffn_dense
 from ._numpy_tree import params_from_numpy, params_to_numpy
 
 __all__ = ["LlamaConfig", "CONFIGS", "init_params", "rms_norm",
@@ -82,10 +87,10 @@ class LlamaConfig:
     attn_impl: str = "flash"         # flash | dense (ring | ulysses: later)
     remat: bool = True               # recompute each layer in the backward
     remat_policy: Optional[str] = None   # None | "dots_no_batch"
-    scan_layers: bool = True         # no effect: layers are a Python loop
+    scan_layers: bool = True         # picks the aux average; layers loop
     tie_embeddings: bool = False
     ce_chunk: Optional[int] = 0
-    moe_experts: int = 0             # > 0 raises: a later slice
+    moe_experts: int = 0             # > 0: the MoE expert bank
     moe_top_k: int = 2
     moe_capacity: float = 1.25
     moe_aux_weight: float = 0.01
@@ -111,10 +116,6 @@ CONFIGS: Dict[str, LlamaConfig] = {
                                 max_seq_len=4096, moe_experts=8,
                                 moe_top_k=2),
 }
-
-
-_MOE_SLICE = ("the MoE expert bank (moe_experts > 0) comes with a later "
-              "slice (ROADMAP Queue A item 6)")
 
 
 def _no_mesh(mesh) -> None:
@@ -264,18 +265,34 @@ def _qkv(cfg: LlamaConfig, lp, h, cos, sin):
     return q, k, v.transpose(1, 2)
 
 
-def _ffn(cfg: LlamaConfig, lp, h):
-    """Dense SwiGLU residual delta."""
-    if cfg.moe_experts:
-        raise NotImplementedError(_MOE_SLICE)
+def _ffn(cfg: LlamaConfig, lp, h, serving: bool = False):
+    """FFN residual delta: dense SwiGLU, or the MoE expert bank when
+    ``cfg.moe_experts`` is set. Returns (delta, aux), aux the MoE
+    load-balancing term (a zero f32 scalar for dense configs).
+    ``serving`` switches MoE to the exact dropless mixture
+    (:func:`moe_ffn_dense`: routing is a pure per-token function), so
+    generation never depends on batch composition."""
     dt = h.dtype
+    if cfg.moe_experts:
+        b, s, d = h.shape
+        mp = {"gate": lp["moe_gate"], "w_gate": lp["w_gate"],
+              "w_up": lp["w_up"], "w_down": lp["w_down"]}
+        if serving:
+            out, aux = moe_ffn_dense(mp, h.reshape(b * s, d),
+                                     top_k=cfg.moe_top_k)
+        else:
+            out, aux = moe_ffn(mp, h.reshape(b * s, d), top_k=cfg.moe_top_k,
+                               capacity_factor=cfg.moe_capacity)
+        return out.reshape(b, s, d), aux
     gate = torch.nn.functional.silu(h @ _wq8(lp["w_gate"], dt))
     up = h @ _wq8(lp["w_up"], dt)
-    return (gate * up) @ _wq8(lp["w_down"], dt)
+    return (gate * up) @ _wq8(lp["w_down"], dt), \
+        torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def _layer(cfg: LlamaConfig, cos, sin, x, lp):
-    """One transformer block. x: (b, s, dim) in cfg.dtype."""
+    """One transformer block. x: (b, s, dim) in cfg.dtype. Returns (x,
+    the FFN's aux)."""
     b, s, _ = x.shape
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q, k, v = _qkv(cfg, lp, h, cos, sin)
@@ -283,7 +300,8 @@ def _layer(cfg: LlamaConfig, cos, sin, x, lp):
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
     x = x + o @ _wq8(lp["wo"], x.dtype)
     h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-    return x + _ffn(cfg, lp, h)
+    delta, aux = _ffn(cfg, lp, h)
+    return x + delta, aux
 
 
 def _layer_params(params, i: int):
@@ -307,8 +325,11 @@ def _embed(cfg: LlamaConfig, params, tokens):
 def _save_weight_matmuls(ctx, op, *args, **kwargs):
     """Selective-checkpoint policy of ``remat_policy="dots_no_batch"``
     (JAX's ``dots_with_no_batch_dims_saveable``): keep the outputs of
-    the 2-D products — the weight matmuls — and recompute the rest,
-    attention and the elementwise ops included."""
+    the 2-D products — the weight matmuls and the MoE router — and
+    recompute the rest, attention and the elementwise ops included. The
+    MoE experts' products are batched (``bmm`` over the expert dim), so
+    they are recomputed, as JAX's policy recomputes dots with batch
+    dims."""
     if op is torch.ops.aten.mm.default:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
@@ -333,14 +354,18 @@ def _remat(cfg: LlamaConfig, layer):
     return partial(checkpoint, layer, use_reentrant=False, **kw)
 
 
-def forward_hidden(cfg: LlamaConfig, params, tokens, mesh=None):
+def forward_hidden(cfg: LlamaConfig, params, tokens, mesh=None,
+                   with_aux: bool = False):
     """tokens: (batch, seq) int → final-norm hidden states
-    (batch, seq, dim) in cfg.dtype. Under grad with ``cfg.remat``, each
-    layer is a ``torch.utils.checkpoint`` region: its activations are
-    recomputed in the backward (``remat_policy=None``), or all but the
-    weight matmuls' outputs are (``"dots_no_batch"``), as the reference's
-    ``jax.checkpoint`` policies do. ``cfg.scan_layers`` changes nothing:
-    the layers are a Python loop."""
+    (batch, seq, dim) in cfg.dtype; with ``with_aux`` also the MoE
+    load-balancing aux, averaged over layers (0 for dense configs).
+    Under grad with ``cfg.remat``, each layer is a
+    ``torch.utils.checkpoint`` region: its activations are recomputed in
+    the backward (``remat_policy=None``), or all but the weight matmuls'
+    outputs are (``"dots_no_batch"``), as the reference's
+    ``jax.checkpoint`` policies do. The layers are a Python loop;
+    ``cfg.scan_layers`` only picks how the aux is averaged, as the
+    reference rounds it (the mean of the stacked auxes, or Σ a/n)."""
     _no_mesh(mesh)
     if isinstance(params["tok_embed"], dict):
         raise TypeError("an int8 tree serves (prefill, chunked_prefill, "
@@ -352,9 +377,20 @@ def forward_hidden(cfg: LlamaConfig, params, tokens, mesh=None):
     layer = _remat(cfg, partial(_layer, cfg, cos, sin))
     # unbind once: its backward stacks the per-layer grads in one pass
     stacked = {k: v.unbind(0) for k, v in params["layers"].items()}
+    auxes = []
     for i in range(cfg.n_layers):
-        x = layer(x, {k: v[i] for k, v in stacked.items()})
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, a = layer(x, {k: v[i] for k, v in stacked.items()})
+        auxes.append(a)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if not with_aux:
+        return x
+    if cfg.scan_layers:
+        aux = torch.stack(auxes).mean()
+    else:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for a in auxes:
+            aux = aux + a / cfg.n_layers
+    return x, aux
 
 
 def _logits(cfg: LlamaConfig, params, x):
@@ -449,14 +485,14 @@ def loss_fn(cfg: LlamaConfig, mesh=None):
     """Causal-LM loss for ``parallel.step.make_train_step``: batch is a
     dict with 'tokens' (b, s) and optional 'mask' (b, s); predicts token
     t+1 from the prefix up to t. Large vocabs take the chunked path
-    (:func:`chunked_softmax_xent`)."""
+    (:func:`chunked_softmax_xent`). A MoE config adds
+    ``cfg.moe_aux_weight`` times the load-balancing aux."""
     _no_mesh(mesh)
-    if cfg.moe_experts:
-        raise NotImplementedError(_MOE_SLICE)
 
     def loss(params, batch):
         tokens = batch["tokens"]
-        x = forward_hidden(cfg, params, tokens)[:, :-1]
+        x, moe_aux = forward_hidden(cfg, params, tokens, with_aux=True)
+        x = x[:, :-1]
         targets = tokens[:, 1:].long()
         mask = batch.get("mask")
         mask = (torch.ones(targets.shape, device=x.device) if mask is None
@@ -468,7 +504,10 @@ def loss_fn(cfg: LlamaConfig, mesh=None):
         else:
             logp = torch.log_softmax(x.float() @ head.float(), dim=-1)
             nll = -logp.gather(-1, targets[..., None])[..., 0]
-        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+        ce = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+        if cfg.moe_experts:
+            ce = ce + cfg.moe_aux_weight * moe_aux
+        return ce
     return loss
 
 
@@ -557,7 +596,8 @@ def _layer_cached(cfg: LlamaConfig, cos, sin, pos, x, lp, ck, cv):
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
     x = x + o @ _wq8(lp["wo"], dt)
     h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-    return x + _ffn(cfg, lp, h)
+    delta, _ = _ffn(cfg, lp, h, serving=True)
+    return x + delta
 
 
 def _forward_cached(cfg: LlamaConfig, params, tokens, cache,
@@ -803,7 +843,8 @@ def _layer_slots(cfg: LlamaConfig, cos, sin, x, lp, attend):
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
     x = x + o @ _wq8(lp["wo"], dt)
     h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-    return x + _ffn(cfg, lp, h)
+    delta, _ = _ffn(cfg, lp, h, serving=True)
+    return x + delta
 
 
 def _bank_attend(kv, pos):
@@ -1297,8 +1338,9 @@ def decode_slots_spec(cfg: LlamaConfig, params, kv, sv, active,
 class Llama(nn.Module):
     """The parameters of one Llama under ``mxtpu``'s names and shapes
     (``tok_embed``, ``layers.{attn_norm, wq, wk, wv, wo, ffn_norm,
-    w_gate, w_up, w_down}`` stacked on a leading layer dim,
-    ``final_norm``, ``lm_head``), with :meth:`forward`, :meth:`loss`
+    w_gate, w_up, w_down}`` stacked on a leading layer dim, with
+    ``moe_gate`` and an expert dim in a MoE config, ``final_norm``,
+    ``lm_head``), with :meth:`forward`, :meth:`loss`
     and :meth:`generate` over the functions of this module. The
     parameters require grad, so :meth:`forward` and :meth:`loss` build
     an autograd graph unless grad mode is off; :meth:`generate` never

@@ -1,6 +1,7 @@
 """One-device training: the port of ``mxtpu/parallel``'s ``step``, with
-the optax transforms it takes written out in torch (``optim``). Meshes,
-sharding rules and collectives come with the multi-device slice."""
-from . import optim, step
+the optax transforms it takes written out in torch (``optim``), and the
+MoE expert bank (``moe``). Meshes, sharding rules, collectives and
+expert parallelism come with the multi-device slice."""
+from . import moe, optim, step
 
-__all__ = ["optim", "step"]
+__all__ = ["moe", "optim", "step"]

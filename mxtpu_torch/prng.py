@@ -157,41 +157,65 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
 
 def random_bits(key: torch.Tensor, bit_width: int = 32,
                 shape: Shape = ()) -> torch.Tensor:
-    """``jax.random.bits``: uniform 32-bit words (``bits1 ^ bits2``) in
-    int64 lanes, or 64-bit words (``bits1 << 32 | bits2``) as int64 bit
+    """``jax.random.bits`` (``jax_threefry_partitionable``): uniform
+    32-bit words (``bits1 ^ bits2``) in int64 lanes, 8- and 16-bit words
+    (the low bits of that word, as jax's conversion to uint8/uint16
+    keeps them), or 64-bit words (``bits1 << 32 | bits2``) as int64 bit
     patterns."""
+    if bit_width not in (8, 16, 32, 64):
+        raise ValueError(f"bit_width must be 8, 16, 32 or 64, got "
+                         f"{bit_width}")
     bits1, bits2 = _hash_iota(key, _shape(shape))
-    if bit_width == 32:
-        return bits1 ^ bits2
     if bit_width == 64:
         return (bits1 << 32) | bits2
-    raise ValueError(f"bit_width must be 32 or 64, got {bit_width}")
+    if bit_width == 32:
+        return bits1 ^ bits2
+    return (bits1 ^ bits2) & ((1 << bit_width) - 1)
 
 
 # dtype → (bits, mantissa bits, int type of its width, the bits of 1.0)
 _FLOAT_LAYOUT = {torch.float32: (32, 23, torch.int32, 0x3F800000),
-                 torch.float64: (64, 52, torch.int64, 0x3FF0000000000000)}
+                 torch.float64: (64, 52, torch.int64, 0x3FF0000000000000),
+                 torch.bfloat16: (16, 7, torch.int16, 0x3F80),
+                 torch.float16: (16, 10, torch.int16, 0x3C00)}
+_WIDE = (torch.float32, torch.float64)
 
 
 def uniform(key: torch.Tensor, shape: Shape = (),
             dtype: torch.dtype = torch.float32, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` in f32 (32-bit draws) or f64 (64-bit
-    draws): the top mantissa bits over 1.0's exponent, bit-cast, minus
-    1, then ``floats * (maxval - minval) + minval`` and
-    ``max(minval, ·)``. XLA contracts that product and sum into one
-    fused multiply-add, rounded once, which :func:`xla_math.fma`
-    reproduces exactly; where ``maxval - minval`` is a power of two (the
-    default [0, 1), gumbel's [tiny, 1)) the product is exact and the
-    plain sum rounds once already. Neither branch copies anything from
-    the host, so a step captured as a CUDA graph can draw on it."""
+    """``jax.random.uniform`` in f32 (32-bit draws), f64 (64-bit draws),
+    f16 (16-bit draws) or bf16 (8-bit draws: jax draws 8 bits for fewer
+    than 8 mantissa bits): the top mantissa bits over 1.0's exponent,
+    bit-cast, minus 1, then ``floats * (maxval - minval) + minval`` and
+    ``max(minval, ·)``, the bounds first rounded to ``dtype``. XLA
+    contracts that product and sum into one fused multiply-add, rounded
+    once, which :func:`xla_math.fma` reproduces exactly; where
+    ``maxval - minval`` is a power of two (the default [0, 1), gumbel's
+    [tiny, 1)) the product is exact and the plain sum rounds once
+    already. In 16 bits, XLA's CPU rounds a bf16 product and sum each
+    to bf16 (every bf16 op is an f32 op between roundings), and
+    contracts the f16 product and sum into one rounding (the f32
+    product of two 11-bit values is exact). No branch copies anything
+    from the host, so a step captured as a CUDA graph can draw on it."""
     if dtype not in _FLOAT_LAYOUT:
-        raise TypeError(f"uniform draws float32 or float64, not {dtype}")
+        raise TypeError(f"uniform draws float16, bfloat16, float32 or "
+                        f"float64, not {dtype}")
     nbits, nmant, itype, one = _FLOAT_LAYOUT[dtype]
-    bits = random_bits(key, nbits, shape)
+    rng_bits = nbits if nmant >= 8 else 8
+    bits = random_bits(key, rng_bits, shape)
     # a logical shift right: the arithmetic shift's sign bits are masked
-    mant = (bits >> (nbits - nmant)) & ((1 << nmant) - 1)
+    mant = (bits >> (rng_bits - nmant)) & ((1 << nmant) - 1)
     floats = (mant | one).to(itype).view(dtype) - 1.0
+    if nbits == 16:
+        lo, hi = (torch.tensor(float(v), dtype=dtype).item()
+                  for v in (minval, maxval))
+        span = torch.tensor(hi - lo, dtype=dtype).item()
+        if dtype == torch.bfloat16:
+            out = floats * span + lo
+        else:
+            out = (floats.float() * span + lo).to(dtype)
+        return torch.clamp_min(out, lo)
     np_dtype = {32: np.float32, 64: np.float64}[nbits]
     lo = np_dtype(float(minval))
     span = np_dtype(float(maxval)) - lo          # rounded as jax rounds it
@@ -274,7 +298,7 @@ def normal(key: torch.Tensor, shape: Shape = (),
     """``jax.random.normal``: ``sqrt(2) * erf_inv(u)`` with u uniform over
     (nextafter(-1, 0), 1), ``erf_inv`` as XLA expands it
     (:mod:`xla_math`). A batch of keys draws (S, *shape)."""
-    if dtype not in _FLOAT_LAYOUT:
+    if dtype not in _WIDE:
         raise TypeError(f"normal draws float32 or float64, not {dtype}")
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
     lo = float(np.nextafter(np_dtype(-1.0), np_dtype(0.0)))
@@ -285,6 +309,8 @@ def normal(key: torch.Tensor, shape: Shape = (),
 def exponential(key: torch.Tensor, shape: Shape = (),
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``jax.random.exponential``: ``-log1p(-u)``, u uniform over [0, 1)."""
+    if dtype not in _WIDE:
+        raise TypeError(f"exponential draws float32 or float64, not {dtype}")
     return -xla_math.log1p(-uniform(key, shape, dtype))
 
 
@@ -426,7 +452,7 @@ def gamma(key: torch.Tensor, a, shape: Optional[Shape] = None,
     key = _check_key(key)
     if key.ndim != 1:
         raise TypeError(f"gamma takes one key, got {_describe(key)}")
-    if dtype not in _FLOAT_LAYOUT:
+    if dtype not in _WIDE:
         raise TypeError(f"gamma draws float32 or float64, not {dtype}")
     a = torch.as_tensor(a, dtype=dtype, device=key.device)
     shape = tuple(a.shape) if shape is None else _shape(shape)

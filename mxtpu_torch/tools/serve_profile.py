@@ -1,10 +1,12 @@
 """Where the time of one serving decode step goes, on one NVIDIA card.
 
-    python -m mxtpu_torch.tools.serve_profile
+    python -m mxtpu_torch.tools.serve_profile [--model llama3_8b]
 
 Builds the state ``chip_smoke.py``'s ``serve_engine`` phase decodes
 over: ``CONFIGS["llama3_8b"]`` with bf16 params from a seeded generator
-(32 layers), a 16-slot bank at max_len 768 with every slot active at
+(32 layers; ``--model mixtral_8x7b``: the ``mixtral`` phase's 8 layers
+of Mixtral-8x7B, whose steps run the dropless expert mixture), a
+16-slot bank at max_len 768 with every slot active at
 length 300, every third slot sampled (temperature 0.8, top_k 50, top_p
 0.95). Times, each the mean device time of a window queued behind a
 spin of the card (``tools.timing.time_ms``): the whole step as the
@@ -35,6 +37,7 @@ its sync, the host time of the call, and the device time of its kernels
 """
 from __future__ import annotations
 
+import argparse
 import functools
 import json
 import subprocess
@@ -139,7 +142,11 @@ def _device_ms(fn):
                if ev.device_type == DeviceType.CUDA) / 1e3
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default="llama3_8b",
+                    choices=["llama3_8b", "mixtral_8x7b"])
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("serve_profile needs a CUDA card")
     from torch.autograd import DeviceType
@@ -150,7 +157,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    cfg = replace(llama.CONFIGS["llama3_8b"], param_dtype=torch.bfloat16)
+    cfg = replace(llama.CONFIGS[args.model], param_dtype=torch.bfloat16,
+                  n_layers={"llama3_8b": 32, "mixtral_8x7b": 8}[args.model])
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = llama.init_params(cfg, gen, device="cuda")
     # what a step must read: every layer, the final norm and the head,
@@ -180,7 +188,8 @@ def main() -> None:
     step = _DecodeGraph(cfg, params, kv, sv)
     step(*knobs)                                   # warm-up and capture
     sv["lengths"].fill_(LENGTH)
-    out = {"card": card, "slots": SLOTS, "max_len": MAX_LEN,
+    out = {"card": card, "model": args.model, "slots": SLOTS,
+           "max_len": MAX_LEN,
            "length": LENGTH, "n_layers": cfg.n_layers,
            "weights_gb": weight_bytes / 1e9,
            "weights_bound_ms": weight_bytes / PEAK_HBM_BYTES * 1e3,

@@ -1,12 +1,16 @@
 """Where the time of one training step goes, by kernel, on one NVIDIA
 card.
 
-    python -m mxtpu_torch.tools.train_profile
+    python -m mxtpu_torch.tools.train_profile [--model llama3_8b]
 
-Builds the step that ``chip_smoke.py`` drives (``CONFIGS["llama3_8b"]``
-at 4 layers, f32 params, bf16 compute, remat, chunked cross-entropy,
-``adamw(3e-4)``, one seeded (1, 2048) batch), warms it for two steps,
-then traces a third with ``torch.profiler``. Prints one JSON object:
+Builds a step that ``chip_smoke.py`` drives, warms it for two steps,
+then traces a third with ``torch.profiler``. ``--model``: ``llama3_8b``
+(the ``train`` phase: 4 layers, f32 params, bf16 compute, remat,
+chunked cross-entropy, ``adamw(3e-4)``, one seeded (1, 2048) batch),
+``mixtral_8x7b`` (the ``mixtral`` phase's step: the same at one layer
+of Mixtral-8x7B, capacity 1.25) or ``bert_base`` (the ``bert`` phase's
+step: BERT-base, batch 128 × 128, 20 MLM positions, NSP labels,
+``adamw(1e-4)``). Prints one JSON object:
 the step's wall time, the device time summed over all kernels and its
 share of the wall time, the device time by group (the port's flash
 kernels, f32 and bf16 matrix products, everything else), and the 15
@@ -16,6 +20,7 @@ adding the updates to the params in place) with CUDA events.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import re
 import subprocess
@@ -25,7 +30,7 @@ from dataclasses import replace
 
 import torch
 
-from ..models import llama
+from ..models import bert, llama
 from ..parallel import optim, step as pstep
 from ..parallel._tree import tree_leaves, tree_map
 
@@ -43,7 +48,36 @@ def _group(name: str) -> str:
     return "other"
 
 
-def main() -> None:
+def _setup(model: str, gen):
+    """(params, loss, batch, lr) of ``model``'s step."""
+    if model == "bert_base":
+        cfg = bert.CONFIGS["bert_base"]
+        b, s, n = 128, 128, 20
+
+        def ints(high, shape):
+            return torch.randint(0, high, shape, generator=gen,
+                                 device="cuda")
+        batch = {"tokens": ints(cfg.vocab_size, (b, s)),
+                 "mask": torch.ones((b, s), device="cuda"),
+                 "mlm_positions": ints(s, (b, n)).sort(-1).values,
+                 "mlm_labels": ints(cfg.vocab_size, (b, n)),
+                 "mlm_weights": torch.ones((b, n), device="cuda"),
+                 "nsp_labels": ints(2, (b,))}
+        return (bert.init_params(cfg, gen, device="cuda"),
+                bert.loss_fn(cfg), batch, 1e-4)
+    layers = {"llama3_8b": 4, "mixtral_8x7b": 1}[model]
+    cfg = replace(llama.CONFIGS[model], n_layers=layers)
+    params = llama.init_params(cfg, gen, device="cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 2048),
+                                     generator=gen, device="cuda")}
+    return params, llama.loss_fn(cfg), batch, 3e-4
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default="llama3_8b",
+                    choices=["llama3_8b", "mixtral_8x7b", "bert_base"])
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("train_profile needs a CUDA card")
     from torch.autograd import DeviceType
@@ -54,15 +88,12 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    cfg = replace(llama.CONFIGS["llama3_8b"], n_layers=4)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = llama.init_params(cfg, gen, device="cuda")
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 2048),
-                                     generator=gen, device="cuda")}
-    tx = optim.adamw(3e-4)
+    params, loss_fn, batch, lr = _setup(args.model, gen)
+    tx = optim.adamw(lr)
     state = pstep.init_state(params, tx)
     del params
-    step = pstep.make_train_step(llama.loss_fn(cfg), tx)
+    step = pstep.make_train_step(loss_fn, tx)
     for _ in range(2):
         state, loss = step(state, batch)
     torch.cuda.synchronize()
@@ -93,7 +124,8 @@ def main() -> None:
         end.record()
     torch.cuda.synchronize()
     print(json.dumps({
-        "card": card, "wall_ms": wall_ms, "device_ms": device_ms,
+        "card": card, "model": args.model, "wall_ms": wall_ms,
+        "device_ms": device_ms,
         "device_busy_share": device_ms / wall_ms if wall_ms else None,
         "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": [[n[:120], ms] for n, ms in top],

@@ -149,8 +149,6 @@ def test_generate_refuses_what_this_slice_lacks(pair):
         tl.generate(tcfg, tparams, prompt, 2, mesh=object())
     with pytest.raises(NotImplementedError, match="later slice"):
         tl.forward(replace(tcfg, attn_impl="ring"), tparams, prompt)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tl.forward(replace(tcfg, moe_experts=2), tparams, prompt)
 
 
 def test_default_device_never_falls_back_to_cpu():
@@ -178,7 +176,8 @@ def test_port_imports_no_jax():
             "mxtpu_torch.prng, mxtpu_torch.serve, mxtpu_torch.serve.engine, "
             "mxtpu_torch.telemetry, "
             "mxtpu_torch.ndarray.random, mxtpu_torch.serde, "
-            "mxtpu_torch.xla_math\n"
+            "mxtpu_torch.xla_math, mxtpu_torch.parallel.moe, "
+            "mxtpu_torch.models.bert\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxtpu' or "
             "m.startswith('mxtpu.')]\n"

@@ -2,14 +2,19 @@
 
 The port reproduces jax's Threefry-2x32 chain in its default mode
 (``jax_threefry_partitionable``, impl ``threefry2x32``): keys, splits,
-``fold_in``, 32- and 64-bit bits and uniforms are held bit for bit.
+``fold_in``, 8-, 16-, 32- and 64-bit bits and bf16, f16, f32 and f64
+uniforms are held bit for bit.
 ``gumbel`` is ``-log(-log(u))`` on the same bit-exact u; XLA's ``log``
 and torch's each round within one ulp of their result but not always
 the same way, so the noise is held within 2 ulp of ``max(|g|, 1)``:
 the inner log's ulp carries into the outer one as an absolute error of
-one ulp of 1. This file runs under the suite's 64-bit jax
-(``tests/conftest.py``), so a Python ``p`` draws in float64 there, and
-the port is held against the dtype jax really used.
+one ulp of 1. In bf16 the noise is bit-equal (each op rounds to bf16,
+as XLA's CPU rounds it); in f16 XLA's CPU ``log`` strays up to 6 ulps
+from the exact value, so the port's f16 noise is held within the same
+2 ulps of the exact ``-log(-log(u))`` on the same u instead. This file
+runs under the suite's 64-bit jax (``tests/conftest.py``), so a Python
+``p`` draws in float64 there, and the port is held against the dtype
+jax really used.
 
 The rest of ``jax.random``: float32 ``normal`` and ``exponential`` bit
 for bit (``mxtpu_torch.xla_math`` writes out XLA's CPU float32 ``log``,
@@ -79,9 +84,10 @@ def test_keys_splits_and_fold_in_match_jax(seed):
     np.testing.assert_array_equal(_np(sub), np.asarray(jsub))
 
 
-@pytest.mark.parametrize("bit_width", [32, 64])
+@pytest.mark.parametrize("bit_width", [8, 16, 32, 64])
 def test_random_bits_match_jax(bit_width):
-    jdtype = {32: jnp.uint32, 64: jnp.uint64}[bit_width]
+    jdtype = {8: jnp.uint8, 16: jnp.uint16, 32: jnp.uint32,
+              64: jnp.uint64}[bit_width]
     for seed in SEEDS[:5]:
         key, jkey = prng.PRNGKey(seed, device="cpu"), \
             jax.random.PRNGKey(seed)
@@ -90,15 +96,18 @@ def test_random_bits_match_jax(bit_width):
             assert got.dtype == torch.int64 and tuple(got.shape) == shape
             want = np.asarray(jax.random.bits(jkey, shape, jdtype))
             got = got.numpy()
-            got = got.astype(np.uint32) if bit_width == 32 \
-                else got.view(np.uint64)
+            got = got.view(np.uint64) if bit_width == 64 \
+                else got.astype(want.dtype)
+            assert (got.astype(np.uint64) >> bit_width == 0).all()
             np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16",
+                                   "float16"])
 def test_uniform_matches_jax_bit_for_bit(dtype):
     """Bounds other than [0, 1) hold the fused multiply-add: XLA rounds
-    ``floats * (maxval - minval) + minval`` once."""
+    ``floats * (maxval - minval) + minval`` once (in bf16, the product
+    and the sum each). bf16 draws 8 bits, f16 16."""
     tdtype = getattr(torch, dtype)
     for seed in SEEDS[:5]:
         key, jkey = prng.PRNGKey(seed, device="cpu"), \
@@ -108,8 +117,12 @@ def test_uniform_matches_jax_bit_for_bit(dtype):
                            (-1e5, 3.0)):
                 got = prng.uniform(key, shape, tdtype, lo, hi)
                 assert got.dtype == tdtype
-                _bits_equal(got.numpy(), jax.random.uniform(
-                    jkey, shape, jnp.dtype(dtype), lo, hi))
+                want = jax.random.uniform(jkey, shape, jnp.dtype(dtype), lo,
+                                          hi)
+                if tdtype.itemsize == 2:
+                    got = got.view(torch.int16)
+                    want = np.asarray(want).view(np.int16)
+                _bits_equal(got.numpy(), want)
 
 
 def _gumbel_ulps(got, want):
@@ -131,6 +144,39 @@ def test_gumbel_within_two_ulp_of_jax(dtype):
         assert ulps.max() <= 2, (seed, ulps.max())
     with pytest.raises(NotImplementedError, match="high"):
         prng.gumbel(key, (3,), mode="high")
+
+
+def test_16_bit_gumbel_and_categorical_match_jax():
+    """bf16 gumbel bit-equal to jax's (within 2 ulps of max(|g|, 1) is
+    the bound), f16 within 2 ulps of max(|g|, 1) of the exact
+    ``-log(-log(u))`` on the same u (the f32 test's bound, against the
+    exact value: XLA's f16 ``log`` strays from it), and ``categorical``
+    on bf16 and f16 logits draws jax's tokens."""
+    rng = np.random.default_rng(11)
+    lg = rng.standard_normal((6, 97)) * 2
+    for seed in SEEDS[:4]:
+        key, jkey = prng.PRNGKey(seed, device="cpu"), \
+            jax.random.PRNGKey(seed)
+        got = prng.gumbel(key, (4, 1000), torch.bfloat16).float().numpy()
+        want = np.asarray(jax.random.gumbel(jkey, (4, 1000), jnp.bfloat16)
+                          .astype(jnp.float32))
+        ulp = 2.0 ** -7 * 2.0 ** np.floor(np.log2(np.maximum(np.abs(want),
+                                                             1)))
+        assert (np.abs(got - want) / ulp).max() <= 2, seed
+        tiny = float(torch.finfo(torch.float16).tiny)
+        u = prng.uniform(key, (4, 1000), torch.float16, tiny, 1.0)
+        g = prng.gumbel(key, (4, 1000), torch.float16).double().numpy()
+        exact = -np.log(-np.log(u.double().numpy()))
+        spacing = np.spacing(np.maximum(np.abs(exact), 1).astype(
+            np.float16)).astype(np.float64)
+        assert (np.abs(g - exact) / spacing).max() <= 2, seed
+        for tdtype, jdtype in ((torch.bfloat16, jnp.bfloat16),
+                               (torch.float16, jnp.float16)):
+            lt = torch.tensor(lg).to(tdtype)
+            lj = jnp.asarray(lt.float().numpy()).astype(jdtype)
+            np.testing.assert_array_equal(
+                prng.categorical(key, lt).numpy(),
+                np.asarray(jax.random.categorical(jkey, lj)))
 
 
 def test_categorical_and_bernoulli_match_jax():
@@ -190,9 +236,9 @@ def test_keys_cross_as_numpy_and_bad_keys_raise():
     with pytest.raises(OverflowError):
         prng.fold_in(key, -1)
     with pytest.raises(TypeError, match="float32 or float64"):
-        prng.uniform(key, (3,), torch.bfloat16)
+        prng.uniform(key, (3,), torch.int32)
     with pytest.raises(ValueError, match="bit_width"):
-        prng.random_bits(key, 16, (3,))
+        prng.random_bits(key, 12, (3,))
     with pytest.raises(ValueError, match="meta"):
         prng.categorical(key, torch.zeros(2, 5, device="meta"))
 

@@ -139,8 +139,6 @@ def test_remat_settings_give_the_same_grads(ref):
     with pytest.raises(ValueError, match="remat_policy"):
         tl.loss_fn(_port_cfg(jcfg, remat=True, remat_policy="nope"))(
             _live(tree), batch)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tl.loss_fn(_port_cfg(jcfg, moe_experts=2))
 
 
 def _ref_step(jcfg, jparams, jtx, **kw):
