@@ -304,6 +304,23 @@ host's cost of a call.
    ln 30522 + ln 2, the last below the first; samples/s, model TFLOP/s
    (``bench_bert``'s count) and peak GB. Launches from 0: none, as the
    reference's BERT runs no Pallas.
+16. telemetry: what the ``train`` and ``serve_engine`` phases left in
+   ``mxtpu_torch.telemetry``'s registry, read right after each (no model
+   of its own). The watched train step: ``program_flops{train_step}``,
+   counted on its first call (the flash forward and backward kernels'
+   own counts among them), equal to ``llama.train_step_flops`` within
+   1e-6 relative; the live ``mfu{program="train_step"}`` within 10 % of
+   those FLOPs over the phase's median step seconds at the card's peak;
+   one ``compile_events_total{fn="train_step"}`` over the steps; the
+   HBM ledger's total at or below ``torch.cuda.memory_allocated()`` and
+   its headroom gauge the card's total memory (``mem_get_info``) less
+   the ledger. The watched decode step: cataloged with bytes at or above
+   the ledger's params plus the peak live KV bytes; no
+   ``recompile_total`` over the stream; ``program_build_total`` over the
+   engine's life equal to its ``compile_count``. A ``RegistryServer`` in
+   this process scraped over loopback: ``parse_prometheus`` reads back
+   the registry's gauges. Printed: each program's MFU, MBU and roofline
+   class, and the host ms of the decode dispatch.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result when no
@@ -327,6 +344,8 @@ TRAIN_REL_BOUND = 5e-2     # flash vs dense loss and grads, 4 layers
 TRAIN_LAYERS = 4
 TRAIN_STEPS = 3
 TRAIN_LR = 3e-4
+FLOPS_REL_BOUND = 1e-6     # counted vs analytic train-step FLOPs
+MFU_REL_BOUND = 0.10       # live mfu gauge vs FLOPs / (median step x peak)
 STEM_REL_BOUND = 2e-2      # ||s2d - std|| / ||std||, ResNet-50 eval logits
 RESNET_BATCH = 256
 RESNET_STEPS = 3
@@ -374,9 +393,6 @@ RNG_SEEDS = (0, 42, 2 ** 31 - 1)
 RNG_SHAPES = ((7,), (3, 5, 11), (4, 128256))
 SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
 RNG_MASK_P = 0.9           # the keyed train loss keeps a target with p
-PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
-PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
-PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 SEED = 0
 
 # (name, b, hq, hkv, sq, skv, d, causal, strided)
@@ -403,10 +419,6 @@ RTC_SHAPES = [
     ("swiglu", "odd", (3, 7), 0),
     ("swiglu", "misaligned", (2, 4097), 1),
 ]
-# per element: bytes moved (inputs read once, output written once) and
-# f32 operations (scale_add: a multiply and an add; swiglu: negate, exp,
-# add, divide, multiply)
-RTC_COST = {"scale_add": (12, 2), "swiglu": (6, 5)}
 
 
 # (name, B, H, W, C, O)
@@ -448,50 +460,6 @@ def nvidia_smi():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def attention_bound_ms(b, hq, hkv, sq, skv, d, causal):
-    """(ms, 'operations' | 'bytes'): the least time for this call's work.
-    Operations: 2 matmuls x 2 flops over every visible (q, k) pair;
-    bytes: q, k, v read once and o written once, in bf16."""
-    flops = 4 * d * hq * b * visible_pairs(sq, skv, causal)
-    nbytes = 2 * d * b * (2 * hq * sq + 2 * hkv * skv)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
-def visible_pairs(sq, skv, causal):
-    """(q, k) pairs the mask lets through: causal is qpos >= kpos, both
-    counted from 0."""
-    if not causal:
-        return sq * skv
-    m = min(sq, skv)
-    return m * (m + 1) // 2 + max(sq - skv, 0) * skv
-
-
-def bwd_bound_ms(b, hq, hkv, sq, skv, d, causal, matmuls, reads, writes):
-    """(ms, 'operations' | 'bytes') for a backward function doing
-    ``matmuls`` products of 2*d flops over every visible (q, k) pair and
-    head, reading each tensor named in ``reads`` once and writing each in
-    ``writes`` once: q, o, do, dq (b, hq, sq, d) and k, v, dk, dv (b, hkv,
-    skv, d) in bf16; lse and delta (b, hq, sq) in f32."""
-    flops = 2 * matmuls * d * hq * b * visible_pairs(sq, skv, causal)
-    size = dict.fromkeys(("q", "o", "do", "dq"), 2 * d * b * hq * sq)
-    size.update(dict.fromkeys(("k", "v", "dk", "dv"), 2 * d * b * hkv * skv))
-    size.update(dict.fromkeys(("lse", "delta"), 4 * b * hq * sq))
-    nbytes = sum(size[n] for n in reads + writes)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
-# The backward functions timed in kernel_bwd: (products, reads, writes)
-BWD_WORK = {
-    "dkv": (4, ("q", "k", "v", "do", "lse", "delta"), ("dk", "dv")),
-    "dq": (3, ("q", "k", "v", "do", "o", "lse"), ("dq", "delta")),
-    "pair": (5, ("q", "k", "v", "do", "o", "lse"), ("dq", "dk", "dv")),
-}
 
 
 def sdpa_call(q, k, v, causal, scale):
@@ -541,8 +509,8 @@ def kernel_phase():
                "max_abs_err": err, "tol": TOL, "lse_max_abs_err": lse_err,
                "lse_tol": LSE_TOL, "ok": ok}
         if name in ("llama3_8b", "ragged"):
-            bound, bound_by = attention_bound_ms(b, hq, hkv, sq, skv, d,
-                                                 causal)
+            bound, bound_by = A.attention_bound_ms(b, hq, hkv, sq, skv, d,
+                                                   causal)
             row.update(
                 kernel_ms=time_ms(lambda: A.flash_attention(
                     q, k, v, causal=causal), reps=50),
@@ -554,7 +522,8 @@ def kernel_phase():
                     q, k, v, causal=causal), reps=3, warmup=1),
                 bound_ms=bound, bound_by=bound_by)
             row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
-            row["tflops"] = (4 * d * hq * b * visible_pairs(sq, skv, causal)
+            row["tflops"] = (A.attention_cost(b, hq, hkv, sq, skv, d,
+                                              causal)[0]
                              / row["kernel_ms"] / 1e9)
         emit(row)
         if not (ok and math.isfinite(err) and math.isfinite(lse_err)):
@@ -628,12 +597,12 @@ def bwd_times(q, k, v, o, lse, do, causal):
                                                causal=causal),
         "pair": lambda: A.flash_attention_bwd(q, k, v, o, lse, do,
                                               causal=causal)}
-    pairs = visible_pairs(sq, skv, causal)
+    pairs = A.visible_pairs(sq, skv, causal)
     out = {}
     for name, fn in calls.items():
-        matmuls, reads, writes = BWD_WORK[name]
-        bound, bound_by = bwd_bound_ms(b, hq, hkv, sq, skv, d, causal,
-                                       matmuls, reads, writes)
+        matmuls, reads, writes = A.BWD_WORK[name]
+        bound, bound_by = A.bwd_bound_ms(b, hq, hkv, sq, skv, d, causal,
+                                         matmuls, reads, writes)
         ms = median_ms(fn, reps=20)
         out.update({f"{name}_ms": ms, f"{name}_bound_ms": bound,
                     f"{name}_bound_by": bound_by,
@@ -1097,17 +1066,20 @@ def decision_values(cfg, params, req, toks, j):
     return val
 
 
-def dense_serve_run(cfg, params, reqs):
+def dense_serve_run(cfg, params, reqs, readings=None):
     """``reqs`` through the dense engine (SERVE_SLOTS slots, max_len
     SERVE_MAX_LEN, buckets from SERVE_PROMPTS[0]), every bucket warmed
     first, with the launch counts set to 0 just before the timed run and
     read just after it; then the same requests through a second engine,
     synchronous and submitted in reverse. Returns (its numbers, whether
-    every stream of the two runs is bit-equal among them, the streams)."""
+    every stream of the two runs is bit-equal among them, the streams).
+    With ``readings``, the telemetry of the timed engine is kept in
+    READINGS under that name."""
     import torch
     from mxtpu_torch import telemetry
     from mxtpu_torch.serve import Request, ServeEngine
     n_tok = sum(r.max_new_tokens for r in reqs)
+    builds = telemetry_value("program_build_total")
     engine = ServeEngine(cfg, params, max_slots=SERVE_SLOTS,
                          max_len=SERVE_MAX_LEN,
                          min_bucket=SERVE_PROMPTS[0], device="cuda")
@@ -1119,6 +1091,7 @@ def dense_serve_run(cfg, params, reqs):
     engine.reset_stats()
     dispatch = telemetry.registry().get("span_serve_decode_dispatch_ms")
     before = dispatch.snapshot()
+    rebuilt = telemetry_value("recompile_total", fn="serve_decode")
     peak_occ = [0.0]
 
     def watch_occupancy(rid, tok):
@@ -1152,6 +1125,9 @@ def dense_serve_run(cfg, params, reqs):
            / 1e9, "peak_kv_occupancy": peak_occ[0],
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": launches}
+    if readings:
+        READINGS[readings] = decode_readings(engine, builds, rebuilt,
+                                             peak_occ[0], row)
     del engine
     torch.cuda.empty_cache()
     sync = ServeEngine(cfg, params, max_slots=SERVE_SLOTS,
@@ -1198,7 +1174,8 @@ def serve_engine_phase(cfg, params):
     import torch
     reqs = serve_requests(cfg)
     n_tok = sum(r.max_new_tokens for r in reqs)
-    row, invariant, first = dense_serve_run(cfg, params, reqs)
+    row, invariant, first = dense_serve_run(cfg, params, reqs,
+                                            readings="serve_decode")
 
     # the bf16 streams beside batch-1 generate: agreement only, printed
     agree = {}
@@ -1457,6 +1434,7 @@ def paged_attention_phase():
     from mxtpu_torch.ops.attention import (gather_pages,
                                            paged_decode_attention,
                                            slot_decode_attention)
+    from mxtpu_torch.telemetry import perfscope
     from mxtpu_torch.tools.timing import graphed, time_ms
     reset_launches()
     S, hq, hkv, hd, L, alias = SERVE_SLOTS, 32, 8, 128, SERVE_MAX_LEN, 256
@@ -1500,7 +1478,7 @@ def paged_attention_phase():
                 q1, pool["k"], pool["v"], table, lengths)), 10)
             row["slot_ms"] = time_ms(graphed(
                 lambda: slot_decode_attention(q1, k, v, lengths)), 10)
-            row["live_kv_bound_ms"] = live_bytes / PEAK_HBM_BYTES * 1e3
+            row["live_kv_bound_ms"] = perfscope.bound_ms(0, live_bytes)[0]
             rows.append(row)
         pool, table = pools[64]
         codes, scales = llama._q8_token(pool["k"])
@@ -1961,6 +1939,128 @@ def rel_dist(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
+# what the train and serve_engine phases read from the telemetry
+# registry right after their runs, for the telemetry phase
+READINGS = {}
+
+
+def telemetry_value(name, **labels):
+    from mxtpu_torch import telemetry
+    return telemetry.registry().value(name, **labels)
+
+
+def program_row(name):
+    """A cataloged program's counted cost and live gauges."""
+    from mxtpu_torch.telemetry import perfscope
+    cost = perfscope.catalog()[name]
+    return {"program": name, "flops": cost.flops,
+            "bytes_accessed": cost.bytes_accessed,
+            "intensity": cost.intensity, "roofline": cost.klass,
+            "knee": cost.spec.knee,
+            "peak_hbm_gb": (cost.peak_hbm_bytes or 0) / 1e9,
+            "mfu": telemetry_value("mfu", program=name),
+            "hbm_bw_util": telemetry_value("hbm_bw_util", program=name)}
+
+
+def ledger_readings():
+    """The HBM ledger against the card: its total and breakdown, the
+    allocator's bytes, and the headroom gauge against mem_get_info."""
+    import gc
+    import torch
+    from mxtpu_torch.telemetry import perfscope
+    gc.collect()               # engines gone by now release their entries
+    led = perfscope.ledger()
+    total = led.total()
+    return {"ledger": led.breakdown(), "ledger_total": total,
+            "memory_allocated": torch.cuda.memory_allocated(),
+            "headroom": telemetry_value("hbm_headroom_bytes"),
+            "mem_total": torch.cuda.mem_get_info()[1]}
+
+
+def train_readings(cfg, tokens, seconds, builds):
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.telemetry import perfscope
+    row = program_row("train_step")
+    median = sorted(seconds)[len(seconds) // 2]
+    analytic = llama.train_step_flops(cfg, *tokens.shape)
+    row.update(analytic_flops=analytic,
+               flops_rel=abs(row["flops"] - analytic) / analytic,
+               median_step_s=median,
+               mfu_of_median_step=perfscope.mfu(row["flops"], median),
+               compile_events=telemetry_value(
+                   "compile_events_total", fn="train_step") - builds,
+               **ledger_readings())
+    return row
+
+
+def decode_readings(engine, builds, rebuilt, peak_occ, serve_row):
+    row = program_row("serve_decode")
+    stats = engine.kv_cache_stats()
+    ledger = ledger_readings()
+    row.update(ledger, params_bytes=ledger["ledger"]["params"],
+               peak_live_kv_bytes=peak_occ * stats["reserved_bytes"],
+               recompiles=telemetry_value("recompile_total",
+                                          fn="serve_decode") - rebuilt,
+               program_builds=telemetry_value("program_build_total")
+               - builds, compile_count=engine.compile_count,
+               decode_dispatch_host_ms=serve_row["decode_dispatch_host_ms"])
+    return row
+
+
+def telemetry_phase():
+    """Check and print what the train and serve_engine phases read from
+    the registry, and scrape this process's registry over loopback."""
+    from mxtpu_torch import telemetry
+    from mxtpu_torch.telemetry import distributed as dist
+    train, decode = READINGS["train"], READINGS["serve_decode"]
+    srv = telemetry.RegistryServer(port=0, process="chip_smoke", secret=b"")
+    try:
+        proc, _ = dist.scrape_peer("127.0.0.1", srv.port, secret=b"")
+        text = dist.federate_text(telemetry.MetricsRegistry(),
+                                  [("127.0.0.1", srv.port)],
+                                  process="reader", secret=b"")
+    finally:
+        srv.close()
+    samples = telemetry.parse_prometheus(text)["samples"]
+    gauges = {}
+    for name, program in (("mfu", "train_step"), ("mfu", "serve_decode"),
+                          ("hbm_bw_util", "serve_decode"),
+                          ("program_flops", "train_step")):
+        key = (f"mxtpu_{name}", (("process", "chip_smoke"),
+                                 ("program", program)))
+        gauges[f"{name}{{{program}}}"] = (samples.get(key), telemetry_value(
+            name, program=program))
+    programs = [program_row(name) for name in
+                sorted(telemetry.perfscope.catalog())]
+    emit({"phase": "telemetry", "train_step": train, "serve_decode": decode,
+          "programs": programs, "scraped_process": proc,
+          "scraped_gauges": gauges})
+    failed = []
+    if not train["flops_rel"] <= FLOPS_REL_BOUND:
+        failed.append(f"train_step FLOPs {train['flops']} against the "
+                      f"analytic {train['analytic_flops']}")
+    if not abs(train["mfu"] / train["mfu_of_median_step"] - 1) \
+            <= MFU_REL_BOUND:
+        failed.append(f"live mfu {train['mfu']} against "
+                      f"{train['mfu_of_median_step']} of the median step")
+    if train["compile_events"] != 1:
+        failed.append(f"{train['compile_events']} train_step builds")
+    for r in (train, decode):
+        if not (r["ledger_total"] <= r["memory_allocated"]
+                and r["headroom"] == r["mem_total"] - r["ledger_total"]):
+            failed.append(f"the ledger {r['ledger']} against the card")
+    if not decode["bytes_accessed"] >= decode["params_bytes"] \
+            + decode["peak_live_kv_bytes"]:
+        failed.append(f"serve_decode bytes {decode['bytes_accessed']}")
+    if decode["recompiles"] or \
+            decode["program_builds"] != decode["compile_count"]:
+        failed.append(f"serve_decode rebuilt: {decode}")
+    if proc != "chip_smoke" or any(a != b for a, b in gauges.values()):
+        failed.append(f"the scrape read back {gauges}")
+    if failed:
+        raise AssertionError("telemetry: " + "; ".join(failed))
+
+
 def train_phase():
     """Full-width llama3_8b at TRAIN_LAYERS layers: flash vs dense grads,
     then TRAIN_STEPS adamw steps through make_train_step."""
@@ -2014,6 +2114,7 @@ def train_phase():
     state = pstep.init_state(params, tx)
     del params
     step = pstep.make_train_step(llama.loss_fn(cfg), tx)
+    builds = telemetry_value("compile_events_total", fn="train_step")
     torch.cuda.reset_peak_memory_stats()
     losses, seconds, launches = [], [], []
     for _ in range(TRAIN_STEPS):
@@ -2026,6 +2127,7 @@ def train_phase():
         launches.append(read_launches())
         losses.append(loss.item())
     ntok = tokens.numel()
+    READINGS["train"] = train_readings(cfg, tokens, seconds, builds)
     final = pstep.make_eval_step(llama.loss_fn(cfg))(state.params,
                                                      batch).item()
     emit({"phase": "train", "steps": TRAIN_STEPS, "lr": TRAIN_LR,
@@ -2155,7 +2257,7 @@ def kernel_conv_phase():
         y = conv.conv3x3(x, w)
         again = conv.conv3x3(x, w)
         torch.cuda.synchronize()
-        bound, bound_by = exp.conv_bound_ms(*shape)
+        bound, bound_by = conv.conv_bound_ms(*shape)
         plan = conv._conv_plan(*shape)
         row = {"phase": "kernel_conv", "shape": name, "bhwco": shape,
                "bn": plan.bn, "split": plan.split,
@@ -2167,7 +2269,7 @@ def kernel_conv_phase():
                 x, w, y, conv._launch(x, w, plan._replace(split=1)))
             row["ok"] = row["ok"] and row["split_vs_unsplit"] <= 1
         if row["ok"] and (name, *shape) in CONV_SHAPES:
-            flops = exp.conv_flops(*shape)
+            flops = conv.conv_flops(*shape)
             row.update(
                 kernel_ms=median_ms(lambda: conv.conv3x3(x, w), reps=20),
                 library_ms=median_ms(exp.cudnn_conv3x3(x, w), reps=20),
@@ -2314,14 +2416,6 @@ def experiment_probe2_phase():
     return launches
 
 
-def rtc_bound_ms(kernel, n):
-    """(ms, 'bytes' | 'operations'): the least time for ``n`` elements
-    of an rtc kernel, by RTC_COST."""
-    per_byte, per_op = RTC_COST[kernel]
-    t_bytes, t_ops = per_byte * n / PEAK_HBM_BYTES, per_op * n / PEAK_F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
 def rtc_inputs(gen, kernel, shape, offset):
     """Two seeded inputs of ``shape`` as NDArrays over views that start
     ``offset`` elements into their storage (f32 for scale_add, bf16 with
@@ -2371,7 +2465,7 @@ def kernel_rtc_phase():
                "tol": "exact" if kernel == "scale_add" else RTC_TOL,
                "ok": ok}
         if name in ("main", "llama3_8b_ffn"):
-            bound, bound_by = rtc_bound_ms(kernel, math.prod(shape))
+            bound, bound_by = rk.rtc_bound_ms(kernel, math.prod(shape))
             x, y = a._data, b._data
             launch = functools.partial(kerns[kernel].launch, a, b,
                                        grid=blocks)
@@ -3069,6 +3163,7 @@ def mixtral_train_phase():
     state = pstep.init_state(params, tx)
     del params
     step = pstep.make_train_step(llama.loss_fn(cfg), tx)
+    builds = telemetry_value("compile_events_total", fn="train_step")
     torch.cuda.reset_peak_memory_stats()
     losses, seconds, launches = [], [], []
     for _ in range(TRAIN_STEPS):
@@ -3329,6 +3424,7 @@ def main():
     torch.cuda.empty_cache()
     mixtral_launches = mixtral_phase()
     bert_launches = bert_phase()
+    telemetry_phase()
     launches = {k: fwd_launches[k] + train_launches[k] + resnet_launches[k]
                 + probe_launches[k] + frontend_launches[k]
                 + random_launches[k] + serde_launches[k]

@@ -67,7 +67,8 @@ __all__ = ["LlamaConfig", "CONFIGS", "init_params", "rms_norm",
            "inject_slot_kv", "paged_cache_specs", "init_paged_cache",
            "decode_slots_paged", "prefill_slot_paged", "inject_paged_kv",
            "copy_page", "decode_slots_spec",
-           "chunked_softmax_xent", "loss_fn", "params_from_numpy",
+           "chunked_softmax_xent", "loss_fn", "train_step_flops",
+           "params_from_numpy",
            "params_to_numpy", "Llama"]
 
 
@@ -509,6 +510,46 @@ def loss_fn(cfg: LlamaConfig, mesh=None):
             ce = ce + cfg.moe_aux_weight * moe_aux
         return ce
     return loss
+
+
+def train_step_flops(cfg: LlamaConfig, batch: int, seq: int) -> int:
+    """The FLOPs one ``make_train_step(loss_fn(cfg), ...)`` step does on
+    (batch, seq) tokens, counted as perfscope counts them: every weight
+    product 2·m·k·n forward and twice that backward (dX and dW), once
+    more forward in each layer's recomputation under ``remat`` but for
+    the FFN's down projection (non-reentrant checkpointing stops
+    recomputing once it holds every tensor the backward saved, and
+    nothing saves that last product's output), none under
+    ``remat_policy="dots_no_batch"`` (which saves the weight products'
+    outputs); the attention kernels' own counts
+    (:func:`~mxtpu_torch.ops.attention.attention_cost` for each forward,
+    the recomputed one included, and the dQ and dK/dV kernels'
+    :func:`~mxtpu_torch.ops.attention.bwd_cost` each backward); the
+    logits head over the seq - 1 predicted positions, forward and
+    backward, and with the chunked loss (:func:`chunked_softmax_xent`)
+    the backward's recomputed logits too. Norms, RoPE, the loss's
+    softmax and the optimizer are elementwise: 0 FLOPs. Dense configs
+    with ``attn_impl="flash"``."""
+    from ..ops.attention import BWD_WORK, attention_cost, bwd_cost
+    if cfg.moe_experts or cfg.attn_impl != "flash":
+        raise NotImplementedError("train_step_flops counts dense configs "
+                                  "with flash attention")
+    hd, L = cfg.head_dim, cfg.n_layers
+    per_token = (2 * cfg.dim * cfg.n_heads * hd
+                 + 2 * cfg.dim * cfg.n_kv_heads * hd
+                 + 3 * cfg.dim * cfg.hidden_dim)
+    products = 2 * batch * seq * per_token
+    dims = (batch, cfg.n_heads, cfg.n_kv_heads, seq, seq, hd, True)
+    attn_fwd = attention_cost(*dims)[0]
+    attn_bwd = sum(bwd_cost(*dims, *BWD_WORK[k])[0] for k in ("dq", "dkv"))
+    layers = L * (3 * products + attn_fwd + attn_bwd)
+    if cfg.remat:
+        layers += L * attn_fwd
+        if cfg.remat_policy is None:
+            layers += L * (products - 2 * batch * seq * cfg.hidden_dim
+                           * cfg.dim)
+    head = 2 * batch * (seq - 1) * cfg.dim * cfg.vocab_size
+    return layers + head * (4 if _resolve_ce_chunk(cfg) else 3)
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,14 @@ and then the dK/dV kernel of ``csrc/flash_attn_bwd.cu`` through
 :func:`flash_attention_bwd`; their plain version is
 :func:`flash_attention_bwd_plain`. There is no fallback from a kernel to
 a plain version, by shape or by exception.
+
+Each kernel's work is counted here, beside it: :func:`attention_cost`
+and :func:`bwd_cost` give the ``(flops, bytes)`` of a forward call and
+of each backward kernel (:data:`BWD_WORK`), and the wrappers report
+them to an active perfscope count (``telemetry.perfscope.reported``),
+as the plain version does when it runs on a CPU tensor, so a program
+counts the same whichever ran; :func:`attention_bound_ms` and
+:func:`bwd_bound_ms` turn them into the least time on the card.
 :func:`slot_decode_attention` and :func:`paged_decode_attention`, the
 serving engine's length-masked attention over the slot bank and the
 page pool, are plain PyTorch, as ``mxtpu``'s are plain ``jnp``; they
@@ -28,11 +36,15 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..telemetry import perfscope
+
 __all__ = ["dense_attention", "blockwise_attention", "flash_attention",
            "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
            "flash_attention_bwd_plain", "slot_decode_attention",
-           "paged_decode_attention", "gather_pages"]
+           "paged_decode_attention", "gather_pages", "visible_pairs",
+           "attention_cost", "bwd_cost", "BWD_WORK", "attention_bound_ms",
+           "bwd_bound_ms"]
 
 _NEG_INF = -1e30  # finite "minus infinity": keeps fully-masked rows NaN-free
 _KERNEL_HEAD_DIMS = (64, 128)
@@ -335,6 +347,82 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = False,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# ---------------------------------------------------------------------------
+# the kernels' work: what they report to a perfscope count, and their bounds
+# ---------------------------------------------------------------------------
+def visible_pairs(sq: int, skv: int, causal: bool) -> int:
+    """(q, k) pairs the mask lets through: causal is qpos >= kpos, both
+    counted from 0."""
+    if not causal:
+        return sq * skv
+    m = min(sq, skv)
+    return m * (m + 1) // 2 + max(sq - skv, 0) * skv
+
+
+def attention_cost(b, hq, hkv, sq, skv, d, causal, lse: bool = False):
+    """(flops, bytes) of one forward call: 2 products x 2 flops over
+    every visible (q, k) pair and head; q, k, v read once and o written
+    once in bf16, and with ``lse`` the f32 row logsumexp written too."""
+    flops = 4 * d * hq * b * visible_pairs(sq, skv, causal)
+    nbytes = 2 * d * b * (2 * hq * sq + 2 * hkv * skv)
+    return flops, nbytes + (4 * b * hq * sq if lse else 0)
+
+
+# The backward functions: (products, tensors read, tensors written). The
+# dQ kernel recomputes S, then dP and dQ (and writes D = rowsum(dO o));
+# the dK/dV kernel recomputes S and dP, then dV and dK; "pair" is the
+# least work of the two together.
+BWD_WORK = {
+    "dkv": (4, ("q", "k", "v", "do", "lse", "delta"), ("dk", "dv")),
+    "dq": (3, ("q", "k", "v", "do", "o", "lse"), ("dq", "delta")),
+    "pair": (5, ("q", "k", "v", "do", "o", "lse"), ("dq", "dk", "dv")),
+}
+
+
+def bwd_cost(b, hq, hkv, sq, skv, d, causal, matmuls, reads, writes):
+    """(flops, bytes) of a backward function doing ``matmuls`` products
+    of 2*d flops over every visible (q, k) pair and head, reading each
+    tensor named in ``reads`` once and writing each in ``writes`` once:
+    q, o, do, dq (b, hq, sq, d) and k, v, dk, dv (b, hkv, skv, d) in
+    bf16; lse and delta (b, hq, sq) in f32."""
+    flops = 2 * matmuls * d * hq * b * visible_pairs(sq, skv, causal)
+    size = dict.fromkeys(("q", "o", "do", "dq"), 2 * d * b * hq * sq)
+    size.update(dict.fromkeys(("k", "v", "dk", "dv"), 2 * d * b * hkv * skv))
+    size.update(dict.fromkeys(("lse", "delta"), 4 * b * hq * sq))
+    return flops, sum(size[n] for n in reads + writes)
+
+
+def attention_bound_ms(b, hq, hkv, sq, skv, d, causal, spec=None):
+    """(ms, 'operations' | 'bytes'): the least time for one forward call
+    (:func:`attention_cost` without the lse) on the H100, or on
+    ``spec``'s device."""
+    return perfscope.bound_ms(
+        *attention_cost(b, hq, hkv, sq, skv, d, causal),
+        spec or perfscope.spec_for("h100"))
+
+
+def bwd_bound_ms(b, hq, hkv, sq, skv, d, causal, matmuls, reads, writes,
+                 spec=None):
+    """(ms, 'operations' | 'bytes'): the least time for a backward
+    function (:func:`bwd_cost`) on the H100, or on ``spec``'s device."""
+    return perfscope.bound_ms(
+        *bwd_cost(b, hq, hkv, sq, skv, d, causal, matmuls, reads, writes),
+        spec or perfscope.spec_for("h100"))
+
+
+def _dims(q, k):
+    """(b, hq, hkv, sq, skv, d) of a call."""
+    b, hq, sq, d = q.shape
+    return b, hq, k.shape[1], sq, k.shape[2], d
+
+
+def _bwd_pair_cost(dims, causal):
+    """What the dQ and dK/dV kernels report together."""
+    dq = bwd_cost(*dims, causal, *BWD_WORK["dq"])
+    dkv = bwd_cost(*dims, causal, *BWD_WORK["dkv"])
+    return dq[0] + dkv[0], dq[1] + dkv[1]
+
+
 def _readable(t):
     """Whether the kernels' tensor maps take ``t`` as it lies: a unit
     last-dim stride, the other strides nonzero multiples of 8 (a size-1
@@ -397,6 +485,15 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
     else. Autograd does not see through this call: under grad,
     :func:`flash_attention` wraps it in :class:`_FlashAttention`."""
     _check_kernel_args(q, k, v)
+    return perfscope.reported(
+        lambda: attention_cost(*_dims(q, k), causal, lse=return_lse),
+        _fwd_launch, q, k, v, causal, scale, return_lse)
+
+
+flash_attention_fwd.launches = 0
+
+
+def _fwd_launch(q, k, v, causal, scale, return_lse):
     from ._build import check, load_kernels
     lib = load_kernels()
     b, hq, sq, d = q.shape
@@ -415,9 +512,6 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
     check(err, "flash_attention_fwd launch")
     flash_attention_fwd.launches += 1
     return (o, lse) if return_lse else o
-
-
-flash_attention_fwd.launches = 0
 
 
 def _check_bwd_args(who, q, k, v, do, lse):
@@ -465,6 +559,15 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *,
     who = "flash_attention_bwd_dkv"
     _check_bwd_args(who, q, k, v, do, lse)
     _check_rows(who, "delta", delta, q)
+    return perfscope.reported(
+        lambda: bwd_cost(*_dims(q, k), causal, *BWD_WORK["dkv"]),
+        _dkv_launch, q, k, v, do, lse, delta, causal, scale)
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def _dkv_launch(q, k, v, do, lse, delta, causal, scale):
     from ._build import check, load_kernels
     lib = load_kernels()
     dk = torch.empty(tuple(k.shape), dtype=k.dtype, device=q.device)
@@ -477,9 +580,6 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *,
     check(err, "flash_attention_bwd_dkv launch")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
-
-
-flash_attention_bwd_dkv.launches = 0
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, o, *,
@@ -497,6 +597,15 @@ def flash_attention_bwd_dq(q, k, v, do, lse, o, *,
         raise ValueError(f"o {tuple(o.shape)} must match q "
                          f"{tuple(q.shape)}")
     _check_layout(who, "o", o, q.device)
+    return perfscope.reported(
+        lambda: bwd_cost(*_dims(q, k), causal, *BWD_WORK["dq"]),
+        _dq_launch, q, k, v, do, lse, o, causal, scale)
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def _dq_launch(q, k, v, do, lse, o, causal, scale):
     from ._build import check, load_kernels
     lib = load_kernels()
     dq = torch.empty(tuple(q.shape), dtype=q.dtype, device=q.device)
@@ -510,9 +619,6 @@ def flash_attention_bwd_dq(q, k, v, do, lse, o, *,
     check(err, "flash_attention_bwd_dq launch")
     flash_attention_bwd_dq.launches += 1
     return dq, delta
-
-
-flash_attention_bwd_dq.launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
@@ -549,6 +655,13 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        # the two kernels report their own work; the copy of a dO they
+        # cannot read is part of it, as the plain version has none
+        return perfscope.reported(lambda: (0, 0), _FlashAttention._grads,
+                                  ctx, do)
+
+    @staticmethod
+    def _grads(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         # The kernels read dO through its strides; autograd may hand over
         # a grad they cannot take (an expanded one has stride 0), which
@@ -560,6 +673,39 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+class _CountedPlainAttention(torch.autograd.Function):
+    """The plain version on a CPU tensor under grad while a perfscope
+    count is active: the forward is :func:`blockwise_attention`, counted
+    as the forward kernel (which writes the lse for training), and the
+    backward recomputes it on the saved q, k, v and differentiates it
+    with autograd, counted as the dQ and dK/dV kernels. The same ops as
+    autograd through :func:`blockwise_attention`, so the same grads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, kv_block):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale, ctx.kv_block = causal, scale, kv_block
+        return perfscope.reported(
+            lambda: attention_cost(*_dims(q, k), causal, lse=True),
+            blockwise_attention, q, k, v, causal=causal, scale=scale,
+            kv_block=kv_block)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+
+        def grads():
+            with torch.enable_grad():
+                qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+                o = blockwise_attention(qd, kd, vd, causal=ctx.causal,
+                                        scale=ctx.scale,
+                                        kv_block=ctx.kv_block)
+                return torch.autograd.grad(o, (qd, kd, vd), do)
+        dq, dk, dv = perfscope.reported(
+            lambda: _bwd_pair_cost(_dims(q, k), ctx.causal), grads)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = False,
                     scale: Optional[float] = None,
                     kv_block: int = 512):
@@ -567,15 +713,23 @@ def flash_attention(q, k, v, *, causal: bool = False,
     (the forward, and under grad the backward too, through
     :class:`_FlashAttention`); :func:`blockwise_attention` on a CPU
     tensor, which autograd differentiates. ``kv_block`` sizes the plain
-    version's blocks only."""
+    version's blocks only. Under a perfscope count the plain version
+    counts as the kernels do (:class:`_CountedPlainAttention` under
+    grad)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     if q.device.type == "cuda":
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (q, k, v)):
+        if grad:
             return _FlashAttention.apply(q, k, v, causal, scale)
         return flash_attention_fwd(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
-    return blockwise_attention(q, k, v, causal=causal, scale=scale,
-                               kv_block=kv_block)
+    if perfscope.active_count() is None:
+        return blockwise_attention(q, k, v, causal=causal, scale=scale,
+                                   kv_block=kv_block)
+    if grad:
+        return _CountedPlainAttention.apply(q, k, v, causal, scale, kv_block)
+    return perfscope.reported(
+        lambda: attention_cost(*_dims(q, k), causal), blockwise_attention,
+        q, k, v, causal=causal, scale=scale, kv_block=kv_block)

@@ -11,6 +11,11 @@ no fallback from the kernel to the plain version or to a library
 convolution, by shape or by exception. The Pallas kernel's
 ``images_per_cell`` is a TPU grid choice that changes no result, so the
 port's signature drops it; the kernel's own grid is :func:`_conv_plan`.
+
+The kernel's work is counted here, beside it (:func:`conv_flops`,
+:func:`conv_cost`, :func:`conv_bound_ms`): the kernel and the plain
+version both report it to an active perfscope count, so a program
+counts the same whichever ran.
 """
 from __future__ import annotations
 
@@ -20,7 +25,10 @@ from typing import Iterator, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["conv3x3", "conv3x3_plain", "conv3x3_kernel"]
+from ..telemetry import perfscope
+
+__all__ = ["conv3x3", "conv3x3_plain", "conv3x3_kernel", "conv_flops",
+           "conv_cost", "conv_bound_ms"]
 
 _BM = 128    # output pixels a CTA
 _BK = 64     # input channels of one tap a K stage
@@ -67,6 +75,32 @@ def _conv_plan(b, h, w, c, o) -> ConvPlan:
                 return ConvPlan(bn, split, m_tiles, -(-o // bn), chunks)
     bn = 64 if o <= 64 else 128
     return ConvPlan(bn, 1, m_tiles, -(-o // bn), chunks)
+
+
+def conv_flops(b, h, w, c, o):
+    """The flops one conv3x3 needs: 2·B·C·O per tap that lands inside
+    the image. Along an axis of n outputs the three taps land inside
+    3n − 2 times (the two edge outputs lose one each), so the zero halo
+    is not counted."""
+    return 2 * b * c * o * (3 * h - 2) * (3 * w - 2)
+
+
+def conv_cost(b, h, w, c, o):
+    """(flops, bytes) of one conv3x3: :func:`conv_flops`, and x and w
+    read once and y written once, in bf16."""
+    return conv_flops(b, h, w, c, o), \
+        2 * (b * h * w * c + 9 * c * o + b * h * w * o)
+
+
+def conv_bound_ms(b, h, w, c, o, spec=None):
+    """(ms, 'operations' | 'bytes'): the least time for one conv3x3
+    (:func:`conv_cost`) on the H100, or on ``spec``'s device."""
+    return perfscope.bound_ms(*conv_cost(b, h, w, c, o),
+                              spec or perfscope.spec_for("h100"))
+
+
+def _shape(x, w):
+    return (*x.shape, w.shape[-1])
 
 
 def _check_args(x, w):
@@ -123,6 +157,11 @@ def conv3x3_kernel(x, w):
 def _launch(x, w, plan: ConvPlan):
     """Launch the kernel on checked tensors with ``plan``
     (``tools.conv_plans`` times plans other than :func:`_conv_plan`'s)."""
+    return perfscope.reported(lambda: conv_cost(*_shape(x, w)),
+                              _launch_plan, x, w, plan)
+
+
+def _launch_plan(x, w, plan: ConvPlan):
     from ._build import check, load_kernels
     lib = load_kernels()
     b, h, wd, c = x.shape
@@ -152,4 +191,5 @@ def conv3x3(x, w):
         return conv3x3_kernel(x, w)
     if x.device.type != "cpu":
         raise ValueError(f"conv3x3 runs on cuda or cpu, not {x.device}")
-    return conv3x3_plain(x, w)
+    return perfscope.reported(lambda: conv_cost(*_shape(x, w)),
+                              conv3x3_plain, x, w)

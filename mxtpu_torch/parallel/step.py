@@ -12,9 +12,15 @@ One device only: a ``mesh`` or sharding rules that place anything
 raise; they come with the multi-device slice (ROADMAP Queue A item
 11). ``has_rng`` steps draw on :mod:`mxtpu_torch.prng`, the port of
 the ``jax.random`` key chain, so a loss that draws from its key sees
-the reference's numbers. The reference's
-telemetry around the step (``telemetry.watch`` and the dispatch span)
-waits for the telemetry port (Queue A item 8).
+the reference's numbers.
+
+Telemetry, as the reference's: ``init_state`` accounts the params, the
+optimizer state and the model state in perfscope's HBM ledger, and the
+step is a watched program (``train_step``, ``loop="train"``) whose
+variants are its argument signatures: the first call of a signature
+is its build, counted for the cost catalog as it runs. Every call
+feeds the live MFU/MBU/goodput gauges and the ``train.step_dispatch``
+span (``span_train_dispatch_ms``: the eager step's host time).
 """
 from __future__ import annotations
 
@@ -22,7 +28,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from .. import prng
+from .. import prng, telemetry
+from ..telemetry import perfscope, watcher
 from ._tree import tree_leaves, tree_map
 
 __all__ = ["TrainState", "init_state", "make_train_step", "make_eval_step"]
@@ -71,8 +78,17 @@ def init_state(params: Any, tx, mesh=None, rules=None,
     place, so the caller's tensors are never aliased) and build the
     optimizer state on their device."""
     _one_device(mesh, rules)
-    return TrainState.create(_detached_copy(params), tx,
-                             _detached_copy(model_state))
+    state = TrainState.create(_detached_copy(params), tx,
+                              _detached_copy(model_state))
+    # the HBM ledger: the training state's footprint (one trainer per
+    # process is the deployed shape, so fixed names last-write-win)
+    led = perfscope.ledger()
+    led.account_tree("params", state.params, name="train")
+    led.account_tree("optimizer", state.opt_state, name="train")
+    if state.model_state != ():
+        led.account_tree("workspace", state.model_state,
+                         name="train_model_state")
+    return state
 
 
 def _detach(tree):
@@ -176,7 +192,23 @@ def make_train_step(loss_fn: Callable[..., Any], tx, mesh=None, rules=None,
             return new, loss, aux, ~finite
         return new, loss, ~finite
 
-    return step
+    telemetry.install_compile_listener()
+    # watched: each new signature is counted as it runs (program_flops/
+    # bytes → roofline class) and every call feeds the live MFU/goodput
+    # gauges + step-anomaly detector. expected=None — one step fn may
+    # legally run over several shapes
+    watched = telemetry.watch(
+        watcher.Program(step, "train_step",
+                        key=lambda *a, **k: watcher.describe_args(a, k)),
+        "train_step", expected=None, loop="train")
+    dispatch_span = telemetry.span_factory("train.step_dispatch",
+                                           "train_dispatch")
+
+    def dispatch(state: TrainState, batch, rng=None):
+        with dispatch_span():
+            return watched(state, batch, rng)
+
+    return dispatch
 
 
 def make_eval_step(apply_fn: Callable, mesh=None):

@@ -29,7 +29,8 @@ and element type (``float`` float32, ``double`` float64, ``__half``
 float16, ``__nv_bfloat16`` bfloat16, ``int`` int32, ``long long``
 int64, ``short`` int16, ``int8_t`` int8, ``uint8_t`` uint8, ``bool``),
 and a mismatch raises :class:`MXNetError`. ``cuda_fp16.h`` and
-``cuda_bf16.h`` are included ahead of the source.
+``cuda_bf16.h`` are included ahead of the source. A launch reports 0
+FLOPs and its operand and result bytes to an active perfscope count.
 
 The module compiles with ``nvcc`` for ``sm_90a`` at the first launch on
 a CUDA tensor (``ops/_build.py``, into ``build/mxtpu_torch_rtc/``), so
@@ -56,6 +57,7 @@ from .base import (MXNetError, dtype_name, dtype_torch, integer_types,
                    numeric_types)
 from .ndarray import NDArray
 from .ndarray.ndarray import _parents_of, apply_op
+from .telemetry import perfscope
 
 __all__ = ["CudaModule", "CudaKernel", "torch_kernel", "launches"]
 
@@ -336,7 +338,14 @@ class CudaKernel:
             if n:
                 self._launch(vals + [out, n], grd, blk, shared_mem, dev)
             return out
-        return apply_op(run, arrays, f"rtc[{self.name}]")
+
+        def cost():
+            # a user's kernel: no products to count, its operand and
+            # result bytes
+            return 0, sum(a.size * a.dtype.itemsize
+                          for a in arrays) + n * dtype.itemsize
+        return apply_op(lambda *t: perfscope.reported(cost, run, *t),
+                        arrays, f"rtc[{self.name}]")
 
     def _launch(self, vals, grid, block, shared_mem, dev) -> None:
         lib = self.module._load()

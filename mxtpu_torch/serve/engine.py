@@ -56,11 +56,14 @@ Mesh serving (ROADMAP Queue A item 11) raises until its slice.
 """
 from __future__ import annotations
 
+import contextlib
 import heapq
 import itertools
 import threading
 import time
+import weakref
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
@@ -70,7 +73,7 @@ from .. import prng, telemetry
 from ..base import env_int, env_str
 from ..context import DeviceLike, resolve_device
 from ..models import llama
-from ..telemetry import distributed as dtrace
+from ..telemetry import distributed as dtrace, perfscope, watcher
 
 __all__ = ["Request", "KVHandoff", "ServeEngine", "bucket_for",
            "resume_key", "cancel_counter", "PageAllocator", "PrefixCache",
@@ -486,18 +489,31 @@ class _DecodeGraph:
     calls (``capture_error_mode="thread_local"``), so another engine's
     readback, prefill or allocation on another thread cannot break it.
     A capture that fails (a host sync inside the step) raises: there is
-    no eager fallback."""
+    no eager fallback.
+
+    It is a watchable program (``telemetry.watch``): ``_cache_size()``
+    is its captures on the card and, on the CPU, 1 once it has stepped.
+    Building it (the capture, or the CPU's first step) runs inside
+    ``watcher.build(name)``; the step a watcher counts is the last eager
+    warm-up before the capture (the CPU's first step), never one inside
+    ``torch.cuda.graph`` and never a replay."""
 
     def __init__(self, cfg, params, kv, sv, program=llama.decode_slots,
-                 rope_len: Optional[int] = None):
+                 rope_len: Optional[int] = None, name: str = "serve_decode"):
         self.cfg, self.params, self.kv, self.sv = cfg, params, kv, sv
         self.program = program
+        self.name = name
         self.device = kv["k"].device
         self._rope = llama.rope_tables(cfg, rope_len or kv["k"].shape[3],
                                        device=self.device)
         self.steps = 0
         self.captures = 0
         self._graph = None
+
+    def _cache_size(self) -> int:
+        if self.device.type == "cuda":
+            return self.captures
+        return int(self.steps > 0)
 
     def _step(self, *knobs):
         with torch.no_grad():
@@ -508,8 +524,12 @@ class _DecodeGraph:
     def __call__(self, *knobs):
         self.steps += 1
         if self.device.type != "cuda":
-            out = self._step(*(torch.from_numpy(np.array(k))
-                               for k in knobs))
+            knobs = [torch.from_numpy(np.array(k)) for k in knobs]
+            if self.steps > 1:
+                out = self._step(*knobs)
+            else:
+                with watcher.build(self.name), watcher.counted():
+                    out = self._step(*knobs)
         else:
             if self._graph is None:
                 self._capture(knobs)
@@ -547,10 +567,12 @@ class _DecodeGraph:
         saved = {n: t.clone() for n, t in self.sv.items()}
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
-        with _CAPTURE_LOCK:
+        with _CAPTURE_LOCK, watcher.build(self.name):
             side.wait_stream(main)
             with torch.cuda.stream(side):
-                for _ in range(_WARMUP_STEPS):
+                for _ in range(_WARMUP_STEPS - 1):
+                    self._step(*self._static)
+                with watcher.counted(self.device):
                     self._step(*self._static)
             main.wait_stream(side)
             for n, t in saved.items():
@@ -560,6 +582,11 @@ class _DecodeGraph:
                 self._out = self._step(*self._static)
         self._graph = graph
         self.captures += 1
+
+
+def _release_ledger(led, pool: str, name: str) -> None:
+    led.release("params", name=name)
+    led.release(pool, name=name)
 
 
 def _tensor_leaves(tree):
@@ -697,15 +724,23 @@ class ServeEngine:
         # the decode program (and in speculative mode the verify step
         # beside it, on the same pool), and the admission buckets seen so
         # far (each runs eagerly: one program per bucket)
+        # watch(): ONE decode program ever — a second capture is the
+        # spurious-rebuild anomaly (recompile_total + offending key)
+        telemetry.install_compile_listener()
         self._spec_decode = None
         if self.paged:
             cap = self._pages_per_slot * self.page_size
-            self._decode = _DecodeGraph(cfg, params, self._kv, self._sv,
-                                        llama.decode_slots_paged, cap)
+            self._decode = telemetry.watch(
+                _DecodeGraph(cfg, params, self._kv, self._sv,
+                             llama.decode_slots_paged, cap),
+                "serve_decode", expected=1, loop="serve")
             if self.speculate_k:
-                self._spec_decode = _DecodeGraph(
-                    cfg, params, self._kv, self._sv,
-                    llama.decode_slots_spec, cap)
+                # the one extra watched program speculative mode adds
+                self._spec_decode = telemetry.watch(
+                    _DecodeGraph(cfg, params, self._kv, self._sv,
+                                 llama.decode_slots_spec, cap,
+                                 name="serve_spec_verify"),
+                    "serve_spec_verify", expected=1, loop="serve")
             # the host page table (a small int32 operand of each step),
             # the refcounted allocator and the prefix cache
             self._pt = np.zeros((self.max_slots, self._pages_per_slot),
@@ -713,14 +748,21 @@ class ServeEngine:
             self._pages = PageAllocator(self.n_pages)
             self._prefix = (PrefixCache(self._pages)
                             if self.prefix_cache_enabled else None)
+            # the copy-on-write fork and registration copy: ONE program
+            # (src and dst are arguments), this engine's own
+            self._copy_fn = telemetry.watch(
+                watcher.Program(partial(llama.copy_page, self._kv),
+                                "serve_copy_page"),
+                "serve_copy_page", expected=1)
             # engine-local tallies (the telemetry counters are
             # process-wide totals shared across engines)
             self._prefix_hits = 0
             self._prefix_misses = 0
             self._cow_forks = 0
-            self._page_copies = 0
         else:
-            self._decode = _DecodeGraph(cfg, params, self._kv, self._sv)
+            self._decode = telemetry.watch(
+                _DecodeGraph(cfg, params, self._kv, self._sv),
+                "serve_decode", expected=1, loop="serve")
         self._prefills: Set[int] = set()
         self._injects: Set[int] = set()
         eid = str(next(_engine_seq))
@@ -774,6 +816,13 @@ class ServeEngine:
         self._m["kv_reserved"].set(self._kv_reserved)
         self._m["kv_live"].set(0)
         self._m["kv_occ"].set(0.0)
+        # the ledger: this engine's params and bank, released when the
+        # engine is collected (the entries would outlive it otherwise)
+        led = perfscope.ledger()
+        pool = "kv_page_pool" if self.paged else "kv_slot_bank"
+        led.account_tree("params", params, name=f"engine{eid}")
+        led.account(pool, self._kv_reserved, name=f"engine{eid}")
+        weakref.finalize(self, _release_ledger, led, pool, f"engine{eid}")
 
         # batch mode (run()) returns the per-request token lists, so it
         # must retain them; a long-lived replica turns this off so
@@ -1152,10 +1201,10 @@ class ServeEngine:
     def _prefill_into(self, slot: int, req: Request):
         prompt = np.asarray(req.prompt, np.int32).reshape(-1)
         bucket = bucket_for(prompt.size, self.min_bucket, self.max_len)
-        self._prefills.add(bucket)
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :prompt.size] = prompt
-        with self._span_prefill(bucket=bucket, role=self.role), \
+        with self._bucket_build(self._prefills, bucket, "serve_prefill"), \
+                self._span_prefill(bucket=bucket, role=self.role), \
                 torch.no_grad():
             tok, _, _ = llama.prefill_slot(
                 self.cfg, self.params,
@@ -1173,9 +1222,9 @@ class ServeEngine:
         prefill worker and is returned as a host tensor (``_process``
         reads firsts uniformly)."""
         bucket = int(h.k.shape[2])
-        self._injects.add(bucket)
-        with self._span_prefill(bucket=bucket, inject=True,
-                                role=self.role), torch.no_grad():
+        with self._bucket_build(self._injects, bucket, "serve_inject"), \
+                self._span_prefill(bucket=bucket, inject=True,
+                                   role=self.role), torch.no_grad():
             llama.inject_slot_kv(
                 self.cfg, h.k, h.v, h.true_len, slot, h.token,
                 prng.key_from_numpy(np.asarray(h.rng, np.uint32),
@@ -1191,8 +1240,16 @@ class ServeEngine:
         every pool array, eager, ordered before the next program on the
         stream."""
         with torch.no_grad():
-            llama.copy_page(self._kv, src, dst)
-        self._page_copies += 1
+            self._copy_fn(src, dst)
+
+    def _bucket_build(self, table: Set[int], bucket: int, program: str):
+        """The context an admission at ``bucket`` runs in: the first one
+        builds the bucket's program (``watcher.build``), the rest reuse
+        it."""
+        if bucket in table:
+            return contextlib.nullcontext()
+        table.add(bucket)
+        return watcher.build(program)
 
     def _run_paged_prefill(self, slot: int, req: Request, suffix,
                            total_len: int, prefix_len: int):
@@ -1202,11 +1259,11 @@ class ServeEngine:
         smaller bucket than its whole prompt would."""
         bucket = bucket_for(int(suffix.size), self.min_bucket,
                             self.max_len)
-        self._prefills.add(bucket)
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :suffix.size] = suffix
-        with self._span_prefill(bucket=bucket, role=self.role,
-                                prefix_len=prefix_len), torch.no_grad():
+        with self._bucket_build(self._prefills, bucket, "serve_prefill"), \
+                self._span_prefill(bucket=bucket, role=self.role,
+                                   prefix_len=prefix_len), torch.no_grad():
             tok, _, _ = llama.prefill_slot_paged(
                 self.cfg, self.params,
                 torch.from_numpy(padded).to(self.device), total_len,
@@ -1275,9 +1332,9 @@ class ServeEngine:
             pad = (0, 0, 0, bucket - k.shape[2])
             k = torch.nn.functional.pad(k, pad)
             v = torch.nn.functional.pad(v, pad)
-        self._injects.add(bucket)
-        with self._span_prefill(bucket=bucket, inject=True,
-                                role=self.role), torch.no_grad():
+        with self._bucket_build(self._injects, bucket, "serve_inject"), \
+                self._span_prefill(bucket=bucket, inject=True,
+                                   role=self.role), torch.no_grad():
             llama.inject_paged_kv(
                 self.cfg, k, v, h.true_len, self._pt[slot].copy(), slot,
                 h.token, prng.key_from_numpy(np.asarray(h.rng, np.uint32),
@@ -1575,12 +1632,12 @@ class ServeEngine:
         ``n_buckets + 1`` (dense), ``+ 2`` (paged) and ``+ 3``
         (speculative), hold by construction: a bucket's program is built
         at its first admission, and a step is captured only while it has
-        no graph."""
-        n = self.n_buckets + int(self._decode.steps > 0)
+        no graph. Read from the watched programs' ``_cache_size()``."""
+        n = self.n_buckets + self._decode._cache_size()
         if self.paged:
-            n += int(self._page_copies > 0)
+            n += self._copy_fn._cache_size()
         if self._spec_decode is not None:
-            n += int(self._spec_decode.steps > 0)
+            n += self._spec_decode._cache_size()
         return n
 
     @property

@@ -1,8 +1,7 @@
-"""Process-wide metrics registry: labelled Counter / Gauge / Histogram.
-The part of ``mxtpu/telemetry/registry.py`` the serving engine and its
-readers use, copied (host code only); the exporters (Prometheus text,
-the summary table, the federation's state dump) come with the serving
-tier (ROADMAP Queue A item 9).
+"""Process-wide metrics registry: labelled Counter / Gauge / Histogram
+with a Prometheus text exposition and a human summary table. A copy of
+``mxtpu/telemetry/registry.py`` (host code): the same calls give the
+same exposition text, byte for byte.
 
 Design (the always-on half of docs/observability.md):
 
@@ -16,8 +15,8 @@ Design (the always-on half of docs/observability.md):
   counter a cross-subsystem fact instead of a local variable.
 - **Thread safety**: every mutation takes the instrument's own lock
   (serve callback thread, kvstore server threads, prefetcher thread
-  and the training loop all write concurrently). Reads take the same
-  locks, so a snapshot is consistent per instrument.
+  and the training loop all write concurrently). Reads for export take
+  the same locks, so a dump is a consistent snapshot per instrument.
 - **Histograms are fixed-bucket**: O(len(buckets)) memory forever, no
   unbounded sample lists (what ``ServeEngine``'s private p50/p99 lists
   were before this module). Percentiles come from linear interpolation
@@ -30,7 +29,9 @@ import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "interval_percentile", "LATENCY_MS_BUCKETS"]
+           "interval_percentile", "interval_over_fraction",
+           "escape_label_value",
+           "LATENCY_MS_BUCKETS", "BYTES_BUCKETS", "SECONDS_BUCKETS"]
 
 # log-spaced defaults: ~1.6x per step keeps the interpolation error of
 # a percentile estimate under ~30% across 6 decades at 32 buckets
@@ -39,6 +40,9 @@ LATENCY_MS_BUCKETS = tuple(
         0.05, 0.1, 0.2, 0.4, 0.8, 1.5, 2.5, 4, 6, 10, 16, 25, 40, 65,
         100, 160, 250, 400, 650, 1000, 1600, 2500, 4000, 6500, 10000,
         16000, 25000))
+BYTES_BUCKETS = tuple(4 ** i for i in range(2, 16))        # 16B .. 1GB
+SECONDS_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                   0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 180.0)
 
 
 def interval_percentile(bounds, prev_counts: Optional[List[int]],
@@ -71,6 +75,47 @@ def interval_percentile(bounds, prev_counts: Optional[List[int]],
     return upper
 
 
+def interval_over_fraction(bounds, prev_counts: Optional[List[int]],
+                           counts: List[int],
+                           threshold: float) -> Optional[float]:
+    """Fraction of the window's observations above ``threshold``
+    (linear interpolation inside the crossing bucket; the +Inf tail
+    counts fully once its lower edge is reached) — the violation rate
+    an SLO burn-rate gauge divides by its error budget. ``None`` when
+    the window is empty."""
+    if prev_counts is None:
+        return None
+    d = [c - p for c, p in zip(counts, prev_counts)]
+    total = sum(d)
+    if total <= 0:
+        return None
+    over = 0.0
+    for i, c in enumerate(d):
+        if c == 0:
+            continue
+        lower = bounds[i - 1] if i > 0 else 0.0
+        upper = bounds[i] if i < len(bounds) else None   # +Inf
+        if lower >= threshold:
+            over += c
+        elif upper is None:
+            over += c          # tail straddles: no width to interpolate
+        elif upper > threshold:
+            over += c * (upper - threshold) / (upper - lower)
+    return over / total
+
+
+def escape_label_value(v) -> str:
+    """Prometheus text-format label-value escaping (backslash, quote,
+    newline) — exposition-grammar safety for caller-supplied labels
+    (error strings, peer addresses)."""
+    return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _escape_help(s: str) -> str:
+    return str(s).replace("\\", "\\\\").replace("\n", "\\n")
+
+
 class Counter:
     """Monotonic counter."""
 
@@ -90,6 +135,10 @@ class Counter:
     def value(self) -> float:
         with self._lock:
             return self._value
+
+    def reset(self) -> None:
+        with self._lock:
+            self._value = 0.0
 
 
 class Gauge:
@@ -117,6 +166,10 @@ class Gauge:
     def value(self) -> float:
         with self._lock:
             return self._value
+
+    def reset(self) -> None:
+        with self._lock:
+            self._value = 0.0
 
 
 class Histogram:
@@ -162,9 +215,20 @@ class Histogram:
         with self._lock:
             return sum(self._counts)
 
+    @property
+    def sum(self) -> float:
+        with self._lock:
+            return self._sum
+
+    @property
+    def mean(self) -> float:
+        with self._lock:
+            n = sum(self._counts)
+            return self._sum / n if n else 0.0
+
     def snapshot(self) -> Tuple[List[int], float, int]:
         """(bucket counts incl. +Inf, sum, total) under one lock —
-        the consistent view windowed readers diff."""
+        the consistent view exporters read."""
         with self._lock:
             counts = list(self._counts)
             return counts, self._sum, sum(counts)
@@ -242,7 +306,8 @@ class MetricsRegistry:
     """The process-wide metric namespace (one instance per process via
     ``mxtpu_torch.telemetry.registry()``; constructible directly in tests)."""
 
-    def __init__(self):
+    def __init__(self, prefix: str = "mxtpu"):
+        self.prefix = prefix
         self._lock = threading.Lock()
         self._families: Dict[str, _Family] = {}
 
@@ -296,3 +361,111 @@ class MetricsRegistry:
             if fam is None:
                 return None
             return fam.children.get(_label_key(labels))
+
+    def families(self) -> List[_Family]:
+        with self._lock:
+            return [self._families[n] for n in sorted(self._families)]
+
+    def reset(self) -> None:
+        """Zero every child in place. Handles held by call sites stay
+        valid — reset is test isolation, not teardown."""
+        with self._lock:
+            fams = list(self._families.values())
+        for fam in fams:
+            for child in list(fam.children.values()):
+                child.reset()
+
+    def snapshot_state(self) -> list:
+        """A wire-safe structural dump — what a worker/replica process
+        ships to the federating gateway over the framed RPC (values,
+        not text: the merge stays exact instead of re-parsing floats).
+        ``[(name, kind, help, [(labels, payload), ...]), ...]`` where
+        ``labels`` is ``[(k, v), ...]`` and ``payload`` is a float
+        (counter/gauge) or ``(bounds, counts, sum)`` (histogram)."""
+        out = []
+        for fam in self.families():
+            with self._lock:
+                children = list(fam.children.items())
+            kids = []
+            for key, child in sorted(children):
+                labels = [(k, v) for k, v in key]
+                if fam.kind == "histogram":
+                    counts, total_sum, _ = child.snapshot()
+                    kids.append((labels, (list(child.bounds),
+                                          list(counts),
+                                          float(total_sum))))
+                else:
+                    kids.append((labels, float(child.value)))
+            out.append((fam.name, fam.kind, fam.help, kids))
+        return out
+
+    # -- exporters --------------------------------------------------------
+    @staticmethod
+    def _fmt_labels(key: Tuple[Tuple[str, str], ...],
+                    extra: str = "") -> str:
+        parts = [f'{k}="{escape_label_value(v)}"' for k, v in key]
+        if extra:
+            parts.append(extra)
+        return "{" + ",".join(parts) + "}" if parts else ""
+
+    @staticmethod
+    def _fmt_num(v: float) -> str:
+        return repr(int(v)) if float(v).is_integer() else repr(float(v))
+
+    def prometheus(self) -> str:
+        """Prometheus text exposition format 0.0.4."""
+        lines: List[str] = []
+        for fam in self.families():
+            full = f"{self.prefix}_{fam.name}"
+            if fam.help:
+                lines.append(f"# HELP {full} "
+                             f"{_escape_help(fam.help)}")
+            lines.append(f"# TYPE {full} {fam.kind}")
+            with self._lock:
+                children = list(fam.children.items())
+            for key, child in sorted(children):
+                if fam.kind == "histogram":
+                    counts, total_sum, total = child.snapshot()
+                    cum = 0
+                    for bound, c in zip(child.bounds, counts):
+                        cum += c
+                        lab = self._fmt_labels(key, f'le="{bound}"')
+                        lines.append(f"{full}_bucket{lab} {cum}")
+                    lab = self._fmt_labels(key, 'le="+Inf"')
+                    lines.append(f"{full}_bucket{lab} {total}")
+                    lab = self._fmt_labels(key)
+                    lines.append(f"{full}_sum{lab} "
+                                 f"{self._fmt_num(total_sum)}")
+                    lines.append(f"{full}_count{lab} {total}")
+                else:
+                    lab = self._fmt_labels(key)
+                    lines.append(
+                        f"{full}{lab} {self._fmt_num(child.value)}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
+    def summary(self) -> str:
+        """Human table: one row per child; histograms show
+        count/mean/p50/p99."""
+        rows: List[Tuple[str, str, str]] = []
+        for fam in self.families():
+            with self._lock:
+                children = list(fam.children.items())
+            for key, child in sorted(children):
+                label = fam.name + self._fmt_labels(key)
+                if fam.kind == "histogram":
+                    n = child.count
+                    stat = (f"n={n}  mean={child.mean:.3f}  "
+                            f"p50={child.percentile(50):.3f}  "
+                            f"p99={child.percentile(99):.3f}") if n \
+                        else "n=0"
+                else:
+                    stat = self._fmt_num(child.value)
+                rows.append((label, fam.kind, stat))
+        if not rows:
+            return "(no metrics recorded)"
+        w = max(len(r[0]) for r in rows)
+        out = [f"{'Metric':<{w}}  {'Type':<9}  Value",
+               "-" * (w + 2 + 9 + 2 + 40)]
+        for label, kind, stat in rows:
+            out.append(f"{label:<{w}}  {kind:<9}  {stat}")
+        return "\n".join(out)

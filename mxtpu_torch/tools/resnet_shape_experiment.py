@@ -44,31 +44,13 @@ import torch.nn.functional as F
 from ..models import resnet
 from ..ops import conv
 from ..parallel import optim, step as pstep
+from ..telemetry import perfscope
 from .timing import time_ms
 
-PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
-PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 CONV_SHAPE = (128, 14, 14, 256, 256)     # B, H, W, C, O
 CONV_TOL = 2e-2            # kernel vs plain, atol = rtol, bf16 output
-
-
-def conv_flops(b, h, w, c, o):
-    """The flops one conv3x3 needs: 2·B·C·O per tap that lands inside
-    the image. Along an axis of n outputs the three taps land inside
-    3n − 2 times (the two edge outputs lose one each), so the zero halo
-    is not counted."""
-    return 2 * b * c * o * (3 * h - 2) * (3 * w - 2)
-
-
-def conv_bound_ms(b, h, w, c, o):
-    """(ms, 'operations' | 'bytes'): the least time for one conv3x3:
-    ``conv_flops`` at the bf16 peak, or x and w read once and y written
-    once (bf16) at the memory rate."""
-    flops = conv_flops(b, h, w, c, o)
-    nbytes = 2 * (b * h * w * c + 9 * c * o + b * h * w * o)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+# the conv's counts and bound live beside the kernel
+conv_flops, conv_bound_ms = conv.conv_flops, conv.conv_bound_ms
 
 
 def conv_inputs(shape, gen):
@@ -242,7 +224,7 @@ def measure_train(name, width, batch, steps, detail=False, seed=0):
     row = {"probe": "train", "name": name, "width": width, "batch": batch,
            "steps": steps, "img_s": batch / dt, "step_ms": dt * 1e3,
            "gflop_per_step": flops / 1e9, "tflops": flops / dt / 1e12,
-           "mfu": flops / dt / PEAK_BF16_FLOPS, "loss": loss,
+           "mfu": perfscope.mfu(flops, dt), "loss": loss,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     if not math.isfinite(loss):
         raise AssertionError(f"{name}: non-finite loss {loss}")

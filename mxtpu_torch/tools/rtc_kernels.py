@@ -28,7 +28,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["SOURCE", "KERNELS", "VECTOR", "module", "grid", "scale_add_plain",
+__all__ = ["SOURCE", "KERNELS", "VECTOR", "RTC_COST", "PEAK_F32_FLOPS",
+           "module", "grid", "rtc_bound_ms", "scale_add_plain",
            "swiglu_plain", "scale_add_library"]
 
 SOURCE = r"""
@@ -90,6 +91,9 @@ extern "C" __global__ void swiglu(const __nv_bfloat16* __restrict__ g,
 """
 KERNELS = ("scale_add", "swiglu")
 VECTOR = {"scale_add": 4, "swiglu": 2}      # elements a thread loads at once
+# each kernel's work an element: (bytes read and written, f32 operations)
+RTC_COST = {"scale_add": (12, 2), "swiglu": (6, 5)}
+PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 
 
 def module():
@@ -102,6 +106,18 @@ def module():
 def grid(kernel: str, n: int) -> int:
     """Blocks of 256 threads for ``n`` elements, one thread a vector."""
     return max(1, -(-n // (256 * VECTOR[kernel])))
+
+
+def rtc_bound_ms(kernel: str, n: int, spec=None):
+    """(ms, 'bytes' | 'operations'): the least time for ``n`` elements
+    of an rtc kernel, by :data:`RTC_COST`: its bytes at the H100's (or
+    ``spec``'s device's) memory rate, its operations at the f32 peak
+    outside the tensor cores."""
+    from ..telemetry import perfscope
+    per_byte, per_op = RTC_COST[kernel]
+    return perfscope.bound_ms(per_op * n, per_byte * n,
+                              spec or perfscope.spec_for("h100"),
+                              peak_flops=PEAK_F32_FLOPS)
 
 
 def scale_add_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

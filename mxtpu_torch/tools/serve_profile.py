@@ -52,10 +52,10 @@ from .. import prng
 from ..models import llama
 from ..ops.attention import slot_decode_attention
 from ..serve.engine import _DecodeGraph
+from ..telemetry import perfscope
 from .timing import graphed, time_ms
 
 SLOTS, MAX_LEN, LENGTH = 16, 768, 300
-PEAK_HBM_BYTES = 3.35e12
 
 
 def _group(name: str) -> str:
@@ -188,14 +188,15 @@ def main(argv=None) -> None:
     step = _DecodeGraph(cfg, params, kv, sv)
     step(*knobs)                                   # warm-up and capture
     sv["lengths"].fill_(LENGTH)
+    peak_bw = perfscope.device_spec().peak_bw
     out = {"card": card, "model": args.model, "slots": SLOTS,
            "max_len": MAX_LEN,
            "length": LENGTH, "n_layers": cfg.n_layers,
            "weights_gb": weight_bytes / 1e9,
-           "weights_bound_ms": weight_bytes / PEAK_HBM_BYTES * 1e3,
+           "weights_bound_ms": weight_bytes / peak_bw * 1e3,
            "kv_read_gb": kv_bytes / 1e9,
            "step_bound_ms": (weight_bytes + kv_bytes)
-           / PEAK_HBM_BYTES * 1e3}
+           / peak_bw * 1e3}
     reps = 10
     out["step_ms"] = time_ms(step._graph.replay, reps)
     host = 0.0

@@ -174,7 +174,8 @@ def test_port_imports_no_jax():
             "mxtpu_torch.ndarray, mxtpu_torch.autograd, mxtpu_torch.rtc, "
             "mxtpu_torch.ops._build, mxtpu_torch.tools.rtc_kernels, "
             "mxtpu_torch.prng, mxtpu_torch.serve, mxtpu_torch.serve.engine, "
-            "mxtpu_torch.telemetry, "
+            "mxtpu_torch.telemetry, mxtpu_torch.telemetry.perfscope, "
+            "mxtpu_torch.telemetry.watcher, mxtpu_torch.rpc, "
             "mxtpu_torch.ndarray.random, mxtpu_torch.serde, "
             "mxtpu_torch.xla_math, mxtpu_torch.parallel.moe, "
             "mxtpu_torch.models.bert\n"
