@@ -138,9 +138,31 @@ host's cost of a call.
    lie within 2^-6 of |max| (a bf16 near-tie); at 4 layers in f32 the n-gram, oracle and adversarial engines and a
    journaled resume after 5 tokens equal k = 0 or part at a near-tie,
    the oracle in fewer steps than tokens; at most buckets + 3 programs
-   and one capture each of the paged and verify steps. (g)-(i) print
-   the card's name and power limit and launch none of the port's
-   kernels.
+   and one capture each of the paged and verify steps.
+   (j) ``gateway``: the serving tier (``mxtpu_torch.serve.gateway``) on
+   the same weights. ``bench.py``'s ``bench_gateway`` through the HTTP
+   front door: two replicas of 8 slots, max_len 768, buckets from 64,
+   every bucket warmed on both (untimed), then 32 requests on seeded
+   exponential arrivals of mean 0.15 s, prompts max_len/12..max_len/2,
+   8 to max_len/3 new tokens: tok/s, TTFT and inter-token p50/p99 at
+   the client, beside the gateway's own TTFT and each engine's gaps at
+   emission, builds and captures per replica; every request 200 with
+   exactly its
+   tokens, each stream equal to a synchronous engine's, at most buckets
+   + 1 builds and one capture a replica. ``bench_disagg_stream``'s
+   protocol through a ``DisaggBackend`` (one prefill worker, one paged
+   decode replica of 64-token pages) over a socketpair throttled to an
+   emulated 250 MB/s wire: prompts of 448 tokens, 4 new ones at
+   temperature 0.7, one warm-up and 5 timed requests, one-shot (also
+   without the wire, for the wire's share) and then streamed in 64-token
+   chunks: median TTFT, the worker's span, bytes shipped, prefill
+   programs; the modes' streams equal, the streamed median TTFT below
+   the one-shot one. At 4 layers in f32, the two-replica gateway,
+   the disaggregated backend one-shot and streamed, and the gateway
+   with replica 0 killed mid-stream by a ``ServeChaosPlan`` each equal
+   ``generate`` or part at a near-tie, and the kill is counted and
+   repaired. (g)-(j) print the card's name and power limit and launch
+   none of the port's kernels.
 6. train: ``CONFIGS["llama3_8b"]`` at full width and 4 layers, with the
    reference's training dtypes (f32 params, bf16 compute), remat and the
    8192-wide chunked cross-entropy. (a) The loss and the grads of
@@ -388,6 +410,22 @@ SPEC_F32_NEW, SPEC_RESUME_AT = 48, 5
 # bf16 half-ulps (each rounding of an activation moves it up to 2^-9 of
 # itself), where a token from a faulty verify step lies about |max| below
 SPEC_BF16_TIE_REL = 2 ** -6
+# the serving tier: bench.py's bench_gateway at llama3_8b width (two
+# replicas of 8 slots, max_len 768, buckets from max_len/12; 32 requests
+# on seeded exponential arrivals of mean 0.15 s, prompts max_len/12 to
+# max_len/2, 8 to max_len/3 new tokens) and bench_disagg_stream's protocol
+# (prompts of 448 tokens, 4 new ones at temperature 0.7, one warm-up and 5
+# timed requests, pages of 64, chunks of 64) over a 250 MB/s wire, where
+# llama3_8b's 131 KB of K/V a token makes a 448-token handoff 58.7 MB
+GATEWAY_REPLICAS, GATEWAY_SLOTS, GATEWAY_MAX_LEN = 2, 8, 768
+GATEWAY_REQUESTS, GATEWAY_MEAN_GAP_S, GATEWAY_WARM_NEW = 32, 0.15, 8
+DISAGG_PROMPT, DISAGG_NEW, DISAGG_TEMPERATURE, DISAGG_TIMED = 448, 4, 0.7, 5
+DISAGG_PAGE, DISAGG_CHUNK, DISAGG_MAX_LEN = 64, 64, 512
+DISAGG_WIRE_MBPS = 250.0
+# supervision for the f32 replica kill: a tight heartbeat, short backoff
+GATEWAY_SUPERVISION = dict(heartbeat_s=0.05, backoff_base_s=0.01,
+                           backoff_max_s=0.05)
+GATEWAY_KILL_STEP = 3
 GUMBEL_ULPS = 2            # card vs CPU, in ulps of max(|g|, 1)
 RNG_SEEDS = (0, 42, 2 ** 31 - 1)
 RNG_SHAPES = ((7,), (3, 5, 11), (4, 128256))
@@ -749,7 +787,8 @@ def slice_phase():
                  int8_phase(cfg, params, prompts), engine_launches,
                  paged_attention_phase(),
                  paged_engine_phase(cfg, params, dense_streams),
-                 spec_engine_phase(cfg, params)]
+                 spec_engine_phase(cfg, params),
+                 gateway_phase(cfg, params)]
     return {k: launches[k] + sum(n[k] for n in serve)
             for k in LAUNCH_COUNTERS}
 
@@ -1895,6 +1934,402 @@ def spec_engine_phase(cfg, params):
         raise AssertionError("the detached prefill's first token differs")
     if launches != only():
         raise AssertionError(f"spec_engine launched {launches}")
+    return launches
+
+
+class ThrottledKVTx:
+    """An emulated cross-host wire for the disaggregated TTFT comparison,
+    as ``bench.py``'s ``_ThrottledKVTx`` (whose module imports jax): the
+    sender is held nbytes / rate before each frame enters the in-process
+    socketpair, while compute on other threads runs on."""
+
+    def __init__(self, tx, mbps):
+        self._tx = tx
+        self._s_per_b = 1.0 / (mbps * 1e6)
+
+    def send_handoff(self, msg):
+        nb = sum(a.nbytes for a in msg if isinstance(a, np.ndarray))
+        if nb:
+            time.sleep(nb * self._s_per_b)
+        return self._tx.send_handoff(msg)
+
+    def __getattr__(self, name):
+        return getattr(self._tx, name)
+
+
+def _pct(xs, q):
+    """bench.py's percentile: the sorted sample at q% (0 when empty)."""
+    xs = sorted(xs)
+    return float(xs[min(len(xs) - 1, int(q / 100 * len(xs)))]) if xs \
+        else 0.0
+
+
+def _release_gateway():
+    """Free what a closed gateway held: its engines sit in reference
+    cycles (requests' callbacks reach the gateway that reaches the
+    engines), which only the cycle collector frees, so their banks,
+    graph pools and the weights they hold stay on the card until then."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _join_all(threads, timeout=600):
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    return sum(t.is_alive() for t in threads)
+
+
+def gateway_http_run(cfg, params):
+    """``bench_gateway`` through the HTTP front door at GATEWAY_*: two
+    replicas (engines on their threads), every bucket warmed on both by
+    concurrent requests, then the timed open-loop stream. The same
+    requests then go through one synchronous engine of the same shape.
+    Returns (numbers, each stream equal to the synchronous one's,
+    malformed request indices)."""
+    import threading
+    import torch
+    from mxtpu_torch import telemetry
+    from mxtpu_torch.serve import Request, ServeEngine
+    from mxtpu_torch.serve.gateway import Gateway, GatewayClient
+    shape = dict(max_slots=GATEWAY_SLOTS, max_len=GATEWAY_MAX_LEN,
+                 min_bucket=GATEWAY_MAX_LEN // 12, device="cuda")
+    plens = [GATEWAY_MAX_LEN // d for d in (12, 6, 3, 2)]
+    rng = np.random.default_rng(SEED + 5)
+    gw = Gateway(lambda: ServeEngine(cfg, params, **shape),
+                 n_replicas=GATEWAY_REPLICAS,
+                 queue_max=max(64, GATEWAY_REQUESTS))
+    try:
+        port = gw.start_http(port=0)
+        warm = []
+        for b, plen in enumerate(plens):
+            # concurrent: while one replica holds a slot, the router
+            # sends the next request to a cold one
+            prompts = [rng.integers(0, cfg.vocab_size, plen)
+                       for _ in range(GATEWAY_REPLICAS)]
+            threads = [threading.Thread(
+                target=lambda p, j: warm.append(GatewayClient(
+                    "127.0.0.1", port).generate(p, GATEWAY_WARM_NEW,
+                                                seed=j)),
+                args=(p, b * GATEWAY_REPLICAS + k))
+                for k, p in enumerate(prompts)]
+            if _join_all(threads):
+                raise AssertionError("gateway warm-up requests hung")
+        if not all(w["status"] == 200 for w in warm):
+            raise AssertionError(f"gateway warm-up failed: {warm}")
+        # the split of the client's numbers: the gateway's own TTFT
+        # (submission to the engine's first token) and each engine's
+        # inter-token gaps at emission, both over the timed run only
+        for r in gw.backend.replicas():
+            r.engine.reset_stats()
+        ttft_hist = telemetry.registry().get("gateway_ttft_ms")
+        ttft_before = ttft_hist.snapshot()[0]
+        jobs, at = [], 0.0
+        for i in range(GATEWAY_REQUESTS):
+            jobs.append(dict(
+                prompt=rng.integers(0, cfg.vocab_size,
+                                    int(rng.choice(plens))),
+                mnew=int(rng.integers(8, GATEWAY_MAX_LEN // 3 + 1)), at=at))
+            at += float(rng.exponential(GATEWAY_MEAN_GAP_S))
+        results = [None] * len(jobs)
+
+        def fire(i, job):
+            delay = t0 + job["at"] - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            results[i] = GatewayClient("127.0.0.1", port).generate(
+                job["prompt"], job["mnew"], seed=i)
+
+        threads = [threading.Thread(target=fire, args=(i, j))
+                   for i, j in enumerate(jobs)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hung = _join_all(threads)
+        seconds = time.perf_counter() - t0
+        replicas = [{"name": r.name,
+                     "compile_count": r.engine.compile_count,
+                     "n_buckets": r.engine.n_buckets,
+                     "decode_captures": r.engine._decode.captures,
+                     "steps": r.engine.steps_run,
+                     **r.engine.latency_stats()}
+                    for r in gw.backend.replicas()]
+        ttft_after = ttft_hist.snapshot()[0]
+    finally:
+        gw.close()
+        del gw
+        _release_gateway()
+    if hung:
+        raise AssertionError(f"{hung} gateway clients hung")
+    ok = [r for r in results if r["status"] == 200]
+    n_tok = sum(len(r["tokens"]) for r in ok)
+    ttfts = [1e3 * (r["times"][0] - r["t0"]) for r in ok if r["times"]]
+    gaps = [g for r in ok for g in 1e3 * np.diff(r["times"])]
+    malformed = [i for i, (r, j) in enumerate(zip(results, jobs))
+                 if not (r["status"] == 200 and r["reason"] == "complete"
+                         and len(r["tokens"]) == j["mnew"]
+                         and all(0 <= t < cfg.vocab_size
+                                 for t in r["tokens"]))]
+    sync = ServeEngine(cfg, params, overlap=False, **shape)
+    want = serve_stream(sync, [Request(prompt=j["prompt"],
+                                       max_new_tokens=j["mnew"], seed=i)
+                               for i, j in enumerate(jobs)],
+                        range(len(jobs)))
+    del sync
+    torch.cuda.empty_cache()
+    equal = sum(r["status"] == 200
+                and np.array_equal(np.asarray(r["tokens"]), want[i])
+                for i, r in enumerate(results))
+    row = {"replicas": GATEWAY_REPLICAS, "max_slots": GATEWAY_SLOTS,
+           "max_len": GATEWAY_MAX_LEN, "min_bucket": shape["min_bucket"],
+           "requests": len(jobs), "ok": len(ok), "generated_tokens": n_tok,
+           "seconds": seconds, "tok_per_s": n_tok / seconds,
+           "ttft_p50_ms": _pct(ttfts, 50), "ttft_p99_ms": _pct(ttfts, 99),
+           "p50_token_ms": _pct(gaps, 50), "p99_token_ms": _pct(gaps, 99),
+           "gateway_ttft_p50_ms": ttft_hist.interval_percentile(
+               ttft_before, ttft_after, 50),
+           "gateway_ttft_p99_ms": ttft_hist.interval_percentile(
+               ttft_before, ttft_after, 99),
+           "per_replica": replicas, "equal_to_sync_engine": int(equal)}
+    return row, equal == len(jobs), malformed
+
+
+def disagg_stages(trace_ids):
+    """Where a disaggregated request's TTFT went, from the trace events
+    its trace_id tags (the gateway's and the engine's own spans and
+    instants), the median over ``trace_ids`` of each stage in ms: queued
+    for the worker, the worker's span (the prefill program; streamed,
+    every chunk with its pages shipped), from its end to the feeder's
+    receipt of the closing frame (the host copy, encoding, the wire and
+    the reassembly; streamed, the closing frame alone), waiting for the
+    engine's admission, the inject program, and from its end to the
+    first token (the first decode step and its readback)."""
+    from mxtpu_torch import telemetry
+    events = telemetry.trace_events()
+    stages = {}
+    for tid in trace_ids:
+        first = {}
+        for e in events:
+            args = e.get("args") or {}
+            if args.get("trace_id") == tid:
+                key = e["name"] + ("/inject" if args.get("inject") else "")
+                first.setdefault(key, e)
+        pre, inj = first["gateway.prefill"], first["serve.prefill/inject"]
+        marks = {
+            "queued": pre["ts"] - first["gateway.submit"]["ts"],
+            "worker_span": pre["dur"],
+            "to_handoff_recv": first["gateway.handoff_recv"]["ts"]
+            - (pre["ts"] + pre["dur"]),
+            "to_seat": first["serve.seat"]["ts"]
+            - first["gateway.handoff_recv"]["ts"],
+            "inject": inj["dur"],
+            "to_first_token": first["gateway.first_token"]["ts"]
+            - (inj["ts"] + inj["dur"])}
+        for k, us in marks.items():
+            stages.setdefault(k, []).append(us / 1e3)
+    return {k: _pct(v, 50) for k, v in stages.items()}
+
+
+def disagg_mode(cfg, params, reqs, stream_chunk, max_slots, max_len,
+                throttle=None, warm=None):
+    """``reqs`` one after the other through a Gateway over a
+    ``DisaggBackend`` (one prefill worker, one paged decode replica,
+    DISAGG_PAGE-token pages, buckets from 64), streamed in
+    ``stream_chunk``-token chunks when it is not 0, over a socketpair
+    throttled to ``throttle`` MB/s when given. ``warm``, a request, goes
+    first, untimed. Returns (streams, TTFT ms each, the numbers)."""
+    from mxtpu_torch import telemetry
+    from mxtpu_torch.serve.gateway import DisaggBackend, Gateway, KVChannel
+    tx, rx = KVChannel.pair()
+    if throttle:
+        tx = ThrottledKVTx(tx, throttle)
+    be = DisaggBackend(cfg, params, n_prefill=1, n_decode=1,
+                       max_slots=max_slots, max_len=max_len, min_bucket=64,
+                       paged=True, page_size=DISAGG_PAGE,
+                       stream_chunk=stream_chunk, channel=(tx, rx),
+                       device="cuda")
+    gw = Gateway(backend=be, queue_max=16)
+    shipped = telemetry.registry().get("gateway_kv_handoff_bytes")
+    # the worker's span: the prefill program (one-shot), or every chunk
+    # with its pages shipped (streamed)
+    span = telemetry.registry().get("span_gateway_prefill_ms")
+
+    def one(r):
+        h = gw.submit(r.prompt, r.max_new_tokens, temperature=r.temperature,
+                      top_k=r.top_k, top_p=r.top_p, seed=r.seed)
+        toks = h.result(timeout=600)
+        if h.reason != "complete" or len(toks) != r.max_new_tokens:
+            raise AssertionError(f"disagg request ended {h.reason} with "
+                                 f"{len(toks)} tokens")
+        return toks, 1e3 * (h._first_at - h._submitted_at), h.trace_id
+    try:
+        if warm is not None:
+            one(warm)
+        before, span0 = shipped.snapshot(), span.snapshot()
+        streams, ttfts, traces = {}, [], []
+        for i, r in enumerate(reqs):
+            streams[i], ttft, trace = one(r)
+            ttfts.append(ttft)
+            traces.append(trace)
+        after, span1 = shipped.snapshot(), span.snapshot()
+        eng = be.decode.replicas()[0].engine
+        built, captures = eng.compile_count, eng._decode.captures
+        eng = None
+        row = {"stream_chunk": be.prefill[0].stream_chunk,
+               "ttft_ms": ttfts, "median_ttft_ms": _pct(ttfts, 50),
+               "bytes_shipped": after[1] - before[1],
+               "frames": after[2] - before[2],
+               "worker_span_mean_ms": (span1[1] - span0[1])
+               / max(1, span1[2] - span0[2]),
+               "stages_median_ms": disagg_stages(traces),
+               "prefill_programs": be.prefill[0].compile_count,
+               "decode_compile_count": built,
+               "decode_captures": captures}
+    finally:
+        gw.close()
+        del gw, be
+        _release_gateway()
+    return streams, ttfts, row
+
+
+def gateway_f32(cfg, params):
+    """At SERVE_LAYERS layers in f32, f32_requests through the
+    two-replica gateway, the disaggregated backend one-shot and
+    streamed, and the gateway again with replica 0 killed by a
+    ``ServeChaosPlan`` at its step GATEWAY_KILL_STEP: each stream
+    against batch-1 ``generate`` under the near-tie rule."""
+    import torch
+    from mxtpu_torch.contrib.chaos import ServeChaosPlan, attach_serve
+    from mxtpu_torch.serve import ServeEngine
+    from mxtpu_torch.serve.gateway import Gateway
+    cfg4, p4 = f32_layers(cfg, params)
+    reqs = f32_requests(cfg4)
+    want = {i: generate_one(cfg4, p4, r, r.max_new_tokens)
+            for i, r in enumerate(reqs)}
+
+    def through(gw):
+        hs = [gw.submit(r.prompt, r.max_new_tokens,
+                        temperature=r.temperature, top_k=r.top_k,
+                        top_p=r.top_p, seed=r.seed) for r in reqs]
+        out = {i: h.result(timeout=600) for i, h in enumerate(hs)}
+        if any(h.reason != "complete" for h in hs):
+            raise AssertionError(
+                f"f32 gateway requests ended {[h.reason for h in hs]}")
+        return out
+
+    def factory():
+        return ServeEngine(cfg4, p4, max_slots=2, max_len=256,
+                           min_bucket=64, device="cuda")
+    out = {}
+    gw = Gateway(factory, n_replicas=GATEWAY_REPLICAS, queue_max=64)
+    try:
+        got = through(gw)
+    finally:
+        gw.close()
+        del gw
+        _release_gateway()
+    out["gateway"] = near_tie_rows(cfg4, p4, reqs, want, got)
+    for name, chunk in (("disagg_one_shot", 0),
+                        ("disagg_streamed", DISAGG_CHUNK)):
+        got, _, _ = disagg_mode(cfg4, p4, reqs, chunk, max_slots=4,
+                                max_len=256)
+        out[name] = near_tie_rows(cfg4, p4, reqs, want, got)
+    restarts = telemetry_value("gateway_replica_restarts_total",
+                               reason="died")
+    gw = Gateway(factory, n_replicas=GATEWAY_REPLICAS, queue_max=64,
+                 supervisor_opts=GATEWAY_SUPERVISION)
+    plan = attach_serve(gw, ServeChaosPlan(
+        seed=SEED, kill_replica={0: GATEWAY_KILL_STEP}))
+    injected = plan.injected        # read after the gateway is freed
+    try:
+        got = through(gw)
+        sup = gw.supervisor.describe()
+    finally:
+        gw.close()
+        del gw, plan
+        _release_gateway()
+    out["replica_kill"] = near_tie_rows(cfg4, p4, reqs, want, got)
+    kill = {"injected": injected["replica_kill"],
+            "restarts_counted": telemetry_value(
+                "gateway_replica_restarts_total", reason="died") - restarts,
+            "supervisor_restarts": sup["restarts"]}
+    del p4
+    torch.cuda.empty_cache()
+    rows = {k: {"rows": v[0], "ok": v[1]} for k, v in out.items()}
+    return rows, kill
+
+
+def gateway_phase(cfg, params):
+    """(j) in the docstring: the serving tier on the slice's weights.
+    The launch counts are set to 0 at its start and read at its end."""
+    import torch
+    from mxtpu_torch.serve import Request
+    reset_launches()
+    http, http_equal, malformed = gateway_http_run(cfg, params)
+    rng = np.random.default_rng(SEED + 6)
+    dreqs = [Request(prompt=rng.integers(0, cfg.vocab_size, DISAGG_PROMPT),
+                     max_new_tokens=DISAGG_NEW,
+                     temperature=DISAGG_TEMPERATURE, seed=i)
+             for i in range(1 + DISAGG_TIMED)]
+    modes = {}
+    # the one-shot path without the emulated wire first: what the wire
+    # adds to TTFT, and what the host and the card take without it
+    for name, chunk, wire in (("one_shot_no_wire", 0, None),
+                              ("one_shot", 0, DISAGG_WIRE_MBPS),
+                              ("streamed", DISAGG_CHUNK, DISAGG_WIRE_MBPS)):
+        streams, _, row = disagg_mode(
+            cfg, params, dreqs[1:], chunk, max_slots=2,
+            max_len=DISAGG_MAX_LEN, throttle=wire, warm=dreqs[0])
+        torch.cuda.empty_cache()
+        modes[name] = (streams, row)
+    same_streams = all(
+        np.array_equal(modes["one_shot"][0][i], modes[m][0][i])
+        for m in ("one_shot_no_wire", "streamed")
+        for i in range(DISAGG_TIMED))
+    f32, kill = gateway_f32(cfg, params)
+    launches = read_launches()
+    one_ms = modes["one_shot"][1]["median_ttft_ms"]
+    streamed_ms = modes["streamed"][1]["median_ttft_ms"]
+    emit({"phase": "gateway", "card": nvidia_smi(), "config": "llama3_8b",
+          "n_layers": cfg.n_layers, "http": http,
+          "disagg": {"prompt_len": DISAGG_PROMPT, "new_tokens": DISAGG_NEW,
+                     "page_size": DISAGG_PAGE,
+                     "wire_mbps": DISAGG_WIRE_MBPS,
+                     "one_shot_no_wire": modes["one_shot_no_wire"][1],
+                     "one_shot": modes["one_shot"][1],
+                     "streamed": modes["streamed"][1],
+                     "ttft_drop": 1.0 - streamed_ms / one_ms,
+                     "streams_equal": same_streams},
+          "f32_vs_generate": f32, "replica_kill": kill,
+          "launches": launches})
+    if malformed:
+        raise AssertionError(f"gateway: requests {malformed} did not "
+                             "return 200 with exactly their tokens")
+    if not http_equal:
+        raise AssertionError("gateway: a stream differs from the "
+                             "synchronous engine's")
+    for r in http["per_replica"]:
+        if not (r["compile_count"] <= r["n_buckets"] + 1
+                and r["decode_captures"] == 1):
+            raise AssertionError(f"gateway replica {r['name']} built more "
+                                 f"than its buckets and one capture: {r}")
+    if not same_streams:
+        raise AssertionError("disagg: the streamed and one-shot streams "
+                             "differ")
+    if not streamed_ms < one_ms:
+        raise AssertionError(f"disagg: streamed median TTFT {streamed_ms} "
+                             f"ms is not below one-shot {one_ms} ms")
+    bad = [k for k, v in f32.items() if not v["ok"]]
+    if bad:
+        raise AssertionError(f"gateway in f32 differs from generate away "
+                             f"from a near-tie: {bad} {f32}")
+    if not (kill["injected"] >= 1 and kill["restarts_counted"] >= 1):
+        raise AssertionError(f"the replica kill did not fire or was not "
+                             f"counted: {kill}")
+    if launches != only():
+        raise AssertionError(f"gateway launched {launches}")
     return launches
 
 

@@ -3,7 +3,8 @@
 The JAX package ``mxtpu`` is the reference; this package mirrors its
 module names (``context``, ``ndarray``, ``autograd``, ``rtc``,
 ``ops.attention``, ``models.llama``, ``models.resnet``,
-``parallel.step``, ``serve``, ``telemetry``) so a reader finds each
+``parallel.step``, ``serve``, ``serve.gateway``, ``contrib.chaos``,
+``telemetry``) so a reader finds each
 counterpart; ``prng`` is the key chain of ``jax.random`` (its float32
 roundings of XLA's CPU math in ``xla_math``), ``random`` is
 ``mx.random``, ``serde`` the ``.params`` container; ``ops.conv``

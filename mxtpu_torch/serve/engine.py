@@ -585,8 +585,9 @@ class _DecodeGraph:
 
 
 def _release_ledger(led, pool: str, name: str) -> None:
-    led.release("params", name=name)
-    led.release(pool, name=name)
+    # a finalizer: queue the releases, never take a lock here
+    led.release_later("params", name=name)
+    led.release_later(pool, name=name)
 
 
 def _tensor_leaves(tree):

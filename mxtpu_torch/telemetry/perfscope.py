@@ -520,16 +520,41 @@ class HBMLedger:
 
     def __init__(self, headroom_bytes: Optional[float] = None):
         self._lock = threading.Lock()
-        self._entries: Dict[Tuple[str, str], int] = {}
+        self._table: Dict[Tuple[str, str], int] = {}
+        # releases queued by finalizers (release_later), applied at the
+        # next call into the ledger
+        self._pending: deque = deque()
         self._low_latched = False
         self._capacity: Optional[float] = None
         self._headroom_knob = (_HEADROOM_BYTES if headroom_bytes is None
                                else float(headroom_bytes))
 
+    @property
+    def _entries(self) -> Dict[Tuple[str, str], int]:
+        """The accounted entries, with queued releases applied."""
+        with self._lock:
+            drained = self._drain_locked()
+        if drained:
+            self._publish()
+        return self._table
+
+    def _drain_locked(self) -> bool:
+        """Apply the queued releases; True when there were any."""
+        drained = False
+        while self._pending:
+            try:
+                key = self._pending.popleft()
+            except IndexError:
+                break
+            self._table.pop(key, None)
+            drained = True
+        return drained
+
     def account(self, category: str, nbytes: int,
                 name: str = "default") -> None:
         with self._lock:
-            self._entries[(category, name)] = int(nbytes)
+            self._drain_locked()
+            self._table[(category, name)] = int(nbytes)
         self._publish()
 
     def account_tree(self, category: str, tree: Any,
@@ -538,15 +563,29 @@ class HBMLedger:
 
     def release(self, category: str, name: str = "default") -> None:
         with self._lock:
-            self._entries.pop((category, name), None)
+            self._drain_locked()
+            self._table.pop((category, name), None)
         self._publish()
+
+    def release_later(self, category: str, name: str = "default") -> None:
+        """:meth:`release` for a finalizer. The garbage collector runs a
+        weakref callback inside whatever allocation triggered it, on a
+        thread that may hold this ledger's or the metrics registry's
+        (non-reentrant) lock: releasing there would wait on that lock
+        forever. So this only queues the release (a deque append takes
+        no lock); the next call into the ledger applies it."""
+        self._pending.append((category, name))
 
     def breakdown(self) -> Dict[str, int]:
         with self._lock:
+            drained = self._drain_locked()
             out: Dict[str, int] = {}
-            for (cat, _), n in self._entries.items():
+            for (cat, _), n in self._table.items():
                 out[cat] = out.get(cat, 0) + n
-            return out
+        if drained:
+            # the gauges follow the releases a finalizer queued
+            self._publish()
+        return out
 
     def total(self) -> int:
         return sum(self.breakdown().values())
@@ -569,7 +608,8 @@ class HBMLedger:
 
     def clear(self) -> None:
         with self._lock:
-            self._entries.clear()
+            self._pending.clear()
+            self._table.clear()
             self._low_latched = False
 
     def _publish(self) -> None:

@@ -178,7 +178,13 @@ def test_port_imports_no_jax():
             "mxtpu_torch.telemetry.watcher, mxtpu_torch.rpc, "
             "mxtpu_torch.ndarray.random, mxtpu_torch.serde, "
             "mxtpu_torch.xla_math, mxtpu_torch.parallel.moe, "
-            "mxtpu_torch.models.bert\n"
+            "mxtpu_torch.models.bert, mxtpu_torch.serve.gateway, "
+            "mxtpu_torch.serve.gateway.replica, "
+            "mxtpu_torch.serve.gateway.gateway, "
+            "mxtpu_torch.serve.gateway.frontdoor, "
+            "mxtpu_torch.serve.gateway.autoscale, "
+            "mxtpu_torch.serve.gateway.disagg, mxtpu_torch.contrib, "
+            "mxtpu_torch.contrib.chaos\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxtpu' or "
             "m.startswith('mxtpu.')]\n"

@@ -23,6 +23,7 @@ Contracts:
   engines keep ``compile_count`` within the reference's bounds;
 - ``tools/diagnose.py perf`` renders a port scrape.
 """
+import threading
 from dataclasses import replace
 
 import jax
@@ -38,6 +39,7 @@ from mxtpu_torch.models import llama as tl
 from mxtpu_torch.ops import attention as A, conv
 from mxtpu_torch.parallel import optim, step as pstep
 from mxtpu_torch.serve import Request, ServeEngine
+from mxtpu_torch.serve.engine import _release_ledger
 from mxtpu_torch.telemetry import perfscope as ps, watcher
 
 torch.set_num_threads(2)
@@ -442,6 +444,34 @@ def test_watched_engines_bounds_ledger_and_bit_equal(served, kw, extra):
     import gc
     gc.collect()
     assert ("params", eid) not in ps.ledger()._entries
+
+
+def test_engine_finalizer_waits_on_no_lock():
+    """An engine collected while its thread holds the metrics registry's
+    lock (the collector runs finalizers inside whatever allocation
+    triggers it) queues its ledger releases instead of waiting on that
+    lock; the next ledger read applies them and republishes the
+    gauges."""
+    led = ps.ledger()
+    led.account("params", 123, name="finalizer-probe")
+    lock = pt.registry()._lock
+
+    def collect_under_lock():
+        with lock:
+            _release_ledger(led, "kv_slot_bank", "finalizer-probe")
+
+    t = threading.Thread(target=collect_under_lock, daemon=True)
+    t.start()
+    t.join(10)
+    stuck = t.is_alive()
+    if stuck:       # free the registry for the rest of the run, then fail
+        lock.release()
+        t.join(10)
+    assert not stuck, "the finalizer waited on the registry's lock"
+    assert ("params", "finalizer-probe") not in led._entries
+    assert "params" not in led.breakdown() or \
+        pt.registry().value("hbm_ledger_bytes", category="params") == \
+        led.breakdown()["params"]
 
 
 def test_engine_ledger_matches_reference_engine(served):

@@ -267,21 +267,27 @@ def test_threads_hold_separate_streams():
     seed 7 whatever the others draw meanwhile."""
     tmx.random.seed(7)
     want = tmx.nd.random.uniform(shape=(32,), ctx="cpu").asnumpy()
-    got, start = {}, threading.Barrier(3)
+    got, errors, start = {}, [], threading.Barrier(3)
 
     def worker(i, s):
-        tmx.random.seed(s)
-        start.wait()
-        for _ in range(5):
-            got.setdefault(i, []).append(
-                tmx.nd.random.uniform(shape=(32,), ctx="cpu").asnumpy())
+        try:
+            tmx.random.seed(s)
+            start.wait(timeout=60)
+            for _ in range(5):
+                got.setdefault(i, []).append(
+                    tmx.nd.random.uniform(shape=(32,),
+                                          ctx="cpu").asnumpy())
+        except BaseException as e:  # reported below, with its thread
+            errors.append((i, repr(e)))
 
-    threads = [threading.Thread(target=worker, args=(i, s))
+    threads = [threading.Thread(target=worker, args=(i, s), daemon=True)
                for i, s in enumerate((7, 8, 7))]
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads), "a worker timed out"
+    assert errors == []
     np.testing.assert_array_equal(got[0][0], want)
     np.testing.assert_array_equal(got[2][0], want)
     for a, b in zip(got[0], got[2]):

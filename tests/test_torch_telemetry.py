@@ -16,6 +16,8 @@ packages keep a process-wide registry, so these tests use fresh
 import importlib
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -236,6 +238,33 @@ def test_flight_ring_bounded_dump_and_tail(tmp_path):
     assert len(fr) == 0
 
 
+_FORK_CHILD_CHECK = """
+import importlib, os, sys, time
+fl = importlib.import_module("mxtpu_torch.telemetry.flight")
+pid = os.fork()
+if pid == 0:
+    ok = (fl.current_pid() == os.getpid()
+          and fl.process_role() == f"pid{os.getpid()}")
+    os._exit(0 if ok else 1)
+deadline = time.monotonic() + 30
+while True:
+    done, status = os.waitpid(pid, os.WNOHANG)
+    if done:
+        break
+    if time.monotonic() > deadline:
+        os.kill(pid, 9)
+        os.waitpid(pid, 0)
+        sys.exit("the forked child did not exit within 30 s")
+    time.sleep(0.01)
+if status != 0:
+    sys.exit(f"the forked child failed its pid/role check: {status}")
+print("child-ok")
+if fl.process_role() != f"pid{os.getpid()}":
+    sys.exit(f"parent role after the fork: {fl.process_role()}")
+print("parent-ok")
+"""
+
+
 def test_flight_fork_path_and_process_tag(tmp_path, monkeypatch):
     """A process forked after import dumps to ``<path>.<pid>``, never
     over its parent's file, and every record carries the process
@@ -265,15 +294,17 @@ def test_flight_fork_path_and_process_tag(tmp_path, monkeypatch):
     assert path == str(dump)
     assert [json.loads(line)["name"] for line in open(path)] == \
         ["before", "after", "named"]
-    # a real fork: the child's records carry its own pid
+    # a real fork: the child's records carry its own pid. It forks in a
+    # fresh interpreter that runs no other thread (a fork of this
+    # multithreaded worker may leave the child waiting on a lock some
+    # thread held), and every wait has a deadline
     monkeypatch.delenv("MXTPU_TELEMETRY_PROCESS")
-    pid = os.fork()
-    if pid == 0:
-        ok = (fl.current_pid() == os.getpid()
-              and fl.process_role() == f"pid{os.getpid()}")
-        os._exit(0 if ok else 1)
-    _, status = os.waitpid(pid, 0)
-    assert status == 0
+    out = subprocess.run(
+        [sys.executable, "-c", _FORK_CHILD_CHECK],
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, (out.stdout + out.stderr)[-2000:]
+    assert out.stdout.split() == ["child-ok", "parent-ok"], out.stdout
     assert fl.process_role() == f"pid{os.getpid()}"
 
 
