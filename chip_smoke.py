@@ -161,8 +161,39 @@ host's cost of a call.
    the disaggregated backend one-shot and streamed, and the gateway
    with replica 0 killed mid-stream by a ``ServeChaosPlan`` each equal
    ``generate`` or part at a near-tie, and the kill is counted and
-   repaired. (g)-(j) print the card's name and power limit and launch
-   none of the port's kernels.
+   repaired. (k) ``fleet``: the fleet control plane
+   (``mxtpu_torch.serve.fleet``) on the same weights, once the gateways
+   are freed: model "llama" (these 32 layers, two replicas of the
+   gateway's shape) beside "llama8" (the same widths at 8 layers, seed
+   1, one replica of at most two), every bucket of every replica warmed.
+   (a) ``bench_gateway``'s 32 requests through ``start_http``, each
+   sent to a model by a seeded draw with a seeded priority class
+   (interactive, batch or offline), 4 sessions of two requests each:
+   tok/s and client TTFT p50/p99 per model, session-affinity hits and
+   misses; (b) ``hot_swap("llama", params=v1)`` (a seeded tree made on
+   the card) once half the requests are sent: every response a 200
+   with exactly its tokens, on v0 or v1, and each stream equal to a
+   synchronous engine's on the weights of the model and version its
+   label names; the swap's seconds. (c) ``save_state`` of a seeded v2
+   tree, then ``hot_swap("llama", path=...)``: the tree loaded once
+   and shared by the new replicas, each leaf's sha256 equal to the
+   saved tree's (digests taken here from host copies); save and load
+   seconds and GB/s. (d) A ``ServeChaosPlan`` kills replica 0 of
+   "llama" at its next step while a burst is in flight and
+   ``hot_swap("llama", params=v1)`` runs: the kill fires once,
+   ``gateway_redispatch_total{model}`` advances, every request
+   completes on v2, the build that seated it, and each stream equals
+   the fault-free one or (re-dispatched, resumed through a bf16 prefill
+   of its prefix) parts first at a near-tie within 2^-6 of |max|. (e) A
+   ``FleetArbiter`` over the live pools on an injected clock and
+   scripted signals: "llama8" burns and is granted the free chip, then
+   idles while "llama" burns, and one decision moves its replica to
+   "llama" (``fleet_scale_events_total``). (f) At 4 layers in f32, a
+   two-replica fleet with replica 0 killed during a hot swap: the kill
+   re-dispatches at least one request, and each stream equals
+   ``generate`` or parts at a near-tie (1e-5 of |max|).
+   (g)-(k) print the card's name and power limit and launch none of
+   the port's kernels.
 6. train: ``CONFIGS["llama3_8b"]`` at full width and 4 layers, with the
    reference's training dtypes (f32 params, bf16 compute), remat and the
    8192-wide chunked cross-entropy. (a) The loss and the grads of
@@ -182,7 +213,24 @@ host's cost of a call.
    with step t keyed ``fold_in(PRNGKey(1), t)``, then again from the
    same params (equal losses), then with ``PRNGKey(2)`` (other losses):
    finite losses, and per step 16 forward launches and 8 of each
-   backward kernel.
+   backward kernel. (d) ``flywheel``: llama3_8b widths at 2 layers in
+   the training dtypes, on batches drawn from a seeded Zipf unigram:
+   ``CheckpointManager(async_save=True, max_to_keep=2)`` saves the
+   params at each of 4 ``adamw(3e-6)`` steps and publishes steps 2 and
+   4 into a two-replica bf16 fleet whose ``FlywheelController`` gates
+   each candidate (restored onto the card) on a held-out loss, finite
+   and below step 0's. Candidate 2 is canaried and promoted by the
+   controller's own thread after a clean hold; candidate 4 passes the
+   gate, its canary's decode is stalled 6 s (a wrapper of the canary
+   engine's dispatch) past the 5 s TTFT target, and it is rolled back;
+   a planted non-finite candidate is rejected at the gate; every stream
+   equals a synchronous engine's on its version's weights. A latest
+   step with a truncated leaf makes ``restore()`` fall back to step 4,
+   counted once in ``checkpoint_total{kind="fallback"}``, and SIGTERM
+   under ``PreemptionGuard`` forces one final save, read back bit for
+   bit. Save, wait and restore seconds; launches exactly 4 steps' (2
+   forward and 1 of each backward kernel a layer) plus 2 forward a
+   held-out evaluation (step 0's and each gated candidate's).
 
 7. kernel_conv: the conv3x3 implicit-GEMM kernel against its plain
    version (``conv3x3_plain`` in f32 on the same bf16 values) within
@@ -351,6 +399,7 @@ CUDA card is visible or when the package is not beside the script.
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -426,6 +475,33 @@ DISAGG_WIRE_MBPS = 250.0
 GATEWAY_SUPERVISION = dict(heartbeat_s=0.05, backoff_base_s=0.01,
                            backoff_max_s=0.05)
 GATEWAY_KILL_STEP = 3
+# the fleet: "llama" (the slice's 32 layers, two replicas of the gateway's
+# shape) beside "llama8" (the same widths at 8 layers, seed 1, one
+# replica, at most two); bench_gateway's 32 requests split between them,
+# each with a seeded priority class, 4 sessions of two requests; the
+# replica kill mid-swap: an anchor of 256 new tokens pinned to replica 1
+# (about 21 ms a step keeps it a live old-build home for about 5 s), 6
+# requests of 32, and replica 0 killed at its first step after the plan
+# is attached (its ``steps_run`` then). A later step comes late:
+# replica 0's eager admissions wait behind replica 1's steps on the card
+# (measured on an H100 by
+# ``python -m mxtpu_torch.tools.engine_contention``), so a kill 3 steps
+# on fired only once replica 1 had drained, leaving the re-dispatch no
+# old-build home
+FLEET_SMALL_LAYERS = 8
+FLEET_PRIORITIES = ("interactive", "batch", "offline")
+FLEET_SESSIONS = 4
+FLEET_ANCHOR_NEW = 256
+# the flywheel: llama3_8b widths at 2 layers in the reference's training
+# dtypes, 4 adamw steps each saved (async, the last 2 kept), candidates
+# published at steps 2 and 4 into a two-replica bf16 fleet (4 slots,
+# max_len 256) whose canary SLO is a 5 s TTFT; a 6 s decode stall on the
+# second canary breaches it. Adam without warmup raises the loss at this
+# width at larger rates, so the rate is one at which
+# every step lowers the held-out loss the gate reads
+FLYWHEEL_LAYERS, FLYWHEEL_STEPS, FLYWHEEL_LR = 2, 4, 3e-6
+FLYWHEEL_SLOTS, FLYWHEEL_MAX_LEN, FLYWHEEL_NEW = 4, 256, 32
+FLYWHEEL_TTFT_MS, FLYWHEEL_STALL_S, FLYWHEEL_POLL_S = 5000.0, 6.0, 0.2
 GUMBEL_ULPS = 2            # card vs CPU, in ulps of max(|g|, 1)
 RNG_SEEDS = (0, 42, 2 ** 31 - 1)
 RNG_SHAPES = ((7,), (3, 5, 11), (4, 128256))
@@ -788,7 +864,8 @@ def slice_phase():
                  paged_attention_phase(),
                  paged_engine_phase(cfg, params, dense_streams),
                  spec_engine_phase(cfg, params),
-                 gateway_phase(cfg, params)]
+                 gateway_phase(cfg, params),
+                 fleet_phase(cfg, params)]
     return {k: launches[k] + sum(n[k] for n in serve)
             for k in LAUNCH_COUNTERS}
 
@@ -2333,6 +2410,746 @@ def gateway_phase(cfg, params):
     return launches
 
 
+def build_dir():
+    """``build/`` beside this script (ignored by git): where the fleet and
+    flywheel phases write their checkpoints."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def fleet_jobs(cfg):
+    """``bench_gateway``'s 32 requests for the fleet: its prompts, new
+    tokens and exponential arrivals, each sent to "llama" or "llama8"
+    by a seeded draw, with a seeded priority class, and FLEET_SESSIONS
+    sessions of two requests each (the second a returning one)."""
+    rng = np.random.default_rng(SEED + 7)
+    plens = [GATEWAY_MAX_LEN // d for d in (12, 6, 3, 2)]
+    jobs, at = [], 0.0
+    for i in range(GATEWAY_REQUESTS):
+        jobs.append(dict(
+            prompt=rng.integers(0, cfg.vocab_size, int(rng.choice(plens))),
+            mnew=int(rng.integers(8, GATEWAY_MAX_LEN // 3 + 1)), at=at,
+            model=str(rng.choice(("llama", "llama8"))),
+            priority=str(rng.choice(FLEET_PRIORITIES))))
+        at += float(rng.exponential(GATEWAY_MEAN_GAP_S))
+    for s in range(FLEET_SESSIONS):
+        first, second = (int(i) for i in rng.choice(
+            [i for i, j in enumerate(jobs) if "session_id" not in j
+             and j["model"] == ("llama", "llama8")[s % 2]], 2,
+            replace=False))
+        for i in (first, second):
+            jobs[i]["session_id"] = f"session-{s}"
+    return jobs
+
+
+def fleet_warm(fleet, cfg):
+    """Every bucket of every replica, warmed by requests pinned to it
+    (untimed)."""
+    rng = np.random.default_rng(SEED + 8)
+    hs = []
+    for name in fleet.models():
+        for r in fleet.pool(name).replicas():
+            for plen in (GATEWAY_MAX_LEN // d for d in (12, 6, 3, 2)):
+                hs.append(fleet.gateway(name).submit(
+                    rng.integers(0, cfg.vocab_size, plen), GATEWAY_WARM_NEW,
+                    prefer_replica=r.name))
+    for h in hs:
+        h.result(timeout=600)
+        if h.reason != "complete":
+            raise AssertionError(f"fleet warm-up ended {h.reason}")
+
+
+def sync_streams(cfg, weights, reqs):
+    """``reqs`` ({key: Request}) through one synchronous engine of the
+    fleet's shape on ``weights``: {key: tokens}."""
+    import torch
+    from mxtpu_torch.serve import ServeEngine
+    if not reqs:
+        return {}
+    keys = list(reqs)
+    eng = ServeEngine(cfg, weights, overlap=False, max_slots=GATEWAY_SLOTS,
+                      max_len=GATEWAY_MAX_LEN,
+                      min_bucket=GATEWAY_MAX_LEN // 12, device="cuda")
+    out = serve_stream(eng, [reqs[k] for k in keys], range(len(keys)))
+    del eng
+    torch.cuda.empty_cache()
+    return {k: out[i] for i, k in enumerate(keys)}
+
+
+def tree_digests(tree):
+    """sha256 of every leaf's bytes, computed from a host copy here (not
+    by the checkpoint's own code), a few leaves at a time."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    leaves = dict(_leaves_with_keys(tree))
+
+    def one(t):
+        host = t.detach().to("cpu").contiguous()
+        return hashlib.sha256(memoryview(
+            host.reshape(-1).view(torch.uint8).numpy())).hexdigest()
+    with ThreadPoolExecutor(8) as pool:
+        return dict(zip(leaves, pool.map(one, leaves.values())))
+
+
+def fleet_http_swap(fleet, cfg, v1):
+    """(a) and (b): the fleet's 32 requests through ``start_http``, and
+    ``hot_swap("llama", params=v1)`` once half of them have been sent.
+    Returns (jobs, records, numbers)."""
+    import threading
+    import torch
+    from mxtpu_torch import telemetry
+    from mxtpu_torch.serve.gateway import GatewayClient
+    jobs = fleet_jobs(cfg)
+    reg = telemetry.registry()
+    aff0 = {k: reg.value("fleet_session_affinity_total", result=k)
+            for k in ("hit", "miss", "prefix")}
+    port = fleet.start_http(port=0)
+    results = [None] * len(jobs)
+    swap = {}
+    half = len(jobs) // 2
+
+    def fire(i, job):
+        delay = t0 + job["at"] - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        extra = ({"session_id": job["session_id"]}
+                 if "session_id" in job else {})
+        results[i] = GatewayClient("127.0.0.1", port).generate(
+            job["prompt"], job["mnew"], seed=i, model=job["model"],
+            priority=job["priority"], **extra)
+
+    def swapper():
+        delay = t0 + jobs[half]["at"] - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        s0 = time.perf_counter()
+        swap["result"] = fleet.hot_swap("llama", params=v1,
+                                        drain_timeout_s=600)
+        swap["seconds"] = time.perf_counter() - s0
+
+    threads = [threading.Thread(target=fire, args=(i, j))
+               for i, j in enumerate(jobs)]
+    threads.append(threading.Thread(target=swapper))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hung = _join_all(threads)
+    seconds = time.perf_counter() - t0
+    if hung:
+        raise AssertionError(f"{hung} fleet clients or the swap hung")
+    per_model = {}
+    for name in ("llama", "llama8"):
+        ok = [r for r, j in zip(results, jobs)
+              if j["model"] == name and r["status"] == 200]
+        ttfts = [1e3 * (r["times"][0] - r["t0"]) for r in ok if r["times"]]
+        n_tok = sum(len(r["tokens"]) for r in ok)
+        per_model[name] = {
+            "requests": sum(j["model"] == name for j in jobs),
+            "generated_tokens": n_tok, "tok_per_s": n_tok / seconds,
+            "ttft_p50_ms": _pct(ttfts, 50), "ttft_p99_ms": _pct(ttfts, 99),
+            "versions": sorted({r.get("version") for r in ok})}
+    row = {"requests": len(jobs), "seconds": seconds,
+           "per_model": per_model,
+           "priorities": {p: sum(j["priority"] == p for j in jobs)
+                          for p in FLEET_PRIORITIES},
+           "session_affinity": {
+               k: reg.value("fleet_session_affinity_total", result=k)
+               - v for k, v in aff0.items()},
+           "session_requests": sum("session_id" in j for j in jobs),
+           "swap": dict(swap["result"], seconds=swap["seconds"])}
+    return jobs, results, row
+
+
+def fleet_stream_check(cfg, cfg8, weights, jobs, results):
+    """Every response a 200 with exactly its tokens, on a version of its
+    model, and each stream equal to a synchronous engine's on the
+    weights of the version its label names. Returns (bad indices,
+    streams equal)."""
+    from mxtpu_torch.serve import Request
+    bad = [i for i, (r, j) in enumerate(zip(results, jobs))
+           if not (r["status"] == 200 and r["reason"] == "complete"
+                   and len(r["tokens"]) == j["mnew"]
+                   and r.get("model") == j["model"]
+                   and (j["model"], r.get("version")) in weights
+                   and all(0 <= t < cfg.vocab_size for t in r["tokens"]))]
+    groups = {}
+    for i, (r, j) in enumerate(zip(results, jobs)):
+        if i not in bad:
+            groups.setdefault((j["model"], r["version"]), {})[i] = Request(
+                prompt=j["prompt"], max_new_tokens=j["mnew"], seed=i)
+    equal = 0
+    for key, reqs in groups.items():
+        want = sync_streams(cfg8 if key[0] == "llama8" else cfg,
+                            weights[key], reqs)
+        equal += sum(np.array_equal(np.asarray(results[i]["tokens"]),
+                                    want[i]) for i in reqs)
+    return bad, equal == len(jobs) and not bad
+
+
+def fleet_path_swap(fleet, cfg, directory):
+    """(c): ``save_state`` of a seeded v2 tree made on the card, then
+    ``hot_swap("llama", path=...)``, the load inside it timed; the
+    served tree's leaf digests against the saved tree's; then the two
+    parts of a save of the largest leaf, its copy to the host and the
+    sha256 of its bytes, each timed alone. Returns (the loaded tree,
+    numbers)."""
+    import hashlib
+    import torch
+    from mxtpu_torch import checkpoint
+    from mxtpu_torch.models import llama
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    v2 = llama.init_params(cfg, gen, device="cuda")
+    gb = sum(t.numel() * t.element_size()
+             for _, t in _leaves_with_keys(v2)) / 1e9
+    want = tree_digests(v2)
+    path = os.path.join(directory, "v2")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_state(path, v2)
+    save_s = time.perf_counter() - t0
+    big = max((t for _, t in _leaves_with_keys(v2)), key=torch.Tensor.numel)
+    t0 = time.perf_counter()
+    host = big.to("cpu")
+    t1 = time.perf_counter()
+    hashlib.sha256(memoryview(host.reshape(-1).view(torch.uint8).numpy()))
+    leaf = {"gb": big.numel() * big.element_size() / 1e9,
+            "to_host_s": t1 - t0, "sha256_s": time.perf_counter() - t1}
+    del v2, big, host
+    torch.cuda.empty_cache()
+    load, timed = checkpoint.load_state, {}
+
+    def timed_load(*args, **kw):
+        t0 = time.perf_counter()
+        out = load(*args, **kw)
+        torch.cuda.synchronize()
+        timed.setdefault("load_s", []).append(time.perf_counter() - t0)
+        return out
+
+    checkpoint.load_state = timed_load
+    try:
+        t0 = time.perf_counter()
+        res = fleet.hot_swap("llama", path=path, drain_timeout_s=600)
+        swap_s = time.perf_counter() - t0
+    finally:
+        checkpoint.load_state = load
+    loaded = fleet.pool("llama").replicas()[0].engine.params
+    shared = all(r.engine.params is loaded
+                 for r in fleet.pool("llama").replicas())
+    got = tree_digests(loaded)
+    load_s = timed["load_s"]
+    return loaded, {"gb": gb, "save_s": save_s, "save_gbps": gb / save_s,
+                    "load_s": load_s[0], "load_gbps": gb / load_s[0],
+                    "loads": len(load_s), "swap_s": swap_s, "swap": res,
+                    "largest_leaf": leaf, "bit_equal": got == want,
+                    "one_tree_shared": shared}
+
+
+def fleet_kill_mid_swap(fleet, cfg, v1):
+    """(d): a burst on "llama" with one request pinned to replica 1 for
+    long enough to stay a live old-build home, a ``ServeChaosPlan``
+    killing replica 0 at its next step, then ``hot_swap("llama",
+    params=v1)``. Returns (requests, handles, numbers)."""
+    from mxtpu_torch import telemetry
+    from mxtpu_torch.contrib.chaos import ServeChaosPlan, attach_serve
+    from mxtpu_torch.serve import Request
+    rng = np.random.default_rng(SEED + 9)
+    reg = telemetry.registry()
+    rd0 = reg.value("gateway_redispatch_total", model="llama")
+    pool, gw = fleet.pool("llama"), fleet.gateway("llama")
+    reps = pool.replicas()
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, 64),
+                    max_new_tokens=n, seed=1000 + i)
+            for i, n in enumerate([FLEET_ANCHOR_NEW] + [32] * 6)]
+    hs = [gw.submit(reqs[0].prompt, reqs[0].max_new_tokens,
+                    seed=reqs[0].seed, prefer_replica=reps[1].name)]
+    hs += [gw.submit(r.prompt, r.max_new_tokens, seed=r.seed)
+           for r in reqs[1:]]
+    first = [h.ticket.replica.name for h in hs]
+    plan = attach_serve(pool, ServeChaosPlan(
+        seed=SEED, kill_replica={0: reps[0].engine.steps_run}))
+    t0 = time.perf_counter()
+    res = fleet.hot_swap("llama", params=v1, drain_timeout_s=600)
+    swap_s = time.perf_counter() - t0
+    for h in hs:
+        h.result(timeout=600)
+    return reqs, hs, {
+        "swap": res, "seconds": swap_s,
+        "killed": reps[0].name, "first_replica": first,
+        "served_by": [(h.version, getattr(h.ticket.replica, "name", None))
+                      for h in hs],
+        "injected": plan.injected["replica_kill"],
+        "redispatched": reg.value("gateway_redispatch_total",
+                                  model="llama") - rd0,
+        "reasons": sorted({h.reason for h in hs}),
+        "versions": sorted({h.version for h in hs})}
+
+
+def fleet_arbiter(fleet):
+    """(e): a FleetArbiter over the fleet's live pools on an injected
+    clock and scripted signals: "llama8" burns first and is granted the
+    free chip, then idles while "llama" burns, and the arbiter moves
+    "llama8"'s replica to "llama"."""
+    from mxtpu_torch import telemetry
+    from mxtpu_torch.serve.fleet import ArbiterPolicy, FleetArbiter
+    reg = telemetry.registry()
+    ev0 = {(m, d): reg.value("fleet_scale_events_total", model=m,
+                             direction=d)
+           for m in ("llama", "llama8") for d in ("up", "down")}
+    now = [0.0]
+    hot = {"pressure": 5.0, "occupancy": 1.0, "burn": 2.0, "queued": 10.0}
+    idle = {"pressure": 0.0, "occupancy": 0.0, "burn": 0.0, "queued": 0.0}
+    script = [(0.0, {"llama8": hot, "llama": idle}),
+              (0.5, {"llama8": idle, "llama": idle}),
+              (3.0, {"llama8": idle, "llama": hot})]
+    sig = {}
+    arb = FleetArbiter(
+        fleet._models,
+        ArbiterPolicy(chip_budget=4, cooldown_s=1.0, idle_s=1.0,
+                      pressure_high=2.0, burn_high=1.0),
+        clock=lambda: now[0],
+        signals=lambda n, e: dict(sig[n], size=float(e.pool.size)))
+    decisions = []
+    for t, s in script:
+        now[0] = t
+        sig.clear()
+        sig.update(s)
+        decisions.append([(d["model"], d["direction"], d["reason"],
+                           d["from"], d["to"]) for d in arb.tick()])
+    return {"decisions": decisions,
+            "sizes": {m: fleet.pool(m).size for m in fleet.models()},
+            "scale_events": {f"{m}/{d}": reg.value(
+                "fleet_scale_events_total", model=m, direction=d) - v
+                for (m, d), v in ev0.items()},
+            "chips_in_use": {m: reg.value("fleet_chips_in_use", model=m)
+                             for m in fleet.models()},
+            "chips_free": reg.value("fleet_chips_free")}
+
+
+def fleet_f32(cfg, params):
+    """(f): at SERVE_LAYERS layers in f32, ``f32_requests`` through a
+    two-replica fleet whose replica 0 a ``ServeChaosPlan`` kills
+    GATEWAY_KILL_STEP steps on, during a hot swap (to the same weights,
+    so every version's reference is one ``generate``), against batch-1
+    ``generate`` under the near-tie rule."""
+    import torch
+    from mxtpu_torch import telemetry
+    from mxtpu_torch.contrib.chaos import ServeChaosPlan, attach_serve
+    from mxtpu_torch.serve import ServeEngine
+    from mxtpu_torch.serve.fleet import FleetGateway, ModelSpec
+    reg = telemetry.registry()
+    rd0 = reg.value("gateway_redispatch_total", model="llama")
+    cfg4, p4 = f32_layers(cfg, params)
+    reqs = f32_requests(cfg4)
+    want = {i: generate_one(cfg4, p4, r, r.max_new_tokens)
+            for i, r in enumerate(reqs)}
+    fleet = FleetGateway([ModelSpec(
+        "llama", lambda params=p4: ServeEngine(
+            cfg4, params, max_slots=2, max_len=256, min_bucket=64,
+            device="cuda"), replicas=2, max_replicas=2)], queue_max=64,
+        supervisor_opts=GATEWAY_SUPERVISION)
+    try:
+        plan = attach_serve(fleet.pool("llama"), ServeChaosPlan(
+            seed=SEED, kill_replica={0: GATEWAY_KILL_STEP}))
+        hs = [fleet.submit(r.prompt, r.max_new_tokens, model="llama",
+                           temperature=r.temperature, top_k=r.top_k,
+                           top_p=r.top_p, seed=r.seed) for r in reqs]
+        swap = fleet.hot_swap("llama", params=p4, drain_timeout_s=600)
+        got = {i: h.result(timeout=600) for i, h in enumerate(hs)}
+        if any(h.reason != "complete" for h in hs):
+            raise AssertionError(
+                f"f32 fleet requests ended {[h.reason for h in hs]}")
+        injected = plan.injected["replica_kill"]
+        redispatched = reg.value("gateway_redispatch_total",
+                                 model="llama") - rd0
+    finally:
+        fleet.close()
+        del fleet
+        _release_gateway()
+    rows, ok = near_tie_rows(cfg4, p4, reqs, want, got)
+    del p4
+    torch.cuda.empty_cache()
+    # the kill must strand requests, so that the rows hold resumed
+    # streams to generate
+    return {"layers": SERVE_LAYERS, "rows": rows, "swap": swap,
+            "replica_kill": injected, "redispatched": redispatched,
+            "ok": ok and injected == 1 and redispatched >= 1}
+
+
+def fleet_run(cfg, params):
+    """(a)-(e) of ``fleet_phase`` on one fleet; returns their rows only,
+    so nothing that reaches the fleet's engines outlives the call."""
+    import shutil
+    import tempfile
+    import torch
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.serve import ServeEngine
+    from mxtpu_torch.serve.fleet import FleetGateway, ModelSpec
+    cfg8 = replace(cfg, n_layers=FLEET_SMALL_LAYERS)
+    p8 = llama.init_params(cfg8, torch.Generator(device="cuda").manual_seed(
+        SEED + 1), device="cuda")
+    v1 = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED + 2), device="cuda")
+    shape = dict(max_slots=GATEWAY_SLOTS, max_len=GATEWAY_MAX_LEN,
+                 min_bucket=GATEWAY_MAX_LEN // 12, device="cuda")
+
+    def factory(c, p):
+        return lambda params=p: ServeEngine(c, params, **shape)
+
+    directory = tempfile.mkdtemp(prefix="fleet-", dir=build_dir())
+    fleet = FleetGateway(
+        [ModelSpec("llama", factory(cfg, params), replicas=2,
+                   max_replicas=3),
+         ModelSpec("llama8", factory(cfg8, p8), replicas=1,
+                   max_replicas=2)],
+        queue_max=256, supervisor_opts=GATEWAY_SUPERVISION)
+    try:
+        fleet_warm(fleet, cfg)
+        jobs, results, http = fleet_http_swap(fleet, cfg, v1)
+        weights = {("llama", "v0"): params, ("llama", "v1"): v1,
+                   ("llama8", "v0"): p8}
+        malformed, http_equal = fleet_stream_check(cfg, cfg8, weights,
+                                                   jobs, results)
+        v2, path_row = fleet_path_swap(fleet, cfg, directory)
+        kreqs, khs, kill = fleet_kill_mid_swap(fleet, cfg, v1)
+        # every request finishes on the build that seated it (v2). A
+        # stream that never left its replica equals the fault-free one
+        # bit for bit; a re-dispatched one resumes through a bf16
+        # prefill of its prefix, which rounds unlike the decode steps,
+        # so it equals the fault-free one or parts first at a near-tie
+        # within SPEC_BF16_TIE_REL of |max| (the f32 check (f) holds
+        # resumed streams to generate at 1e-5)
+        if kill["versions"] == ["v2"]:
+            got = {i: h.result(timeout=1) for i, h in enumerate(khs)}
+            want = sync_streams(cfg, v2, dict(enumerate(kreqs)))
+            kill["rows"], kill["resumed_ok"] = parting_rows(
+                cfg, v2, kreqs, want, got,
+                lambda gap, pair, top: gap <= SPEC_BF16_TIE_REL * top)
+            kill["stayed_equal"] = [
+                bool(np.array_equal(got[i], want[i]))
+                for i, name in enumerate(kill["first_replica"])
+                if name != kill["killed"]]
+        # a supervisor respawn racing (d)'s swap can leave a third
+        # replica; the arbiter starts from the allocation of two
+        fleet.pool("llama").scale_to(2)
+        arbiter = fleet_arbiter(fleet)
+        versions = {m: st["version"]
+                    for m, st in fleet.state()["models"].items()}
+    finally:
+        fleet.close()
+        shutil.rmtree(directory, ignore_errors=True)
+    return dict(malformed=malformed, http=http, http_equal=http_equal,
+                path_row=path_row, kill=kill, arbiter=arbiter,
+                versions=versions)
+
+
+def fleet_phase(cfg, params):
+    """(k) in the docstring: the fleet control plane on the slice's
+    weights. The launch counts are set to 0 at its start and read at its
+    end."""
+    import torch
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    rows = fleet_run(cfg, params)
+    _release_gateway()
+    malformed, http, http_equal = (rows["malformed"], rows["http"],
+                                   rows["http_equal"])
+    path_row, kill, arbiter = rows["path_row"], rows["kill"], rows["arbiter"]
+    versions = rows["versions"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    f32 = fleet_f32(cfg, params)
+    _release_gateway()
+    launches = read_launches()
+    emit({"phase": "fleet", "card": nvidia_smi(), "config": "llama3_8b",
+          "models": {"llama": cfg.n_layers, "llama8": FLEET_SMALL_LAYERS},
+          "http": http, "stream_equal_to_sync_engines": http_equal,
+          "path_swap": path_row, "replica_kill_mid_swap": kill,
+          "arbiter": arbiter, "versions": versions, "f32_vs_generate": f32,
+          "peak_gb": peak_gb, "launches": launches})
+    if malformed:
+        raise AssertionError(f"fleet: requests {malformed} did not return "
+                             "200 with exactly their tokens")
+    if not http_equal:
+        raise AssertionError("fleet: a stream differs from the synchronous "
+                             "engine of its model and version")
+    if http["swap"]["still_draining"] or http["swap"]["version"] != "v1":
+        raise AssertionError(f"fleet: the live swap {http['swap']}")
+    if not (path_row["bit_equal"] and path_row["one_tree_shared"]
+            and path_row["loads"] == 1):
+        raise AssertionError(f"fleet: the path swap's tree {path_row}")
+    if not (kill["injected"] == 1 and kill["redispatched"] >= 1
+            and kill["reasons"] == ["complete"]
+            and kill["versions"] == ["v2"] and kill["resumed_ok"]
+            and kill["stayed_equal"] and all(kill["stayed_equal"])):
+        raise AssertionError(f"fleet: the replica kill mid-swap {kill}")
+    want = [[("llama8", "up", "hot", 1, 2)], [],
+            [("llama8", "down", "yield->llama", 2, 1),
+             ("llama", "up", "hot", 2, 3)]]
+    if arbiter["decisions"] != want or \
+            arbiter["scale_events"] != {"llama/up": 1, "llama/down": 0,
+                                        "llama8/up": 1, "llama8/down": 1}:
+        raise AssertionError(f"fleet: the arbiter decided {arbiter}")
+    if not f32["ok"]:
+        raise AssertionError(f"fleet in f32: no request re-dispatched, or "
+                             f"a stream differs from generate away from a "
+                             f"near-tie: {f32}")
+    if launches != only():
+        raise AssertionError(f"fleet launched {launches}")
+    return launches
+
+
+def flywheel_phase():
+    """6 (d) in the docstring: the train→serve flywheel at llama3_8b
+    widths and FLYWHEEL_LAYERS layers. The launch counts are set to 0 at
+    its start and read at its end."""
+    import shutil
+    import signal
+    import tempfile
+    import warnings
+    import torch
+    from mxtpu_torch import checkpoint, telemetry
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.parallel import optim, step as pstep
+    from mxtpu_torch.parallel._tree import tree_map
+    from mxtpu_torch.serve import Request, ServeEngine
+    from mxtpu_torch.serve.fleet import (FleetGateway, FlywheelController,
+                                         ModelSpec)
+    cfg = replace(llama.CONFIGS["llama3_8b"], n_layers=FLYWHEEL_LAYERS)
+    scfg = replace(cfg, param_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    params = llama.init_params(cfg, gen, device="cuda")
+    gb = sum(t.numel() * t.element_size()
+             for _, t in _leaves_with_keys(params)) / 1e9
+    # text-like data: tokens from a seeded Zipf unigram, so a few steps
+    # on one batch lower the loss of another batch of the same draw
+    rng = np.random.default_rng(SEED + 10)
+    zipf = 1.0 / np.arange(1, cfg.vocab_size + 1) ** 1.1
+    zipf = rng.permutation(zipf / zipf.sum())
+    batch, held = ({"tokens": torch.as_tensor(rng.choice(
+        cfg.vocab_size, (1, 2048), p=zipf), device="cuda")}
+        for _ in range(2))
+    reg = telemetry.registry()
+    fb0 = reg.value("checkpoint_total", kind="fallback")
+    reset_launches()
+    evaluate = pstep.make_eval_step(llama.loss_fn(cfg))
+    served = {"v0": tree_map(torch.Tensor.bfloat16, params)}
+    loss0 = evaluate(served["v0"], held).item()
+    tx = optim.adamw(FLYWHEEL_LR)
+    state = pstep.init_state(params, tx)
+    del params
+    train = pstep.make_train_step(llama.loss_fn(cfg), tx)
+    directory = tempfile.mkdtemp(prefix="flywheel-", dir=build_dir())
+    mgr = checkpoint.CheckpointManager(directory, max_to_keep=2,
+                                       async_save=True)
+    io = {"save_dispatch_s": [], "save_wait_s": [], "restore_s": []}
+    losses, gates, cands = [], {}, {}
+
+    def save(step, tree):
+        t0 = time.perf_counter()
+        mgr.wait_until_finished()
+        t1 = time.perf_counter()
+        mgr.save(step, tree)
+        io["save_wait_s"].append(t1 - t0)
+        io["save_dispatch_s"].append(time.perf_counter() - t1)
+
+    def steps(first, last):
+        nonlocal state
+        for i in range(first, last + 1):
+            state, loss = train(state, batch)
+            losses.append(loss.item())
+            save(i, state.params)
+
+    def load(ptr):
+        t0 = time.perf_counter()
+        tree = mgr.restore(int(ptr["step"]), device="cuda")
+        torch.cuda.synchronize()
+        io["restore_s"].append(time.perf_counter() - t0)
+        cands[int(ptr["step"])] = out = tree_map(torch.Tensor.bfloat16, tree)
+        del tree
+        return out
+
+    def gate(ptr, cand):
+        loss = evaluate(cand, held).item()
+        gates[int(ptr["step"])] = loss
+        return math.isfinite(loss) and loss < loss0
+
+    def engine(params, overlap=None):
+        return ServeEngine(scfg, params, max_slots=FLYWHEEL_SLOTS,
+                           max_len=FLYWHEEL_MAX_LEN, min_bucket=64,
+                           overlap=overlap, device="cuda")
+
+    reqs, handles = [], []
+
+    def traffic(n, **kw):
+        for _ in range(n):
+            r = Request(prompt=rng.integers(0, cfg.vocab_size, 64),
+                        max_new_tokens=FLYWHEEL_NEW, seed=len(reqs))
+            reqs.append(r)
+            handles.append(gw.submit(r.prompt, r.max_new_tokens,
+                                     seed=r.seed, **kw))
+
+    fleet = FleetGateway([ModelSpec(
+        "llama", lambda params=served["v0"]: engine(params), replicas=2,
+        max_replicas=2, slo={"ttft_ms": FLYWHEEL_TTFT_MS})], queue_max=64)
+    gw = fleet.gateway("llama")
+    fly = FlywheelController(
+        fleet, "llama", directory, load_candidate=load, eval_gate=gate,
+        canary_fraction=0.5, hold_ticks=2, burn_high=1.0,
+        max_rollbacks=2, anomaly_budget=10 ** 6,
+        poll_s=FLYWHEEL_POLL_S)
+    canary = stalled = dispatch = None
+    try:
+        traffic(2)
+        steps(1, 2)
+        mgr.publish(2)
+        # candidate 2 on the controller's own thread: canary, a clean
+        # hold, promote
+        fly.start()
+        deadline = time.monotonic() + 120
+        for action, after in (("canary", 0.01), ("promote", 0.05)):
+            while not any(h["action"] == action for h in fly.history) \
+                    and time.monotonic() < deadline:
+                time.sleep(after)
+            if action == "canary":
+                traffic(4)
+        fly.close()
+        promoted = fleet.pool("llama").version
+        # candidate 4 passes the gate, then its canary stalls: rollback
+        steps(3, 4)
+        mgr.publish(4)
+        fly.tick()
+        canary = [r for r in fleet.pool("llama").replicas()
+                  if r.version == "v2"]
+        stalled = canary[0].engine if canary else None
+        if stalled is not None:
+            dispatch = stalled._dispatch
+
+            def stall(firsts):
+                stalled._dispatch = dispatch     # once
+                time.sleep(FLYWHEEL_STALL_S)
+                return dispatch(firsts)
+
+            stalled._dispatch = stall
+            traffic(1, prefer_replica=canary[0].name)
+            handles[-1].result(timeout=600)
+        fly.tick()
+        after_rollback = fleet.pool("llama").version
+        traffic(2)
+        # a planted non-finite candidate: rejected at the gate
+        bad = dict(state.params)
+        bad["final_norm"] = torch.full_like(bad["final_norm"], math.nan)
+        save(5, bad)
+        mgr.publish(5)
+        fly.tick()
+        del bad
+        cands.pop(5, None)
+        after_bad = fleet.pool("llama").version
+        for h in handles:
+            h.result(timeout=600)
+        decisions = [(h["action"], h.get("step"), h.get("version"),
+                      h.get("reason")) for h in fly.history]
+        # the streams on each version against a synchronous engine on
+        # the candidate its canary served
+        served.update({h["version"]: cands[h["step"]] for h in fly.history
+                       if h["action"] == "canary"})
+        equal = True
+        for ver, tree in served.items():
+            idx = [i for i, h in enumerate(handles) if h.version == ver]
+            if not idx:
+                continue
+            eng = engine(tree, overlap=False)
+            want = serve_stream(eng, reqs, idx)
+            del eng
+            equal = equal and all(
+                h.reason == "complete" and np.array_equal(
+                    np.asarray(handles[i].result(timeout=1)), want[i])
+                for i, h in ((i, handles[i]) for i in idx))
+        versions_served = sorted({h.version for h in handles})
+    finally:
+        fly.close()
+        fleet.close()
+        handles.clear()
+        # every name that reaches an engine, so the collector frees the
+        # fleet's engines and the trees they serve now
+        canary = stalled = dispatch = None
+        del fleet, gw, fly
+        _release_gateway()
+    try:
+        # a torn latest step (one leaf file truncated): restore() falls
+        # back one step, counted
+        mgr.wait_until_finished()
+        with open(os.path.join(mgr.step_path(5), "leaf_0.bin"), "r+b") as f:
+            f.truncate(4096)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            back = mgr.restore(device="cuda")
+        fell_back = tree_map(torch.Tensor.bfloat16, back)
+        torn_ok = 4 in cands and all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(
+                _leaves_with_keys(fell_back), _leaves_with_keys(cands[4])))
+        del back, fell_back
+        fallbacks = reg.value("checkpoint_total", kind="fallback") - fb0
+        # SIGTERM under the guard: one final save
+        with checkpoint.PreemptionGuard(mgr) as guard:
+            os.kill(os.getpid(), signal.SIGTERM)
+            deadline = time.monotonic() + 60
+            while not guard.preempted and time.monotonic() < deadline:
+                time.sleep(0.01)
+            t0 = time.perf_counter()
+            guard.save_now(FLYWHEEL_STEPS + 2, state.params)
+            final_s = time.perf_counter() - t0
+        final = mgr.restore(FLYWHEEL_STEPS + 2, device="cuda")
+        final_ok = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            _leaves_with_keys(final), _leaves_with_keys(state.params)))
+        steps_kept = mgr.all_steps()
+        del final
+        mgr.close()
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    del state, served, cands
+    _release_gateway()
+    launches = read_launches()
+    evals = 1 + len(gates)
+    want = only(flash_attention_fwd=FLYWHEEL_STEPS * 2 * cfg.n_layers
+                + evals * cfg.n_layers,
+                flash_attention_bwd_dkv=FLYWHEEL_STEPS * cfg.n_layers,
+                flash_attention_bwd_dq=FLYWHEEL_STEPS * cfg.n_layers)
+    emit({"phase": "flywheel", "card": nvidia_smi(), "config": "llama3_8b",
+          "n_layers": cfg.n_layers, "lr": FLYWHEEL_LR, "losses": losses,
+          "held_out_loss0": loss0, "gate_losses": gates,
+          "decisions": decisions, "promoted": promoted,
+          "after_rollback": after_rollback, "after_bad": after_bad,
+          "versions_served": versions_served, "streams_equal": equal,
+          "checkpoint_gb": gb, **io,
+          "torn_fallbacks": fallbacks,
+          "torn_warnings": [str(w.message)[:160] for w in caught],
+          "torn_fell_back_to_4": torn_ok,
+          "preempted_signum": guard.signum, "final_save_s": final_s,
+          "final_equal": final_ok, "steps_kept": steps_kept,
+          "launches": launches, "want_launches": want})
+    actions = [d[0] for d in decisions]
+    if actions != ["canary", "promote", "canary", "rollback",
+                   "candidate_rejected"] or decisions[3][3] != "slo_burn" \
+            or decisions[4][3] != "gate":
+        raise AssertionError(f"flywheel decisions {decisions}")
+    if (promoted, after_rollback, after_bad) != ("v1", "v1", "v1"):
+        raise AssertionError(f"flywheel pool versions {promoted}, "
+                             f"{after_rollback}, {after_bad}")
+    if not (equal and versions_served == ["v0", "v1", "v2"]):
+        raise AssertionError(f"flywheel streams: equal {equal}, versions "
+                             f"{versions_served}")
+    if not (torn_ok and fallbacks == 1):
+        raise AssertionError(f"torn step: fell back to 4 {torn_ok}, "
+                             f"{fallbacks} fallbacks counted")
+    if not (guard.signum == signal.SIGTERM and final_ok
+            and steps_kept == [5, FLYWHEEL_STEPS + 2]):
+        raise AssertionError(f"the preemption save: {guard.signum}, "
+                             f"{final_ok}, {steps_kept}")
+    if launches != want:
+        raise AssertionError(f"flywheel launched {launches}, not {want}")
+    return launches
+
+
 def _counted():
     """Every kernel wrapper that counts its launches, by name."""
     from mxtpu_torch.ops import attention as A, conv as C
@@ -3848,9 +4665,11 @@ def main():
     rng_phase()
     torch.cuda.empty_cache()
     fwd_launches = slice_phase()
-    torch.cuda.empty_cache()
+    _release_gateway()        # what the serving tier's cycles still hold
     train_launches = train_phase()
     torch.cuda.empty_cache()
+    flywheel_launches = flywheel_phase()
+    _release_gateway()
     resnet_launches = resnet_phase()
     probe_launches = experiment_probe2_phase()
     frontend_launches = frontend_phase()
@@ -3860,7 +4679,8 @@ def main():
     mixtral_launches = mixtral_phase()
     bert_launches = bert_phase()
     telemetry_phase()
-    launches = {k: fwd_launches[k] + train_launches[k] + resnet_launches[k]
+    launches = {k: fwd_launches[k] + train_launches[k]
+                + flywheel_launches[k] + resnet_launches[k]
                 + probe_launches[k] + frontend_launches[k]
                 + random_launches[k] + serde_launches[k]
                 + mixtral_launches[k] + bert_launches[k]

@@ -1,7 +1,10 @@
 """What the port needs of ``mxtpu/base.py``: the error class, the
 numeric type tuples and the dtype-name table (the imperative frontend),
-the env-var knobs and their registry (telemetry and serving), and
-``atomic_write`` (the flight recorder's crash dump).
+the env-var knobs and their registry (telemetry and serving),
+``atomic_write`` (the flight recorder's crash dump), and the
+manifest-committed blob (``ManifestError``, ``manifest_commit``,
+``manifest_read``: the checkpoint's journal, publish pointer and leaf
+manifest), whose files either package reads.
 
 This is a copy, not an import: ``mxtpu`` is never imported by the port.
 The table maps MXNet's dtype names to ``torch.dtype``; ``bfloat16`` is a
@@ -17,7 +20,8 @@ import torch
 
 __all__ = ["MXNetError", "numeric_types", "integer_types", "DTYPES",
            "dtype_torch", "dtype_name", "env_int", "env_bool", "env_str",
-           "env_float", "registered_env_vars", "atomic_write"]
+           "env_float", "registered_env_vars", "atomic_write",
+           "ManifestError", "manifest_commit", "manifest_read"]
 
 
 class MXNetError(RuntimeError):
@@ -128,3 +132,70 @@ def atomic_write(path: str, data: bytes) -> None:
         except OSError:
             pass
         raise
+
+
+class ManifestError(MXNetError):
+    """A manifest-committed blob failed validation on read: the
+    manifest itself is torn/foreign, the payload file is missing, or
+    the payload's size/checksum disagrees with what the manifest
+    promised. Consumers treat this as "that commit never happened" and
+    fall back (previous checkpoint step, empty kvstore snapshot) —
+    never as data."""
+
+
+def manifest_commit(path: str, data: bytes) -> None:
+    """THE durable-commit discipline for crash-recovery state (kvstore
+    server snapshots and checkpoint data-position journals both ride
+    it): write ``data`` to ``path + '.payload'`` (atomic), then commit
+    by atomically writing a manifest at ``path`` recording the
+    payload's size + sha256. ``atomic_write`` alone guarantees each
+    FILE is untorn; the manifest adds end-to-end validation — a reader
+    can prove the payload it found is the payload the writer meant,
+    not a stale or half-committed one, and :func:`manifest_read`
+    refuses anything else with :class:`ManifestError`."""
+    import hashlib
+    import json
+    payload = os.fspath(path) + ".payload"
+    atomic_write(payload, data)
+    manifest = {"format": "mxtpu-manifest", "version": 1,
+                "payload": os.path.basename(payload),
+                "size": len(data),
+                "sha256": hashlib.sha256(data).hexdigest()}
+    atomic_write(path, json.dumps(manifest).encode())
+
+
+def manifest_read(path: str) -> bytes:
+    """Read back a :func:`manifest_commit` blob, validating size and
+    checksum. Raises :class:`ManifestError` for ANY inconsistency
+    (torn/foreign manifest, missing payload, checksum mismatch) and
+    ``FileNotFoundError`` only when no manifest exists at all."""
+    import hashlib
+    import json
+    path = os.fspath(path)
+    with open(path, "rb") as f:
+        raw = f.read()
+    try:
+        manifest = json.loads(raw)
+        if manifest.get("format") != "mxtpu-manifest":
+            raise ValueError("not an mxtpu manifest")
+        payload_name = manifest["payload"]
+        size = int(manifest["size"])
+        sha = manifest["sha256"]
+    except Exception as e:
+        raise ManifestError(
+            f"manifest {path!r} is torn or foreign ({e!r})") from e
+    payload = os.path.join(os.path.dirname(os.path.abspath(path)),
+                           payload_name)
+    try:
+        with open(payload, "rb") as f:
+            data = f.read()
+    except OSError as e:
+        raise ManifestError(
+            f"manifest {path!r} names payload {payload_name!r} which "
+            f"cannot be read ({e})") from e
+    if len(data) != size or hashlib.sha256(data).hexdigest() != sha:
+        raise ManifestError(
+            f"payload {payload_name!r} does not match manifest "
+            f"{path!r} (size {len(data)} vs {size}) — torn or stale "
+            "commit")
+    return data

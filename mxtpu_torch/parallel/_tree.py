@@ -1,8 +1,10 @@
 """Parameter trees: nested dicts, tuples and NamedTuples of tensors,
-walked in insertion order (the port's counterpart of ``jax.tree``)."""
+walked in insertion order (the port's counterpart of ``jax.tree``), and
+their key paths as jax names them (``tree_flatten_with_path``,
+``key_str``)."""
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, NamedTuple, Tuple
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -21,3 +23,56 @@ def tree_leaves(tree: Any) -> List[Any]:
     out: List[Any] = []
     tree_map(out.append, tree)
     return out
+
+
+class DictKey(NamedTuple):
+    key: Any
+
+
+class SequenceKey(NamedTuple):
+    idx: int
+
+
+class GetAttrKey(NamedTuple):
+    name: str
+
+
+def key_str(k) -> str:
+    """Canonical string for one tree path entry (a copy of
+    ``mxtpu/parallel/sharding.py``'s ``key_str``, over the entries of
+    :func:`tree_flatten_with_path`, which mirror jax's key types)."""
+    if hasattr(k, "key"):
+        return str(k.key)
+    if hasattr(k, "idx"):
+        return str(k.idx)
+    if hasattr(k, "name"):
+        return str(k.name)
+    return str(k)
+
+
+def tree_flatten_with_path(tree: Any, prefix: Tuple = ()
+                           ) -> List[Tuple[Tuple, Any]]:
+    """``(path, leaf)`` for every leaf, as ``jax.tree_util
+    .tree_flatten_with_path`` walks a tree: a dict by sorted key, a
+    NamedTuple by field, a tuple or list by index, and ``None`` an empty
+    subtree (no leaf)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tree_flatten_with_path(tree[k],
+                                                prefix + (DictKey(k),))]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [x for f, v in zip(tree._fields, tree)
+                for x in tree_flatten_with_path(v,
+                                                prefix + (GetAttrKey(f),))]
+    if isinstance(tree, (tuple, list)):
+        return [x for i, v in enumerate(tree)
+                for x in tree_flatten_with_path(v,
+                                                prefix + (SequenceKey(i),))]
+    return [(prefix, tree)]
+
+
+def path_str(path: Tuple) -> str:
+    """A path of :func:`tree_flatten_with_path` as ``a/b/0``."""
+    return "/".join(key_str(k) for k in path)

@@ -184,7 +184,10 @@ def test_port_imports_no_jax():
             "mxtpu_torch.serve.gateway.frontdoor, "
             "mxtpu_torch.serve.gateway.autoscale, "
             "mxtpu_torch.serve.gateway.disagg, mxtpu_torch.contrib, "
-            "mxtpu_torch.contrib.chaos\n"
+            "mxtpu_torch.contrib.chaos, mxtpu_torch.checkpoint, "
+            "mxtpu_torch.serve.fleet, mxtpu_torch.serve.fleet.fleet, "
+            "mxtpu_torch.serve.fleet.arbiter, "
+            "mxtpu_torch.serve.fleet.flywheel\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxtpu' or "
             "m.startswith('mxtpu.')]\n"

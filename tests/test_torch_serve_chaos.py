@@ -774,3 +774,82 @@ def test_chaos_plan_refuses_what_the_reference_refuses(model):
             attach_serve(gw, ServeChaosPlan(kill_prefill={0: 0}))
     finally:
         gw.close()
+
+
+# ---------------------------------------------------------------------------
+# a replica kill during a fleet hot swap
+# ---------------------------------------------------------------------------
+def test_fleet_replica_kill_mid_swap_matches_reference(model):
+    """``tests/test_serve_chaos.py``'s fleet swap under fire on the port:
+    an old-build replica chaos-killed DURING a live hot swap. Zero
+    accepted requests dropped; everything accepted on the old build
+    finishes on it (the version-aware re-dispatch lands on the
+    still-draining old replica, never on the new weights), so every
+    stream is the reference stream of the weights its version names.
+    The anchor's replica is slowed to 50 ms a step, so it outlives the
+    kill's detection and stays a live old-build home for the re-dispatch
+    (on the CPU the port's engines build no programs that would hold it
+    busy, as the reference's compiles do)."""
+    from mxtpu_torch.serve.fleet import FleetGateway, ModelSpec
+
+    reg = telemetry.registry()
+    rd0 = reg.value("gateway_redispatch_total", model="m")
+    jp1 = llama_refs.serve_weights(1)
+    p1 = tl.params_from_numpy(jax.tree.map(np.asarray, jp1), device="cpu")
+    ref_anchor = _ref(model, LONG["prompt"], LONG["mnew"],
+                      seed=LONG["seed"], temperature=LONG["temperature"])
+    ref_short = _ref(model, SHORT["prompt"], SHORT["mnew"],
+                     seed=SHORT["seed"], temperature=SHORT["temperature"])
+    ref_post = llama_refs.reference(
+        model[0], jp1, SHORT["prompt"], SHORT["mnew"], seed=SHORT["seed"],
+        temperature=SHORT["temperature"])
+    short = {"prompt": [int(t) for t in SHORT["prompt"]],
+             "max_new_tokens": SHORT["mnew"],
+             "temperature": SHORT["temperature"], "seed": SHORT["seed"]}
+    fleet = FleetGateway(
+        [ModelSpec("m", lambda params=model[3]: ServeEngine(
+            model[2], params, max_slots=2, max_len=32, min_bucket=4,
+            device="cpu"), replicas=2, max_replicas=2)],
+        supervisor_opts=SUP)
+    try:
+        reps = fleet.pool("m").replicas()
+        gw = fleet.gateway("m")
+        for r in reps:                           # warm both engines
+            gw.submit(SHORT["prompt"], 2, seed=50,
+                      prefer_replica=r.name).result(timeout=WAIT)
+        slow = reps[1].engine
+        dispatch = slow._dispatch
+
+        def slowed(firsts):
+            time.sleep(0.05)
+            return dispatch(firsts)
+
+        slow._dispatch = slowed
+        anchor = gw.submit(LONG["prompt"], LONG["mnew"],
+                           temperature=LONG["temperature"],
+                           seed=LONG["seed"], prefer_replica=reps[1].name)
+        burst = [fleet.submit_dict(dict(short)) for _ in range(4)]
+        plan = attach_serve(fleet.pool("m"), ServeChaosPlan(
+            seed=5, kill_replica={0: reps[0].engine.steps_run + 1}))
+        out = fleet.hot_swap("m", params=p1)
+        assert out["version"] == "v1" and out["swapped"] >= 1
+        assert out["still_draining"] == []
+        assert plan.injected["replica_kill"] == 1, plan.injected
+        assert list(anchor.result(timeout=WAIT)) == ref_anchor
+        assert (anchor.reason, anchor.version) == ("complete", "v0")
+        for i, h in enumerate(burst):
+            toks = list(h.result(timeout=WAIT))
+            assert (h.reason, h.version) == ("complete", "v0"), i
+            assert toks == ref_short, i
+        assert reg.value("gateway_redispatch_total",
+                         model="m") - rd0 >= 1
+        # a supervisor respawn racing the swap can leave an old-build
+        # replica in routing; retire it, as the reference's test does
+        for r in fleet.pool("m").replicas():
+            if r.version != "v1":
+                fleet.pool("m").drain_replica(r)
+        h = fleet.submit_dict(dict(short))
+        assert list(h.result(timeout=WAIT)) == ref_post
+        assert h.version == "v1"
+    finally:
+        fleet.close()
