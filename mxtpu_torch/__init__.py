@@ -4,7 +4,8 @@ The JAX package ``mxtpu`` is the reference; this package mirrors its
 module names (``context``, ``ndarray``, ``autograd``, ``rtc``,
 ``ops.attention``, ``models.llama``, ``models.resnet``,
 ``parallel.step``, ``serve``, ``serve.gateway``, ``contrib.chaos``,
-``telemetry``) so a reader finds each
+``telemetry``, ``gluon``, ``optimizer``, ``initializer``,
+``lr_scheduler``, ``model``) so a reader finds each
 counterpart; ``prng`` is the key chain of ``jax.random`` (its float32
 roundings of XLA's CPU math in ``xla_math``), ``random`` is
 ``mx.random``, ``serde`` the ``.params`` container; ``ops.conv``
@@ -29,3 +30,19 @@ nd = ndarray
 
 __all__ = ["autograd", "context", "ndarray", "nd", "random", "rtc",
            "MXNetError", "cpu", "gpu", "default_device"]
+
+# heavier subsystems load on first use, as the reference's do
+_LAZY = {"gluon": "mxtpu_torch.gluon", "optimizer": "mxtpu_torch.optimizer",
+         "initializer": "mxtpu_torch.initializer",
+         "init": "mxtpu_torch.initializer",
+         "lr_scheduler": "mxtpu_torch.lr_scheduler",
+         "model": "mxtpu_torch.model"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        mod = importlib.import_module(_LAZY[name])
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module 'mxtpu_torch' has no attribute {name!r}")

@@ -12,8 +12,11 @@ never freed by a ``backward``: ``retain_graph`` is accepted and not read,
 so a second ``backward`` on the same head works ('write' writes the same
 grads again, 'add' doubles them).
 
-The CachedOp branch of the reference's ``invoke`` (``_mx_cache_vjp``)
-serves gluon, which this package does not have yet: it raises.
+A hybridized Gluon block's call (the reference's CachedOp, whose
+``invoke`` branch defers the linearisation to a cached jitted backward)
+is one node like any op's here: its forward runs once under
+``enable_grad`` and its pullback is one ``torch.autograd.grad`` over the
+graph that run built, which torch keeps, so nothing is re-traced.
 """
 from __future__ import annotations
 
@@ -28,9 +31,6 @@ __all__ = [
     "is_recording", "is_training", "backward", "grad",
     "mark_variables", "Function",
 ]
-
-_GLUON_SLICE = ("the CachedOp tape path (gluon's hybridized blocks) comes "
-                "with the gluon slice (ROADMAP Queue A item 10.3)")
 
 _state = threading.local()
 
@@ -166,8 +166,6 @@ def invoke(raw_fn: Callable, arrays: Sequence[Any], parents: Sequence[Any],
     tracked = is_recording() and any(p is not None for p in parents)
     if not tracked:
         return raw_fn(*arrays), None
-    if getattr(raw_fn, "_mx_cache_vjp", False):
-        raise NotImplementedError(_GLUON_SLICE)
     ins = [a.detach().requires_grad_()
            if p is not None and _differentiable(a) else a
            for a, p in zip(arrays, parents)]

@@ -1,17 +1,23 @@
 """``mx.nd`` — the imperative NDArray API: the port of ``mxtpu/ndarray``.
 
-This slice holds the NDArray class, its constructors, the tape funnel
-and ``save``/``load`` (``ndarray.py``), and ``mx.nd.random``
-(``random.py``). The op namespace (``mx.nd.relu``, ``mx.nd.dot``, ...)
-comes with the op registry; until then every other name raises
-``AttributeError`` saying which slice brings it.
+The NDArray class, its constructors, the tape funnel and
+``save``/``load`` (``ndarray.py``), the registered op namespace
+(``ops.py``: ``mx.nd.relu``, ``mx.nd.dot``, ``mx.nd.Convolution``, ...)
+and ``mx.nd.random`` (``random.py``). The reference's other op names
+and submodules raise ``AttributeError`` saying which ROADMAP item
+brings them.
 """
 from .ndarray import (NDArray, array, empty, zeros, ones, full, arange,
-                      concat, stack, waitall, save, load, OPS_SLICE)
+                      concat, stack, waitall, save, load)
+from .ops import *  # noqa: F401,F403  — registered op namespace
+from .ops import OP_REGISTRY, register_op
+from .ops import __all__ as _ops_all
+from .ops_extended import LATER, LATER_SLICE
 from . import random
 
 __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
-           "concat", "stack", "waitall", "save", "load", "random"]
+           "concat", "stack", "waitall", "save", "load", "random"] + \
+    [n for n in _ops_all if n not in ("full", "concat", "stack")]
 
 _OTHER_SLICES = {
     "sparse": "mx.nd.sparse comes with the sparse slice, ROADMAP Queue A "
@@ -23,8 +29,9 @@ _OTHER_SLICES = {
 
 
 def __getattr__(name):
-    if name.startswith("__"):
-        raise AttributeError(name)
+    if name in _OTHER_SLICES:
+        raise AttributeError(_OTHER_SLICES[name])
+    if name in LATER:
+        raise AttributeError(f"mx.nd.{name} {LATER_SLICE}")
     raise AttributeError(
-        f"module 'mxtpu_torch.ndarray' has no attribute {name!r}: "
-        f"{_OTHER_SLICES.get(name, OPS_SLICE)}")
+        f"module 'mxtpu_torch.ndarray' has no attribute {name!r}")

@@ -20,8 +20,8 @@ Where the port differs from the reference, deliberately:
 - ``asnumpy()`` of a bfloat16 array returns float32, an exact widening.
 - ``load`` takes ``ctx``, None being the card; like the reference's,
   it makes float entries float32.
-- ``dot``/``pad`` (the op registry) and the profiler hook wait for
-  their slices and raise ``NotImplementedError``.
+- The profiler hook waits for its slice and raises
+  ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -41,8 +41,6 @@ __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
 
 _NAIVE = os.environ.get("MXNET_ENGINE_TYPE", "ThreadedEngine") == "NaiveEngine"
 
-OPS_SLICE = ("the op registry (mx.nd.<op>, NDArray.dot and NDArray.pad) "
-             "comes with ROADMAP Queue A item 10.1b")
 PROFILER_SLICE = ("the per-op profiler hook comes with the profiler, "
                   "ROADMAP Queue A item 10.4")
 
@@ -337,7 +335,7 @@ class NDArray:
         return type(self)(self._data.clone())
 
     def detach(self) -> "NDArray":
-        return type(self)(self._data)
+        return type(self)(self._data.detach())
 
     def to_dlpack(self):
         return torch.utils.dlpack.to_dlpack(self._data)
@@ -601,10 +599,12 @@ class NDArray:
             [self], "repeat")
 
     def pad(self, *a, **kw):
-        raise NotImplementedError(OPS_SLICE)
+        from . import ops
+        return ops.pad(self, *a, **kw)
 
     def dot(self, other):
-        raise NotImplementedError(OPS_SLICE)
+        from . import ops
+        return ops.dot(self, other)
 
     def zeros_like(self):
         return type(self)(torch.zeros_like(self._data))

@@ -951,6 +951,9 @@ class PrefillWorker:
             if pos <= true_len - 1 < pos + cw:
                 tok, rng_out = t, r
             todo.put((pos, kc, vc))
+        # the compute loop's end: what the span spends after it is the
+        # shipper's tail (host copies and the wire)
+        telemetry.instant("gateway.prefill_computed")
         todo.put(None)
         shipper.join()
         if fault:

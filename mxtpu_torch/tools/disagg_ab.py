@@ -9,11 +9,12 @@ give them in the order to run them (parent, change, change, parent).
 Each runs in a fresh interpreter that imports that checkout's package
 and script, builds ``CONFIGS["llama3_8b"]`` with bf16 params at all 32
 layers from the script's seed, as its ``slice_phase`` does, and then,
-``--rounds`` times, runs the script's own ``disagg_mode`` in the order
-and on the requests of its ``gateway_phase``: one-shot without the
-wire, one-shot, and streamed, each with one warm and DISAGG_TIMED timed
-requests. One JSON object a round: the checkout, each mode's TTFTs,
-median, worker span and stage medians, and whether streamed is below
+``--rounds`` times, runs the script's own ``disagg_mode`` on the
+requests of its ``gateway_phase`` as that phase does: the one-shot and
+streamed backends built together, one warm request each, then
+DISAGG_TIMED timed requests interleaved between them. One JSON object a
+round: the checkout, each mode's TTFTs, median, worker span and stage
+medians, the paired differences, and whether streamed is below
 one-shot (the phase's check), with the card's name and power limit.
 
 Run it by path, not with ``-m``: the package it measures is the
@@ -32,34 +33,29 @@ from dataclasses import replace
 
 def _one(root: str, rounds: int) -> None:
     sys.path.insert(0, os.path.abspath(root))
-    import numpy as np
     import torch
     import chip_smoke as cs
     from mxtpu_torch.models import llama
-    from mxtpu_torch.serve import Request
     card = cs.nvidia_smi()
     cfg = replace(llama.CONFIGS["llama3_8b"], param_dtype=torch.bfloat16)
     params = llama.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(cs.SEED),
         device="cuda")
-    rng = np.random.default_rng(cs.SEED + 6)
-    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, cs.DISAGG_PROMPT),
-                    max_new_tokens=cs.DISAGG_NEW,
-                    temperature=cs.DISAGG_TEMPERATURE, seed=i)
-            for i in range(1 + cs.DISAGG_TIMED)]
+    reqs = cs.disagg_requests(cfg)
     for k in range(rounds):
         row = {"root": root, "round": k, "card": card}
-        for name, chunk, wire in (
-                ("one_shot_no_wire", 0, None),
-                ("one_shot", 0, cs.DISAGG_WIRE_MBPS),
-                ("streamed", cs.DISAGG_CHUNK, cs.DISAGG_WIRE_MBPS)):
-            _, _, r = cs.disagg_mode(
-                cfg, params, reqs[1:], chunk, max_slots=2,
-                max_len=cs.DISAGG_MAX_LEN, throttle=wire, warm=reqs[0])
-            torch.cuda.empty_cache()
+        modes = cs.disagg_mode(
+            cfg, params, reqs[1:], {"one_shot": (0, cs.DISAGG_WIRE_MBPS),
+                                    "streamed": (cs.DISAGG_CHUNK,
+                                                 cs.DISAGG_WIRE_MBPS)},
+            max_slots=2, max_len=cs.DISAGG_MAX_LEN, warm=reqs[0])
+        torch.cuda.empty_cache()
+        for name, (_, _, r) in modes.items():
             row[name] = {n: r[n] for n in (
-                "ttft_ms", "median_ttft_ms", "worker_span_mean_ms",
+                "ttft_ms", "median_ttft_ms", "worker_span_ms",
                 "stages_median_ms")}
+        row["paired"] = cs.disagg_pairs(modes["one_shot"][1],
+                                        modes["streamed"][1])
         row["streamed_below_one_shot"] = (
             row["streamed"]["median_ttft_ms"]
             < row["one_shot"]["median_ttft_ms"])

@@ -25,7 +25,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["fma", "log", "log1p", "erf_inv", "lgamma", "rsqrt"]
+__all__ = ["fma", "log", "log1p", "erf_inv", "lgamma", "digamma",
+           "rsqrt"]
 
 _F32_MIN_NORMAL = 1.1754943508222875e-38
 _VELTKAMP_64 = 134217729.0                # 2^27 + 1 splits a float64 in two
@@ -304,3 +305,27 @@ def lgamma(x: torch.Tensor) -> torch.Tensor:
     out = lead + log(series)
     out = torch.where(x < 0.5, math.nan, out)
     return torch.where(torch.abs(x) == math.inf, math.inf, out)
+
+
+_LANCZOS_BASE = 1.0                         # f32(0.99999999999980993)
+_LANCZOS_G = 7.0
+
+
+def digamma(x: torch.Tensor) -> torch.Tensor:
+    """``jax.lax.digamma`` in float32 for x >= 0.5 (XLA's Lanczos branch,
+    the derivative of :func:`lgamma`'s series; NaN below 0.5): with
+    z = x - 1 and t = z + 7.5, ``log t + num / denom - 7 / t``, where
+    num = -Σ c_i / (z + i + 1)² and denom = 1 + Σ c_i / (z + i + 1)."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"digamma takes float32, not {x.dtype}")
+    z = x - 1.0
+    num = _full(x, 0.0)
+    denom = _full(x, _LANCZOS_BASE)
+    for i, c in enumerate(_LANCZOS):
+        zi = z + float(i + 1)
+        num = num - _full(x, c) / (zi * zi)
+        denom = denom + _full(x, c) / zi
+    t = z + _LANCZOS_G_HALF
+    log_t = log1p(z * _INV_LANCZOS_G_HALF) + _LOG_LANCZOS_G_HALF
+    out = log_t + num / denom - _full(x, _LANCZOS_G) / t
+    return torch.where(x < 0.5, math.nan, out)

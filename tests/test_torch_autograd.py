@@ -291,14 +291,21 @@ def test_multi_output_apply_op():
 
 
 def test_gluon_cached_op_path_raises():
+    """A CachedOp-marked function (the reference's ``_mx_cache_vjp``)
+    raises no more: the tape records it as one node like any op, whose
+    pullback gives the function's gradient."""
     from mxtpu_torch import autograd as tag
 
     def fn(t):
         return t * 2.0
     fn._mx_cache_vjp = True
     x = PORT.leaf(X)
-    with tag.record(), pytest.raises(NotImplementedError, match="gluon"):
-        tag.invoke(fn, [x._data], [x._ag_leaf])
+    with tag.record():
+        out, node = tag.invoke(fn, [x._data], [x._ag_leaf])
+    assert node is not None
+    np.testing.assert_array_equal(out.numpy(), X * 2.0)
+    (g,) = node.vjp_fn(torch.ones_like(out))
+    np.testing.assert_array_equal(g.numpy(), np.full_like(X, 2.0))
 
 
 def test_tape_keeps_saved_tensors_through_writes():

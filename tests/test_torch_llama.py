@@ -187,7 +187,18 @@ def test_port_imports_no_jax():
             "mxtpu_torch.contrib.chaos, mxtpu_torch.checkpoint, "
             "mxtpu_torch.serve.fleet, mxtpu_torch.serve.fleet.fleet, "
             "mxtpu_torch.serve.fleet.arbiter, "
-            "mxtpu_torch.serve.fleet.flywheel\n"
+            "mxtpu_torch.serve.fleet.flywheel, mxtpu_torch.ndarray.ops, "
+            "mxtpu_torch.ndarray.ops_extended, mxtpu_torch.model, "
+            "mxtpu_torch.lr_scheduler, mxtpu_torch.optimizer, "
+            "mxtpu_torch.initializer, mxtpu_torch.gluon, "
+            "mxtpu_torch.gluon.block, mxtpu_torch.gluon.parameter, "
+            "mxtpu_torch.gluon.nn, mxtpu_torch.gluon.loss, "
+            "mxtpu_torch.gluon.trainer, mxtpu_torch.gluon.utils, "
+            "mxtpu_torch.gluon.model_zoo, "
+            "mxtpu_torch.gluon.model_zoo.llama, "
+            "mxtpu_torch.gluon.model_zoo.vision\n"
+            "assert mxtpu_torch.gluon is mxtpu_torch.gluon and "
+            "mxtpu_torch.init is mxtpu_torch.initializer\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxtpu' or "
             "m.startswith('mxtpu.')]\n"
