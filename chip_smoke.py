@@ -431,6 +431,41 @@ host's cost of a call.
    losses, the first within 1.0 of ln 1000, every BatchNorm running
    mean moved; img/s beside the functional ``resnet_train``'s (bf16
    compute too), peak GB; no port kernel launches (cuDNN's convs).
+   (c) ``gluon_fused``: ``Trainer.make_fused_step`` on the same
+   GluonLlama, weights and batch, the net sharded on
+   ``create_mesh(dp=-1)``: one CUDA graph of forward, backward (the
+   three flash kernels inside) and update. sgd (lr 3e-4) for 3 steps:
+   the losses within 1e-4 relative of ``make_train_step``'s; adamw (lr
+   3e-6, set to 6e-6 before step 3) for 4 steps: finite, the last below
+   the first; ``num_compiles()`` 1 after every step. The first call
+   launches twice one step's kernels (its step, run eagerly as the
+   capture's warm-up, and the captured one: 8 forward, 4 of each
+   backward kernel a step), a replay none.
+   Step seconds (the first holds the capture), tokens/s and peak GB
+   beside the classic path's. (d) ``gluon_fused_resnet``: the zoo's
+   ResNet-50 behind a block that normalizes uint8 NHWC images on the
+   card, bf16 on float32 masters (``multi_precision`` SGD, momentum
+   0.9), ``make_fused_step(grad_accum=2)`` at batch 256, fed from an
+   in-memory ``ArrayDataset`` of 512 seeded uint8 images through
+   ``DataLoader(num_workers=4, pin_memory=True)`` and
+   ``DevicePrefetcher(depth=2)`` for 2 epochs (4 steps; the first step
+   waits for the workers' start): finite losses, one graph,
+   every BatchNorm running mean moved, the first step held against the
+   classic ``Trainer(multi_precision=True)`` from the same weights on
+   the same batch (two microbatch backwards accumulated, one
+   ``step(2)``): the losses within 2**-6, each float32 master's update
+   and each BatchNorm statistic's change within 2**-3 and 2**-5 (L2)
+   of the classic one's; img/s, the prefetcher's
+   data-wait p50/p99 and peak GB; then, in float16 with dynamic
+   AMP at batch 64 on freshly initialized weights, a step from a loss
+   scale of 2**126 overflows: the trained parameters bit-equal, the
+   scale 2**125, no applied update; from a scale of 1 the next
+   applies. (e) ``gluon_rnn``: a hybridized word LM (Embedding 33278×650, 2-layer ``gluon.rnn.LSTM``
+   650, Dense to the vocabulary), the WikiText-2 "medium" shape of
+   MXNet's ``word_language_model`` example (bptt 35, batch 32), 3
+   classic ``Trainer("sgd")`` steps on seeded tokens: finite losses, the
+   first within 1.0 of ln 33278; step seconds. (d) and (e) launch none
+   of the port's kernels.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result when no
@@ -3730,11 +3765,15 @@ def gluon_phase():
     if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"Gluon adamw losses {losses} are not finite "
                              "and falling")
+    fused = gluon_fused_run(cfg, tokens, want,
+                            {"sgd": sgd[1], "adamw": adamw[1]})
     del tokens
     torch.cuda.empty_cache()
     resnet = gluon_resnet_run()
-    return {k: sum(n[k] for n in every) + resnet[k]
-            for k in LAUNCH_COUNTERS}
+    fused_resnet = gluon_fused_resnet_run()
+    rnn = gluon_rnn_run()
+    return {k: sum(n[k] for n in every) + resnet[k] + fused[k]
+            + fused_resnet[k] + rnn[k] for k in LAUNCH_COUNTERS}
 
 
 def gluon_resnet_run():
@@ -3792,6 +3831,8 @@ def gluon_resnet_run():
              if name.endswith("running_mean")]
     moved = sum(bool((m != 0).any()) for m in means)
     launches = read_launches()
+    # the fused run prints this beside its own
+    READINGS["gluon_resnet_img_per_s"] = [n / t for t in seconds]
     emit({"phase": "gluon_resnet", "card": nvidia_smi(),
           "config": "resnet50_v1", "batch": n, "image": [3, 224, 224],
           "eval_dtype": eval_dtype, "logits": eval_shape,
@@ -3800,7 +3841,7 @@ def gluon_resnet_run():
           "eval_ms": eval_ms, "eval_img_per_s": n / (eval_ms / 1e3),
           "eval_peak_gb": eval_peak, "losses": losses,
           "ln_classes": math.log(1000), "step_seconds": seconds,
-          "img_per_s": [n / t for t in seconds],
+          "img_per_s": READINGS["gluon_resnet_img_per_s"],
           "bn_means_moved": moved, "bn_layers": len(means),
           "peak_gb": train_peak, "launches": launches})
     if not (finite and eval_shape == [n, 1000]
@@ -3821,6 +3862,451 @@ def gluon_resnet_run():
     if launches != only():
         raise AssertionError(f"the Gluon ResNet path launched {launches}")
     del net, trainer, images, loss
+    _release_gateway()
+    return launches
+
+
+GLUON_FUSED_STEPS = 4          # adamw: an lr edit before step 3
+FUSED_RESNET_STEPS = 4
+FUSED_RESNET_WORKERS = 4
+FUSED_RESNET_IMAGE = 224
+FUSED_AMP_BATCH = 64
+# the fused step's first step against the classic Trainer's on the same
+# weights and batch (bf16 compute): the losses within one bf16 rounding
+# of each other and a few roundings' slack; the float32 masters' update
+# and the BatchNorm statistics' change, each tensor's within this share
+# (L2) of its own, against the classic path's
+FUSED_CLASSIC_LOSS_REL = 2.0 ** -6
+FUSED_CLASSIC_UPDATE_REL = 2.0 ** -3
+FUSED_CLASSIC_STATS_REL = 2.0 ** -5
+RNN_VOCAB, RNN_EMBED, RNN_HIDDEN, RNN_LAYERS = 33278, 650, 650, 2
+RNN_BPTT, RNN_BATCH, RNN_STEPS = 35, 32, 3
+
+
+def _fused_net(cfg):
+    """GluonLlama over the train phase's seeded weights, hybridized and
+    sharded on the one-device mesh ``make_fused_step`` takes."""
+    import torch
+    from mxtpu_torch.gluon.model_zoo import GluonLlama
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.parallel.mesh import create_mesh
+    from mxtpu_torch.parallel.sharding import P, ShardingRules
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    net = GluonLlama(cfg)
+    net.load_pytree(llama.init_params(cfg, gen, device="cuda"))
+    net.hybridize()
+    net.shard(create_mesh(dp=-1), ShardingRules([(r".*", P())]))
+    return net
+
+
+def gluon_fused_steps(cfg, tokens, opt, lr, steps, edit_at=None):
+    """``Trainer.make_fused_step`` on GluonLlama: the losses, step
+    seconds and launches of each step, the captures, and the peak GB.
+    With ``edit_at``, ``trainer.set_learning_rate(2 lr)`` before that
+    step."""
+    import torch
+    import mxtpu_torch as mx
+    from mxtpu_torch.gluon import Trainer
+    torch.cuda.reset_peak_memory_stats()
+    net = _fused_net(cfg)
+    trainer = Trainer(net.collect_params(), opt, {"learning_rate": lr})
+    step = trainer.make_fused_step(net)      # net(tokens, tokens) -> loss
+    tok = mx.nd.NDArray(tokens)
+    losses, seconds, launches, compiles = [], [], [], []
+    for i in range(steps):
+        if i == edit_at:
+            trainer.set_learning_rate(2 * lr)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        losses.append(float(step(tok, tok).asscalar()))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches.append(read_launches())
+        compiles.append(step.num_compiles())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del net, trainer, step, tok
+    _release_gateway()
+    return losses, seconds, launches, compiles, peak
+
+
+def gluon_fused_run(cfg, tokens, want, classic_seconds):
+    """(c) of ``gluon``: the one-program step (one CUDA graph) at the
+    classic run's width, weights and batch; ``classic_seconds`` are
+    the classic steps' seconds of this run, printed beside."""
+    import torch
+    sgd = gluon_fused_steps(cfg, tokens, "sgd", GLUON_SGD_LR, TRAIN_STEPS)
+    adamw = gluon_fused_steps(cfg, tokens, "adamw", GLUON_ADAMW_LR,
+                              GLUON_FUSED_STEPS, edit_at=2)
+    ntok = tokens.numel()
+    rel = [abs(a - b) / abs(b) for a, b in zip(sgd[0], want)]
+    per_step = only(flash_attention_fwd=2 * cfg.n_layers,
+                    flash_attention_bwd_dkv=cfg.n_layers,
+                    flash_attention_bwd_dq=cfg.n_layers)
+    at_capture = {k: 2 * v for k, v in per_step.items()}
+    emit({"phase": "gluon_fused", "card": nvidia_smi(),
+          "config": "llama3_8b", "n_layers": cfg.n_layers,
+          "tokens_per_step": ntok,
+          "sgd": {"lr": GLUON_SGD_LR, "losses": sgd[0],
+                  "make_train_step_losses": want, "rel": rel,
+                  "bound": GLUON_LOSS_REL, "step_seconds": sgd[1],
+                  "tokens_per_s": [ntok / t for t in sgd[1]],
+                  "launches": sgd[2], "num_compiles": sgd[3],
+                  "peak_gb": sgd[4]},
+          "adamw": {"lr": GLUON_ADAMW_LR, "lr_edit": [2, 2 * GLUON_ADAMW_LR],
+                    "losses": adamw[0], "step_seconds": adamw[1],
+                    "tokens_per_s": [ntok / t for t in adamw[1]],
+                    "launches": adamw[2], "num_compiles": adamw[3],
+                    "peak_gb": adamw[4]},
+          "launches_at_capture": at_capture,
+          "classic_step_seconds": classic_seconds})
+    for name, run in (("sgd", sgd), ("adamw", adamw)):
+        if run[2][0] != at_capture or any(n != only() for n in run[2][1:]):
+            raise AssertionError(f"fused {name} launched {run[2]}: the "
+                                 f"capture call {at_capture}, replays none")
+        if any(c != 1 for c in run[3]):
+            raise AssertionError(f"fused {name} built {run[3]} variants, "
+                                 "not one CUDA graph")
+    if not all(r <= GLUON_LOSS_REL for r in rel):
+        raise AssertionError(f"fused sgd losses {sgd[0]} are not within "
+                             f"{GLUON_LOSS_REL} of make_train_step's {want}")
+    losses = adamw[0]
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"fused adamw losses {losses} are not finite "
+                             "and falling")
+    torch.cuda.empty_cache()
+    return {k: sum(n[k] for n in sgd[2] + adamw[2])
+            for k in LAUNCH_COUNTERS}
+
+
+def _preprocess_block():
+    """uint8 NHWC images to normalized NCHW in the block's ``dtype``,
+    inside the step (the class is made here: it needs the port)."""
+    import mxtpu_torch as mx
+
+    class Preprocess(mx.gluon.HybridBlock):
+        dtype = "float32"
+
+        def hybrid_forward(self, F, x):
+            x = x.astype("float32") / 255.0 - 0.45
+            return x.transpose((0, 3, 1, 2)).astype(self.dtype) / 0.225
+
+    return Preprocess(prefix="pre_")
+
+
+def _zoo_resnet50(n_probe=2):
+    """``get_model("resnet50_v1")`` behind the preprocessing block,
+    initialized and its shapes resolved, in f32."""
+    import torch
+    import mxtpu_torch as mx
+    mx.random.seed(SEED)
+    body = mx.gluon.model_zoo.vision.get_model("resnet50_v1")
+    body.initialize(mx.initializer.Xavier(magnitude=2), ctx="cuda")
+    with mx.autograd.predict_mode():
+        body(mx.nd.NDArray(torch.zeros(
+            (n_probe, 3, FUSED_RESNET_IMAGE, FUSED_RESNET_IMAGE),
+            device="cuda")))
+    pre = _preprocess_block()
+    net = mx.gluon.nn.HybridSequential(prefix="fr_")
+    net.add(pre, body)
+    return net, pre
+
+
+def _fused_resnet_step(net, pre, dtype, batch_args, **trainer_kw):
+    import mxtpu_torch as mx
+    from mxtpu_torch.parallel.mesh import create_mesh
+    from mxtpu_torch.parallel.sharding import P, ShardingRules
+    net.cast(dtype)
+    pre.dtype = dtype
+    net.hybridize()
+    net.shard(create_mesh(dp=-1), ShardingRules([(r".*", P())]))
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9,
+                                "multi_precision": True})
+    amp = trainer_kw.pop("amp", None)
+    if amp is not None:
+        mx.amp.init(amp)
+        mx.amp.init_trainer(trainer)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    step = trainer.make_fused_step(
+        net, loss_fn=lambda out, y: loss_fn(out, y).mean(), loss_args=1,
+        **batch_args)
+    return trainer, step
+
+
+def _fused_vs_classic_resnet(first, names, w0, stat_names):
+    """The classic ``Trainer(multi_precision=True)`` from the fused
+    run's starting weights (the same seed; checked bit for bit) on its
+    first batch: two microbatch backwards accumulated
+    (``grad_req="add"``), one ``step(2)``; its loss, float32 masters
+    and BatchNorm statistics against the fused step's after that step."""
+    import torch
+    import mxtpu_torch as mx
+    net, pre = _zoo_resnet50()
+    net.cast("bfloat16")
+    pre.dtype = "bfloat16"
+    net.hybridize()
+    params = net.collect_params()
+    # a second build numbers its blocks anew: match by position
+    live = [p for p in params.values() if p.grad_req != "null"]
+    stats = [p for name, p in params.items()
+             if name.endswith(("running_mean", "running_var"))]
+    same_start = len(live) == len(w0) and len(stats) == len(stat_names) \
+        and all(torch.equal(p.data()._data, w) for p, w in zip(live, w0))
+    stats0 = [p.data()._data.float().clone() for p in stats]
+    for p in live:
+        p.grad_req = "add"
+    trainer = mx.gluon.Trainer(params, "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9,
+                                "multi_precision": True})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    x, y = mx.nd.NDArray(first["x"]), mx.nd.NDArray(first["y"])
+    half = x.shape[0] // 2
+    total = None
+    for i in range(2):
+        with mx.autograd.record():
+            loss = loss_fn(net(x[i * half:(i + 1) * half]),
+                           y[i * half:(i + 1) * half]).mean()
+        loss.backward()
+        total = loss if total is None else total + loss
+    trainer.step(2)
+    classic_loss = float((total / 2).asscalar())
+    index = {p.name: i for i, p in enumerate(trainer._params)}
+    states = trainer._updaters[0].states
+
+    def rel(got, want, base):
+        d = (want - base).float()
+        return float((got - want).float().norm() / d.norm().clamp_min(1e-30))
+
+    update_rel = [rel(m, states[index[p.name]][0]._data, w.float())
+                  for p, m, w in zip(live, first["masters"], w0)]
+    stats_rel = [rel(f.float(), p.data()._data.float(), s0)
+                 for p, f, s0 in zip(stats, first["stats"], stats0)]
+    loss_rel = abs(first["loss"] - classic_loss) / abs(classic_loss)
+    worst = max(range(len(update_rel)), key=update_rel.__getitem__)
+    row = {"same_start": same_start, "fused_loss": first["loss"],
+           "classic_loss": classic_loss, "loss_rel": loss_rel,
+           "loss_bound": FUSED_CLASSIC_LOSS_REL,
+           "master_update_rel_max": update_rel[worst],
+           "master_update_rel_worst": names[worst],
+           "master_update_rel_median": sorted(update_rel)[
+               len(update_rel) // 2],
+           "update_bound": FUSED_CLASSIC_UPDATE_REL,
+           "bn_stats_rel_max": max(stats_rel),
+           "stats_bound": FUSED_CLASSIC_STATS_REL,
+           "tensors": [len(names), len(stat_names)]}
+    row["held"] = bool(same_start and loss_rel <= FUSED_CLASSIC_LOSS_REL
+                       and max(update_rel) <= FUSED_CLASSIC_UPDATE_REL
+                       and max(stats_rel) <= FUSED_CLASSIC_STATS_REL)
+    del net, pre, trainer, params, live, stats, states, x, y, total, loss
+    return row
+
+
+def gluon_fused_resnet_run():
+    """(d) of ``gluon``: ResNet-50 through ``make_fused_step``
+    (grad_accum 2, bf16 on float32 masters), fed by a 4-worker
+    DataLoader and the DevicePrefetcher; then one float16 dynamic-AMP
+    step from a scale that overflows."""
+    import numpy as onp
+    import torch
+    import mxtpu_torch as mx
+    from mxtpu_torch.gluon import data as gdata
+    n = RESNET_BATCH
+    rng = onp.random.default_rng(SEED)
+    side = FUSED_RESNET_IMAGE
+    # two batches, two epochs over one worker pool: each worker receives
+    # the dataset once, pickled, at its start
+    images = rng.integers(0, 256, (2 * n, side, side, 3), dtype=onp.uint8)
+    labels = rng.integers(0, 1000, 2 * n).astype("float32")
+    loader = gdata.DataLoader(gdata.ArrayDataset(images, labels),
+                              batch_size=n, num_workers=FUSED_RESNET_WORKERS,
+                              pin_memory=True, timeout=600)
+    net, pre = _zoo_resnet50()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, step = _fused_resnet_step(net, pre, "bfloat16",
+                                       {"grad_accum": 2})
+    means = [p for name, p in net.collect_params().items()
+             if name.endswith("running_mean")]
+    before = [m.data()._data.clone() for m in means]
+    # what the classic Trainer is held to after the first step
+    names = [name for name, p in net.collect_params().items()
+             if p.grad_req != "null"]
+    stat_names = [name for name, p in net.collect_params().items()
+                  if name.endswith(("running_mean", "running_var"))]
+    w0 = [t.clone() for t in step._static.live]
+    first = {}
+    losses, seconds = [], []
+    from mxtpu_torch import telemetry
+    wait = telemetry.histogram("train_data_wait_ms")
+    counts0 = wait.snapshot()[2]
+    reset_launches()
+    with gdata.DevicePrefetcher(loader, depth=2, device="cuda") as batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FUSED_RESNET_STEPS // 2):
+            for x, y in batches:
+                losses.append(float(step(x, y).asscalar()))
+                if not first:
+                    params = net.collect_params()
+                    first.update(
+                        x=x._data.clone(), y=y._data.clone(),
+                        loss=losses[0],
+                        masters=[s[0].clone() for s in step._opt_states],
+                        stats=[params[k].data()._data.clone()
+                               for k in stat_names])
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                seconds.append(t1 - t0)
+                t0 = t1
+            batches.reset()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    moved = sum(bool((m.data()._data != b).any())
+                for m, b in zip(means, before))
+    waits = {"count": wait.snapshot()[2] - counts0,
+             "p50_ms": wait.percentile(50), "p99_ms": wait.percentile(99)}
+    compiles = step.num_compiles()
+    del step, trainer, before, batches, loader
+    _release_gateway()
+    del net, pre
+    _release_gateway()
+    vs_classic = _fused_vs_classic_resnet(first, names, w0, stat_names)
+    del first, w0
+    _release_gateway()
+    # float16 dynamic AMP on fresh weights: a step from 2**126 overflows,
+    # is skipped and halves the scale; from 1 the next applies.
+    # BatchNorm's running statistics move in a skipped step too (the
+    # forward ran), as in the reference, so "untouched" is the trained
+    # parameters
+    net, pre = _zoo_resnet50()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x16 = mx.nd.NDArray(torch.randint(0, 256,
+                                      (FUSED_AMP_BATCH, side, side, 3),
+                                      generator=gen, device="cuda",
+                                      dtype=torch.uint8))
+    y16 = mx.nd.NDArray(torch.randint(0, 1000, (FUSED_AMP_BATCH,),
+                                      generator=gen, device="cuda").float())
+    trainer, step = _fused_resnet_step(net, pre, "float16", {},
+                                       amp="float16")
+    trainer._amp_loss_scaler.loss_scale = 2.0 ** 126
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    w0 = [p.data()._data.clone() for p in params]
+    reset_launches()
+    step(x16, y16)
+    torch.cuda.synchronize()
+    skipped = all(torch.equal(p.data()._data, w) for p, w in zip(params, w0))
+    amp_row = {"batch": FUSED_AMP_BATCH, "init_scale": 2.0 ** 126,
+               "trained_params_bit_equal_after_skip": skipped,
+               "scale_after_skip": step.loss_scale(),
+               "applied_after_skip": step.applied_updates()}
+    trainer._amp_loss_scaler.loss_scale = 1.0
+    amp_loss = float(step(x16, y16).asscalar())
+    amp_row.update(applied_after_clean=step.applied_updates(),
+                   scale_after_clean=step.loss_scale(), loss=amp_loss,
+                   moved=any(not torch.equal(p.data()._data, w)
+                             for p, w in zip(params, w0)),
+                   num_compiles=step.num_compiles())
+    amp_launches = read_launches()
+    emit({"phase": "gluon_fused_resnet", "card": nvidia_smi(),
+          "config": "resnet50_v1", "batch": n, "grad_accum": 2,
+          "train_dtype": "bfloat16 (float32 master weights)",
+          "loader": {"num_workers": FUSED_RESNET_WORKERS,
+                     "pin_memory": True, "prefetch_depth": 2},
+          "losses": losses, "step_seconds": seconds,
+          "img_per_s": [n / t for t in seconds],
+          "classic_img_per_s": READINGS.get("gluon_resnet_img_per_s"),
+          "num_compiles": compiles,
+          "bn_means_moved": moved, "bn_layers": len(means),
+          "data_wait": waits, "peak_gb": peak, "launches": launches,
+          "vs_classic": vs_classic, "amp_float16": amp_row})
+    if not (len(losses) == FUSED_RESNET_STEPS
+            and all(map(math.isfinite, losses))):
+        raise AssertionError(f"fused ResNet-50 losses {losses}")
+    if compiles != 1:
+        raise AssertionError(f"fused ResNet-50 built {compiles} variants")
+    if moved != len(means) or not means:
+        raise AssertionError(f"{len(means) - moved} of {len(means)} "
+                             "BatchNorm running means did not move")
+    if not vs_classic["held"]:
+        raise AssertionError(f"the fused step's first step is not the "
+                             f"classic Trainer's: {vs_classic}")
+    if not (skipped and amp_row["scale_after_skip"] == 2.0 ** 125
+            and amp_row["applied_after_skip"] == 0
+            and amp_row["applied_after_clean"] == 1 and amp_row["moved"]
+            and math.isfinite(amp_loss)):
+        raise AssertionError(f"the float16 AMP steps: {amp_row}")
+    if launches != only() or amp_launches != only():
+        raise AssertionError(f"the fused ResNet path launched {launches}, "
+                             f"{amp_launches}")
+    del net, step, trainer, x16, y16, w0
+    _release_gateway()
+    return launches
+
+
+def gluon_rnn_run():
+    """(e) of ``gluon``: a hybridized 2-layer ``gluon.rnn.LSTM`` word LM
+    at the WikiText-2 "medium" shape of MXNet's ``word_language_model``
+    example, 3 classic Trainer steps."""
+    import torch
+    import mxtpu_torch as mx
+    nn = mx.gluon.nn
+
+    class WordLM(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.embedding = nn.Embedding(RNN_VOCAB, RNN_EMBED)
+                self.rnn = mx.gluon.rnn.LSTM(RNN_HIDDEN, RNN_LAYERS,
+                                             input_size=RNN_EMBED)
+                self.decoder = nn.Dense(RNN_VOCAB, flatten=False,
+                                        in_units=RNN_HIDDEN)
+
+        def hybrid_forward(self, F, x):
+            return self.decoder(self.rnn(self.embedding(x)))
+
+    mx.random.seed(SEED)
+    net = WordLM(prefix="lm_")
+    net.initialize(mx.initializer.Uniform(0.1), ctx="cuda")
+    net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 1.0})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    seq = torch.randint(0, RNN_VOCAB, (RNN_BPTT + 1, RNN_BATCH),
+                        generator=gen, device="cuda")
+    data = mx.nd.NDArray(seq[:-1].float())
+    target = mx.nd.NDArray(seq[1:].reshape(-1).float())
+    losses, seconds = [], []
+    reset_launches()
+    for _ in range(RNN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            out = net(data)
+            loss = loss_fn(out.reshape((-1, RNN_VOCAB)), target).mean()
+        loss.backward()
+        trainer.step(1)
+        losses.append(float(loss.asscalar()))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    launches = read_launches()
+    ln_v = math.log(RNN_VOCAB)
+    emit({"phase": "gluon_rnn", "card": nvidia_smi(),
+          "model": "word LM: Embedding, 2-layer LSTM, Dense",
+          "vocab": RNN_VOCAB, "embed": RNN_EMBED, "hidden": RNN_HIDDEN,
+          "bptt": RNN_BPTT, "batch": RNN_BATCH, "losses": losses,
+          "ln_vocab": ln_v, "step_seconds": seconds,
+          "tokens_per_s": [RNN_BPTT * RNN_BATCH / t for t in seconds],
+          "launches": launches})
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite word-LM losses {losses}")
+    if abs(losses[0] - ln_v) > 1.0:
+        raise AssertionError(f"first word-LM loss {losses[0]} is not "
+                             f"within 1.0 of ln {RNN_VOCAB}")
+    if launches != only():
+        raise AssertionError(f"the word LM launched {launches}")
+    del net, trainer, out, loss
     _release_gateway()
     return launches
 

@@ -5,7 +5,7 @@ module names (``context``, ``ndarray``, ``autograd``, ``rtc``,
 ``ops.attention``, ``models.llama``, ``models.resnet``,
 ``parallel.step``, ``serve``, ``serve.gateway``, ``contrib.chaos``,
 ``telemetry``, ``gluon``, ``optimizer``, ``initializer``,
-``lr_scheduler``, ``model``) so a reader finds each
+``lr_scheduler``, ``model``, ``amp``, ``parallel.mesh``) so a reader finds each
 counterpart; ``prng`` is the key chain of ``jax.random`` (its float32
 roundings of XLA's CPU math in ``xla_math``), ``random`` is
 ``mx.random``, ``serde`` the ``.params`` container; ``ops.conv``
@@ -36,7 +36,7 @@ _LAZY = {"gluon": "mxtpu_torch.gluon", "optimizer": "mxtpu_torch.optimizer",
          "initializer": "mxtpu_torch.initializer",
          "init": "mxtpu_torch.initializer",
          "lr_scheduler": "mxtpu_torch.lr_scheduler",
-         "model": "mxtpu_torch.model"}
+         "model": "mxtpu_torch.model", "amp": "mxtpu_torch.amp"}
 
 
 def __getattr__(name):

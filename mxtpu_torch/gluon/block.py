@@ -33,8 +33,10 @@ How a call runs:
 - **otherwise** (training mode without recording, or on the CPU):
   ``raw`` runs plainly.
 
-``shard``/``hybridize(mesh=)`` (ROADMAP Queue A item 11) and
-``export``/``export_stablehlo``/``SymbolBlock`` (item 10.4) raise.
+``shard(mesh, rules)`` takes a one-device mesh (``parallel.mesh``):
+every parameter stays whole on that device (``hybridize(mesh=,
+rules=)`` is sugar for it). A mesh across devices raises (ROADMAP
+Queue A item 11), as do ``export``/``export_stablehlo``/``SymbolBlock`` (item 10.4).
 """
 from __future__ import annotations
 
@@ -56,8 +58,8 @@ from .parameter import (DeferredInitializationError, Parameter, ParameterDict)
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
-MESH_SLICE = ("mesh sharding of a Gluon block comes with the multi-device "
-              "slice (ROADMAP Queue A item 11)")
+MESH_SLICE = ("mesh sharding of a Gluon block over more than one device "
+              "comes with the multi-device slice (ROADMAP Queue A item 11)")
 EXPORT_SLICE = ("the Symbol export path (export, export_stablehlo, "
                 "SymbolBlock) comes with ROADMAP Queue A item 10.4")
 
@@ -161,6 +163,30 @@ def _in_trace() -> bool:
 def _graphs_on(device: torch.device) -> bool:
     """Whether a predict-mode call on ``device`` replays a CUDA graph."""
     return device.type == "cuda"
+
+
+def capture_graph(build: str, fn: Callable[[], None],
+                  warm: Callable[[], None], device: torch.device):
+    """``fn`` as one CUDA graph, counted as the build ``build``:
+    ``warm`` (a run that writes nothing the graph reads) goes first on a
+    side stream, its blocks go back to the card, then ``fn`` is
+    captured in ``thread_local`` mode (autograd's device thread may run
+    a backward onto the capturing stream). One capture at a time
+    process-wide; a capture that fails raises."""
+    from ..serve.engine import _CAPTURE_LOCK
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    with _CAPTURE_LOCK, watcher.build(build):
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            warm()
+        main.wait_stream(side)
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            fn()
+    return graph
 
 
 # ---------------------------------------------------------------------------
@@ -270,7 +296,42 @@ class Block:
             p.cast(dtype)
 
     def shard(self, mesh, rules) -> "Block":
-        raise NotImplementedError(MESH_SLICE)
+        """Place every Parameter on ``mesh`` by the rule table, keyed on
+        parameter names (reference ``Block.shard``), and mark the block
+        tree with the mesh ``Trainer.make_fused_step`` needs. On a
+        one-device mesh each parameter stays whole, on the mesh's device
+        (or where it is, for a mesh built without devices); gradient
+        buffers are re-created zeroed, so do not call it mid-accumulation.
+        Compiled caches of this block and its children are cleared."""
+        from ..parallel.mesh import Mesh
+        if not isinstance(mesh, Mesh) or mesh.size != 1:
+            raise NotImplementedError(MESH_SLICE)
+        for p in self.collect_params().values():
+            if p._data is None:
+                if p._deferred_init:
+                    raise MXNetError(
+                        f"parameter {p.name} has a deferred shape; run "
+                        "one forward before shard() so shapes resolve")
+                raise MXNetError(
+                    f"parameter {p.name} is uninitialized; call "
+                    "initialize() before shard()")
+            placement = rules.sharding(mesh, p.name)
+            placement._check_axes()
+            if mesh.device is not None and \
+                    p._data._data.device != mesh.device:
+                p.reset_ctx(mesh.device)
+            if p._grad_req != "null":      # grads live on the same device
+                p._data.attach_grad(p._grad_req)
+            p._sharding = placement
+
+        def mark(b):
+            b._mesh, b._shard_rules = mesh, rules
+            if hasattr(b, "_clear_cached_op"):
+                b._clear_cached_op()
+            for c in b._children.values():
+                mark(c)
+        mark(self)
+        return self
 
     def apply(self, fn: Callable[["Block"], None]) -> "Block":
         for child in self._children.values():
@@ -348,12 +409,15 @@ class HybridBlock(Block):
     def hybridize(self, active: bool = True, static_alloc: bool = False,
                   static_shape: bool = False, mesh=None, rules=None,
                   **kwargs) -> None:
-        if mesh is not None:
-            raise NotImplementedError(MESH_SLICE)
         self._active = active
         self._clear_cached_op()
         super().hybridize(active, static_alloc=static_alloc,
                           static_shape=static_shape, **kwargs)
+        if mesh is not None:
+            if rules is None:
+                from ..parallel.sharding import ShardingRules
+                rules = ShardingRules([])
+            self.shard(mesh, rules)
 
     def _clear_cached_op(self) -> None:
         self._cached_op_params = None
@@ -504,27 +568,20 @@ class HybridBlock(Block):
                 tuple(a.clone() for a in cap.aux))
 
     def _capture(self, raw, sig, datas, n_in, tensors, versions):
-        from ..serve.engine import _CAPTURE_LOCK
         cap = _Capture()
-        device = datas[-1].device
         cap.static_in = [d.clone() if isinstance(d, torch.Tensor) else None
                          for d in datas[:n_in]]
         cap.static_key = datas[-1].clone()
         args = [s if s is not None else d
                 for s, d in zip(cap.static_in, datas[:n_in])]
         args += list(tensors) + [cap.static_key]
-        main = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        with _CAPTURE_LOCK, watcher.build(f"cachedop[{self.name}]"), \
-                torch.no_grad():
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                raw(*args)                     # warm-up, off the graph
-            main.wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                cap.outs, cap.aux = raw(*args)
-        cap.graph = graph
+
+        def fn():
+            cap.outs, cap.aux = raw(*args)
+
+        with torch.no_grad():
+            cap.graph = capture_graph(f"cachedop[{self.name}]", fn,
+                                      lambda: raw(*args), datas[-1].device)
         cap.params = tensors
         cap.versions = versions
         self.captures += 1

@@ -1,41 +1,43 @@
 """Vision model zoo — the port of
-``mxtpu/gluon/model_zoo/vision/__init__.py``: the ResNets, v1 and v2,
-through the reference's ``get_model`` string registry. The zoo's other
-nets (VGG, AlexNet, DenseNet, SqueezeNet, Inception, MobileNet) come
-with ROADMAP Queue A item 10.3b: their names raise here."""
+``mxtpu/gluon/model_zoo/vision/__init__.py`` (reference
+``python/mxnet/gluon/model_zoo/vision/__init__.py``): the classic CNNs
+behind the reference's ``get_model`` string registry."""
+from .alexnet import *          # noqa: F401,F403
+from .densenet import *         # noqa: F401,F403
+from .inception import *        # noqa: F401,F403
+from .mobilenet import *        # noqa: F401,F403
 from .resnet import *           # noqa: F401,F403
-from . import resnet as _resnet
-
-LATER_SLICE = "comes with ROADMAP Queue A item 10.3b"
-_LATER = ("vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn", "vgg13_bn",
-          "vgg16_bn", "vgg19_bn", "alexnet", "densenet121", "densenet161",
-          "densenet169", "densenet201", "squeezenet1.0", "squeezenet1.1",
-          "inceptionv3", "mobilenet1.0", "mobilenet0.75", "mobilenet0.5",
-          "mobilenet0.25", "mobilenetv2_1.0", "mobilenetv2_0.75",
-          "mobilenetv2_0.5", "mobilenetv2_0.25")
+from .squeezenet import *       # noqa: F401,F403
+from .vgg import *              # noqa: F401,F403
 
 
 def get_model(name, **kwargs):
     """Instantiate a model by name (reference ``vision.get_model``)."""
-    models = {f"resnet{n}_v{v}": getattr(_resnet, f"resnet{n}_v{v}")
-              for n in (18, 34, 50, 101, 152) for v in (1, 2)}
+    models = {
+        "resnet18_v1": resnet18_v1, "resnet34_v1": resnet34_v1,
+        "resnet50_v1": resnet50_v1, "resnet101_v1": resnet101_v1,
+        "resnet152_v1": resnet152_v1,
+        "resnet18_v2": resnet18_v2, "resnet34_v2": resnet34_v2,
+        "resnet50_v2": resnet50_v2, "resnet101_v2": resnet101_v2,
+        "resnet152_v2": resnet152_v2,
+        "vgg11": vgg11, "vgg13": vgg13, "vgg16": vgg16, "vgg19": vgg19,
+        "vgg11_bn": vgg11_bn, "vgg13_bn": vgg13_bn, "vgg16_bn": vgg16_bn,
+        "vgg19_bn": vgg19_bn,
+        "alexnet": alexnet,
+        "densenet121": densenet121, "densenet161": densenet161,
+        "densenet169": densenet169, "densenet201": densenet201,
+        "squeezenet1.0": squeezenet1_0, "squeezenet1.1": squeezenet1_1,
+        "inceptionv3": inception_v3,
+        "mobilenet1.0": mobilenet1_0, "mobilenet0.75": mobilenet0_75,
+        "mobilenet0.5": mobilenet0_5, "mobilenet0.25": mobilenet0_25,
+        "mobilenetv2_1.0": mobilenet_v2_1_0,
+        "mobilenetv2_0.75": mobilenet_v2_0_75,
+        "mobilenetv2_0.5": mobilenet_v2_0_5,
+        "mobilenetv2_0.25": mobilenet_v2_0_25,
+    }
     name = name.lower()
-    if name in _LATER:
-        raise NotImplementedError(f"model {name!r} {LATER_SLICE}")
     if name not in models:
         raise ValueError(
             f"Model {name!r} is not supported. Available: "
             f"{sorted(models)}")
     return models[name](**kwargs)
-
-
-_LATER_FAMILIES = ("vgg", "alexnet", "densenet", "squeezenet", "inception",
-                   "mobilenet", "get_vgg", "get_mobilenet")
-
-
-def __getattr__(name):
-    if name.lower().startswith(_LATER_FAMILIES):
-        raise AttributeError(f"model_zoo.vision.{name} {LATER_SLICE}")
-    raise AttributeError(
-        f"module 'mxtpu_torch.gluon.model_zoo.vision' has no attribute "
-        f"{name!r}")

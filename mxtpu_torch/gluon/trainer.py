@@ -1,17 +1,18 @@
 """Gluon Trainer — the port of ``mxtpu/gluon/trainer.py`` (reference
-``python/mxnet/gluon/trainer.py``), its classic path.
+``python/mxnet/gluon/trainer.py``).
 
 Applies an Optimizer to a set of Parameters each step. A parameter is
 one array on one device, so ``allreduce_grads`` has nothing to reduce
 in one process (``kvstore="device"``, ``"local"`` or None). The
 multi-tensor update (``Optimizer.fused_step``: SGD's and Adam's
 ``torch._foreach_*`` sequence) serves every live parameter at once; the
-other rules update one parameter at a time.
+other rules update one parameter at a time. With ``amp.init_trainer``
+a float16 step whose gradients overflowed is skipped and the loss
+scale shrinks. ``make_fused_step`` builds the one-program step of
+``gluon/fused.py``.
 
-What waits for later slices, and raises: a distributed or ``tpu_sync``
-kvstore, or a kvstore object (ROADMAP Queue A item 11), AMP's loss
-scaling and ``make_fused_step``, the one-program step of ``fused.py``
-(item 10.3b).
+A distributed or ``tpu_sync`` kvstore, or a kvstore object, waits for
+the multi-device slice (ROADMAP Queue A item 11) and raises.
 """
 from __future__ import annotations
 
@@ -22,12 +23,34 @@ from .. import optimizer as opt
 from ..base import MXNetError, atomic_write
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["Trainer"]
+__all__ = ["Trainer", "opt_fingerprint"]
 
 KVSTORE_SLICE = ("a distributed kvstore comes with the multi-device slice "
                  "(ROADMAP Queue A item 11); use kvstore='device' or None")
-FUSED_SLICE = ("make_fused_step (the one-program train step of gluon/fused.py, "
-               "with amp) comes with ROADMAP Queue A item 10.3b")
+
+# attributes that change every step and never enter a fingerprint
+_FP_BASE_SKIP = frozenset({"_index_update_count", "num_update",
+                           "param_dict"})
+
+
+def opt_fingerprint(optimizer, skip=frozenset(), extra=None) -> bytes:
+    """sha1 over an optimizer's hyperparameters: its pickled attribute
+    dict less the per-step update state (and ``skip``), with ``extra``
+    mixed in (reference ``trainer.opt_fingerprint``). Attributes that do
+    not pickle fall back to a coarser digest over the plain-typed ones,
+    which never changes from step to step."""
+    import hashlib
+    keys = _FP_BASE_SKIP | set(skip)
+    d = {k: v for k, v in vars(optimizer).items() if k not in keys}
+    if extra:
+        d.update(extra)
+    try:
+        blob = pickle.dumps(sorted(d.items()), protocol=4)
+    except Exception:
+        blob = repr(sorted(
+            (k, v) for k, v in d.items()
+            if isinstance(v, (int, float, str, bool, type(None))))).encode()
+    return hashlib.sha1(blob).digest()
 
 
 class Trainer:
@@ -70,10 +93,33 @@ class Trainer:
         self._optimizer.learning_rate = lr
 
     def step(self, batch_size: int, ignore_stale_grad: bool = False) -> None:
-        """Rescale grads by 1/batch_size, reduce, and update parameters."""
+        """Rescale grads by 1/batch_size, reduce, and update parameters.
+
+        With AMP attached (``amp.init_trainer``), a float16 step whose
+        gradients overflowed skips the update and shrinks the loss
+        scale (the reference's dynamic loss scaling)."""
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler is not None and scaler.dynamic:
+            if getattr(self, "_amp_unscaled", False):
+                # amp.unscale() already decided, and updated the scale
+                overflow = not getattr(self, "_amp_last_finite", True)
+            else:
+                grads = [p.grad() for p in self._params
+                         if p.grad_req != "null" and p._data is not None]
+                overflow = not scaler.is_finite(grads)
+                scaler.update_scale(overflow)
+            if overflow:
+                # drop this update; scale_loss takes the smaller scale
+                # at the next backward
+                self._scale = self._amp_original_scale
+                self._amp_unscaled = False
+                return
         self._optimizer.rescale_grad = self._scale / batch_size
         self.allreduce_grads()
         self.update(batch_size, ignore_stale_grad)
+        if scaler is not None:
+            self._scale = self._amp_original_scale
+            self._amp_unscaled = False
 
     def allreduce_grads(self) -> None:
         """One process and one device: every gradient is already whole."""
@@ -111,7 +157,15 @@ class Trainer:
 
     def make_fused_step(self, net, loss_fn=None, grad_accum=1,
                         loss_args=0):
-        raise NotImplementedError(FUSED_SLICE)
+        """The one-program train step for a ``net.shard(mesh, rules)``-ed
+        HybridBlock: forward, loss, backward and the optimizer update,
+        one CUDA graph on the card (see ``mxtpu_torch.gluon.fused``).
+        ``grad_accum=n`` splits the batch into n microbatches inside the
+        step; ``loss_args=k`` routes the last k batch args to
+        ``loss_fn`` instead of the net."""
+        from .fused import make_fused_step
+        return make_fused_step(self, net, loss_fn, grad_accum=grad_accum,
+                               loss_args=loss_args)
 
     def zero_grad(self) -> None:
         for p in self._params:

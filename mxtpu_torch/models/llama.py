@@ -352,7 +352,12 @@ def _remat(cfg: LlamaConfig, layer):
                          "(use None or 'dots_no_batch')")
     if not torch.is_grad_enabled():
         return layer
-    return partial(checkpoint, layer, use_reentrant=False, **kw)
+    # a layer draws nothing from torch's generators (the port's random
+    # draws take explicit keys), so there is no generator state to
+    # carry into the recomputation; saving it would read the CUDA
+    # generator, which a CUDA graph capture forbids
+    return partial(checkpoint, layer, use_reentrant=False,
+                   preserve_rng_state=False, **kw)
 
 
 def forward_hidden(cfg: LlamaConfig, params, tokens, mesh=None,

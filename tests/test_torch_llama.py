@@ -196,7 +196,25 @@ def test_port_imports_no_jax():
             "mxtpu_torch.gluon.trainer, mxtpu_torch.gluon.utils, "
             "mxtpu_torch.gluon.model_zoo, "
             "mxtpu_torch.gluon.model_zoo.llama, "
-            "mxtpu_torch.gluon.model_zoo.vision\n"
+            "mxtpu_torch.gluon.model_zoo.vision, mxtpu_torch.amp, "
+            "mxtpu_torch.amp.loss_scaler, mxtpu_torch.parallel.mesh, "
+            "mxtpu_torch.parallel.sharding, mxtpu_torch.gluon.fused, "
+            "mxtpu_torch.gluon.rnn, mxtpu_torch.gluon.rnn.rnn_cell, "
+            "mxtpu_torch.gluon.rnn.rnn_layer, mxtpu_torch.gluon.contrib, "
+            "mxtpu_torch.gluon.contrib.nn, mxtpu_torch.gluon.data, "
+            "mxtpu_torch.gluon.data.dataset, "
+            "mxtpu_torch.gluon.data.sampler, "
+            "mxtpu_torch.gluon.data.dataloader, "
+            "mxtpu_torch.gluon.data.prefetcher, "
+            "mxtpu_torch.gluon.data.vision, "
+            "mxtpu_torch.gluon.data.vision.datasets, "
+            "mxtpu_torch.gluon.data.vision.transforms, "
+            "mxtpu_torch.gluon.model_zoo.vision.alexnet, "
+            "mxtpu_torch.gluon.model_zoo.vision.vgg, "
+            "mxtpu_torch.gluon.model_zoo.vision.squeezenet, "
+            "mxtpu_torch.gluon.model_zoo.vision.mobilenet, "
+            "mxtpu_torch.gluon.model_zoo.vision.densenet, "
+            "mxtpu_torch.gluon.model_zoo.vision.inception\n"
             "assert mxtpu_torch.gluon is mxtpu_torch.gluon and "
             "mxtpu_torch.init is mxtpu_torch.initializer\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
