@@ -168,14 +168,21 @@ host's cost of a call.
    timed requests interleaved (request i to both, which goes first
    alternating with i): each mode's median TTFT, the worker's span
    (median, min, max) and each stage's per request (streamed: its
-   compute loop and the shipper's tail apart), bytes shipped, prefill
-   programs; the paired differences (one-shot minus streamed) with
+   compute loop and the shipper's tail apart; the loop beside its
+   517-565 ms before the chunk program was captured), bytes shipped,
+   prefill programs; the paired differences (one-shot minus streamed) with
    their median and how many favour streamed; the first 5 requests'
    streams equal in the three modes, every streamed stream equal to the
    one-shot one or parting first at a near-tie (its two tokens' decision
    values within 2^-6 of |max|, as ``spec_engine``'s partings: the
    chunked prefill rounds unlike the one-shot one in bf16), the
-   streamed median TTFT below the one-shot one. At 4 layers in f32, the
+   streamed median TTFT below the one-shot one. The streamed worker
+   runs each bucket's chunk program as one CUDA graph (its position a
+   device tensor, its cache reused across requests): the same program
+   built apart and replayed over the warm-up request's 7 chunks gives
+   each chunk's token, K/V and key bit for bit as the eager
+   ``llama.prefill_detached_chunk`` with host positions on a fresh
+   cache (``chunk_graph``, with a replay's device ms). At 4 layers in f32, the
    two-replica gateway, the disaggregated backend one-shot and streamed,
    and the gateway
    with replica 0 killed mid-stream by a ``ServeChaosPlan`` each equal
@@ -467,6 +474,30 @@ host's cost of a call.
    first within 1.0 of ln 33278; step seconds. (d) and (e) launch none
    of the port's kernels.
 
+18. symbol_module: the Symbol/Module frontend at ResNet-50 width, with
+   the launch counts set to 0 before and read after (cuDNN's convs: no
+   port kernel). (a) ``get_model("resnet50_v1")`` from ``mx.random.seed``
+   (Xavier, f32) on the card, one eager call at batch 256 and 224²,
+   then ``export``. (b) ``SymbolBlock.imports`` of the files on the
+   card: eager, then hybridized (one CUDA graph, replayed): logits equal
+   to the Gluon net's, bit for bit or within 1e-5 of max |logit|;
+   replay img/s, one capture, peak GB. (c) ``mx.model.load_checkpoint``,
+   a ``SoftmaxOutput(normalization="batch")`` head, ``mx.mod.Module``
+   bound at batch 64, ``fit`` for 3 steps (sgd, lr 0.1, momentum 0.9)
+   over an ``NDArrayIter`` of seeded images with ``Speedometer`` and
+   ``do_checkpoint``: its first step against the classic
+   ``Trainer("sgd")`` with ``SoftmaxCrossEntropyLoss`` on the same
+   weights and batch, the loss within 1e-5 relative, the whole update
+   within 5e-2 (L2) of the classic one, each parameter's within 1e-1,
+   each BatchNorm statistic's change within 1e-3 (BatchNorm's backward
+   carries rounding far: MODULE_* below); the checkpoint read back by
+   ``load_checkpoint``
+   bit for bit; ``score("acc")`` (a predict-mode executor graph); s a
+   step, img/s, peak GB. (d) a ``BucketingModule`` over buckets of 20
+   and 35 of an LSTM word LM (vocabulary 10000, embed and hidden 200,
+   batch 32), one step each: finite losses. The files live under
+   ``build/symbol_module`` and go at the end.
+
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result when no
 CUDA card is visible or when the package is not beside the script.
@@ -475,6 +506,7 @@ import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -547,6 +579,10 @@ DISAGG_PROMPT, DISAGG_NEW, DISAGG_TEMPERATURE, DISAGG_TIMED = 448, 4, 0.7, 15
 DISAGG_NO_WIRE = 5
 DISAGG_PAGE, DISAGG_CHUNK, DISAGG_MAX_LEN = 64, 64, 512
 DISAGG_WIRE_MBPS = 250.0
+# the streamed worker's compute loop before its chunk program was one
+# CUDA graph (eager chunks; three whole runs of this script on an NVIDIA
+# H100 80GB HBM3 at 700 W, PERF.md section 5)
+DISAGG_LOOP_BEFORE_MS = (517, 565)
 # supervision for the f32 replica kill: a tight heartbeat, short backoff
 GATEWAY_SUPERVISION = dict(heartbeat_s=0.05, backoff_base_s=0.01,
                            backoff_max_s=0.05)
@@ -2439,6 +2475,48 @@ def disagg_mode(cfg, params, reqs, modes, max_slots, max_len, warm=None):
     return out
 
 
+def disagg_chunk_graph(cfg, params, req):
+    """The streamed prefill's chunk program as the prefill worker runs
+    it (one CUDA graph for ``req``'s bucket) against the eager
+    ``llama.prefill_detached_chunk`` with host-int positions on a fresh
+    cache, chunk by chunk over the pages the request fills: token, K/V
+    and key bit for bit; a replay's device ms."""
+    import torch
+    from mxtpu_torch import prng
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.serve import bucket_for
+    from mxtpu_torch.serve.gateway.disagg import _ChunkProgram
+    from mxtpu_torch.tools.timing import time_ms
+    n = len(req.prompt)
+    bucket = bucket_for(n, 64, DISAGG_MAX_LEN)
+    dev = torch.device("cuda")
+    padded = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+    padded[0, :n] = torch.from_numpy(np.asarray(req.prompt, np.int32)).to(dev)
+    key = prng.PRNGKey(req.seed, device=dev)
+    knobs = (req.temperature, req.top_k, req.top_p)
+    prog = _ChunkProgram(cfg, params, bucket, DISAGG_CHUNK, dev,
+                         "disagg_chunk_check")
+    cache = llama.init_cache(cfg, 1, bucket, device=dev)
+    equal = []
+    with torch.no_grad():
+        for pos in range(0, min(bucket, -(-n // DISAGG_PAGE) * DISAGG_PAGE),
+                         DISAGG_CHUNK):
+            got = prog(padded, pos, n, key, *knobs)
+            want = llama.prefill_detached_chunk(
+                cfg, params, padded[:, pos:pos + DISAGG_CHUNK], cache, n,
+                key, *knobs)
+            cache = want[4]
+            equal.append(all(a.dtype == b.dtype and torch.equal(a, b)
+                             for a, b in zip(got, want[:4])))
+        replay_ms = time_ms(prog._graph.replay, reps=10)
+    out = {"bucket": bucket, "chunk": DISAGG_CHUNK, "chunks": len(equal),
+           "bit_equal": equal, "captures": prog.captures,
+           "replay_ms": replay_ms}
+    del prog, cache
+    torch.cuda.empty_cache()
+    return out
+
+
 def disagg_pairs(one_shot, streamed):
     """The interleaved modes' paired comparison: each request's one-shot
     TTFT minus its streamed TTFT (the two ran back to back), their
@@ -2549,6 +2627,7 @@ def gateway_phase(cfg, params):
     partings, near_ok = parting_rows(
         cfg, params, dreqs[1:], modes["one_shot"][0], modes["streamed"][0],
         lambda gap, pair, top: abs(pair) <= SPEC_BF16_TIE_REL * top)
+    chunk_graph = disagg_chunk_graph(cfg, params, dreqs[0])
     f32, kill = gateway_f32(cfg, params)
     launches = read_launches()
     one_ms = modes["one_shot"][2]["median_ttft_ms"]
@@ -2564,6 +2643,11 @@ def gateway_phase(cfg, params):
                      "one_shot": modes["one_shot"][2],
                      "streamed": modes["streamed"][2],
                      "paired": pairs,
+                     "compute_loop_ms": {
+                         "before_capture": list(DISAGG_LOOP_BEFORE_MS),
+                         "now": _spread(modes["streamed"][2]["stages_ms"]
+                                        ["compute_loop"])},
+                     "chunk_graph": chunk_graph,
                      "ttft_drop": 1.0 - streamed_ms / one_ms,
                      "streams_equal": same_streams,
                      "streamed_partings": [r for r in partings
@@ -2585,6 +2669,13 @@ def gateway_phase(cfg, params):
     if not same_streams:
         raise AssertionError("disagg: the streamed and one-shot streams "
                              "differ")
+    if not (all(chunk_graph["bit_equal"]) and chunk_graph["captures"] == 1):
+        raise AssertionError(f"disagg: the captured chunk program differs "
+                             f"from the eager chunk: {chunk_graph}")
+    workers = [modes["streamed"][2]["prefill_programs"]]
+    if workers != [1]:
+        raise AssertionError(f"disagg: the streamed worker built {workers} "
+                             "programs for one bucket, not one")
     if not near_ok:
         raise AssertionError(f"disagg: a streamed stream parts from the "
                              f"one-shot one away from a near-tie: "
@@ -4311,6 +4402,261 @@ def gluon_rnn_run():
     return launches
 
 
+SYMBOL_BATCH = 256            # SymbolBlock against the Gluon net
+MODULE_BATCH = 64             # Module.fit's batch
+MODULE_STEPS = 3
+MODULE_LR, MODULE_MOMENTUM = 0.1, 0.9
+# the SymbolBlock interprets the exported graph through the same registry
+# ops on the same weights as the Gluon net, so its logits are the net's
+# bits; a captured call may get another cuDNN algorithm, so the bound
+# allows the f32 rounding of the convolutions' sums in another order
+SYMBOL_LOGITS_REL = 1e-5      # of max |logit|
+# Module's first step against the classic Trainer's on the same weights
+# and batch. The two compute the same function in another order: the
+# training BatchNorm reduces the batch inside the op where the Gluon
+# layer hands the op statistics it reduced itself, the head's gradient
+# is softmax - onehot against exp(log_softmax) - onehot, and cuDNN's
+# weight gradients may sum in another order. The loss agrees to f32
+# rounding; BatchNorm's backward (a difference of terms of the same
+# size) amplifies the rounding of the activations into the gradients
+# layer by layer. ``python -m mxtpu_torch.tools.module_tolerance`` (batch
+# 16, 64², on the CPU) measures it: the Module's update parts from the
+# Trainer's by 1.4e-2 (L2), a parameter's by at most 1.9e-2, a BatchNorm
+# statistic's change by 5e-5, where the Trainer's own update moves by
+# 2.1e-2 (3.0e-2 at most for a parameter, 8e-5 for a statistic) when its
+# images are scaled by one f32 ulp: the rounding's reach, not a fault. A
+# fault moves the update by its own size: an lr 10 % off by 0.10,
+# SoftmaxOutput's batch normalization dropped by 15 (batch - 1). A conv
+# bias that feeds a BatchNorm has no gradient in exact arithmetic (the
+# normalization subtracts it): its rounding noise is left out. Momentum
+# plays no part in a first step (its buffer starts at zero): only the
+# CPU test tests/test_torch_module.py's trajectory against mxtpu holds
+# it.
+MODULE_LOSS_REL = 1e-5
+MODULE_UPDATE_REL = 5e-2      # L2, the whole update
+MODULE_PARAM_REL = 1e-1       # L2, each parameter's update
+MODULE_BN_REL = 1e-3          # L2, each BatchNorm statistic's change
+BUCKET_KEYS, BUCKET_BATCH = (20, 35), 32
+BUCKET_VOCAB, BUCKET_EMBED, BUCKET_HIDDEN = 10000, 200, 200
+
+
+def _same_bits(a, b):
+    """Bit equality (NaN payloads too) of two float32 tensors."""
+    import torch
+    return a.dtype == b.dtype == torch.float32 and a.shape == b.shape \
+        and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def symbol_module_phase():
+    """18 in the docstring: the Symbol/Module frontend at ResNet-50
+    width: export, SymbolBlock, a Module fine-tune step against the
+    classic Trainer, the checkpoint round trip, a BucketingModule."""
+    import torch
+    import mxtpu_torch as mx
+    from mxtpu_torch.tools.timing import time_ms
+    reset_launches()
+    out_dir = os.path.join(build_dir(), "symbol_module")
+    os.makedirs(out_dir, exist_ok=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    images = mx.nd.NDArray(torch.randn((SYMBOL_BATCH, 3, 224, 224),
+                                       generator=gen, device="cuda"))
+    # (a) the zoo's ResNet-50, exported from the card
+    mx.random.seed(SEED)
+    net = mx.gluon.model_zoo.vision.get_model("resnet50_v1")
+    net.initialize(mx.initializer.Xavier(magnitude=2), ctx=mx.gpu())
+    want = net(images)._data              # eager: resolves the shapes
+    prefix = os.path.join(out_dir, "resnet50_v1")
+    t0 = time.perf_counter()
+    net.export(prefix, epoch=0)
+    export_s = time.perf_counter() - t0
+    # (b) SymbolBlock.imports on the card: eager, then captured
+    sb = mx.gluon.SymbolBlock.imports(prefix + "-symbol.json", ["data"],
+                                      prefix + "-0000.params", ctx=mx.gpu())
+    eager = sb(images)._data
+    sb.hybridize()
+    torch.cuda.reset_peak_memory_stats()
+    sb(images)                            # the capture, then its replay
+    replay = sb(images)._data
+    torch.cuda.synchronize()
+    top = float(want.abs().max())
+    rels = [float((x - want).abs().max()) / top for x in (eager, replay)]
+    sb_ms = time_ms(lambda: sb(images), reps=5, warmup=1)
+    sb_row = {"batch": SYMBOL_BATCH, "export_s": export_s,
+              "bit_equal": [bool(torch.equal(x, want))
+                            for x in (eager, replay)],
+              "rel_max": rels, "bound": SYMBOL_LOGITS_REL,
+              "captures": sb.captures, "replay_ms": sb_ms,
+              "img_per_s": SYMBOL_BATCH / (sb_ms / 1e3),
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del sb, eager, replay, want, images
+    _release_gateway()
+    module_row, ckpt = _module_fine_tune(mx, net, prefix, out_dir)
+    del net
+    _release_gateway()
+    bucket_row = _bucketing_word_lm(mx)
+    launches = read_launches()
+    emit({"phase": "symbol_module", "card": nvidia_smi(),
+          "config": "resnet50_v1", "symbol_block": sb_row,
+          "module": module_row, "checkpoint": ckpt,
+          "bucketing": bucket_row, "launches": launches})
+    if not all(r <= SYMBOL_LOGITS_REL for r in rels):
+        raise AssertionError(f"SymbolBlock logits off the Gluon net's: "
+                             f"{sb_row}")
+    if sb_row["captures"] != 1:
+        raise AssertionError(f"the SymbolBlock captured {sb_row['captures']}"
+                             " graphs, not one")
+    if not (module_row["loss_rel"] <= MODULE_LOSS_REL
+            and module_row["update_rel"] <= MODULE_UPDATE_REL
+            and module_row["param_rel_max"] <= MODULE_PARAM_REL
+            and module_row["bn_change_rel_max"] <= MODULE_BN_REL):
+        raise AssertionError(f"the Module's first step is off the classic "
+                             f"Trainer's: {module_row}")
+    if not (math.isfinite(module_row["losses"][0])
+            and module_row["score"][0][0] == "accuracy"
+            and module_row["score_captures"] == 1):
+        raise AssertionError(f"Module.fit or score failed: {module_row}")
+    if not (ckpt["bit_equal"] and ckpt["json_equal"]):
+        raise AssertionError(f"do_checkpoint did not round-trip: {ckpt}")
+    if not (all(map(math.isfinite, bucket_row["losses"]))
+            and bucket_row["buckets"] == sorted(BUCKET_KEYS)):
+        raise AssertionError(f"the BucketingModule failed: {bucket_row}")
+    if launches != only():
+        raise AssertionError(f"symbol_module launched {launches}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return launches
+
+
+def _module_fine_tune(mx, net, prefix, out_dir):
+    """(c) of ``symbol_module``: ``load_checkpoint`` of the export, a
+    ``SoftmaxOutput`` head, ``Module.fit`` for MODULE_STEPS sgd steps
+    over an ``NDArrayIter`` of seeded images with ``Speedometer`` and
+    ``do_checkpoint``; its first step against the classic Trainer's on
+    the same weights and batch; the checkpoint read back; ``score``."""
+    import torch
+    from mxtpu_torch.tools.module_tolerance import classic_step, compare
+    n, steps = MODULE_BATCH, MODULE_STEPS
+    rng = np.random.default_rng(SEED + 18)
+    data = rng.standard_normal((n * steps, 3, 224, 224)).astype(np.float32)
+    labels = rng.integers(0, 1000, n * steps).astype(np.float32)
+    sym, args, auxs = mx.model.load_checkpoint(prefix, 0, ctx=mx.gpu())
+    head = mx.sym.SoftmaxOutput(sym, name="softmax", normalization="batch")
+    # the classic Trainer's first step on the same weights and batch
+    x0 = mx.nd.array(data[:n], ctx=mx.gpu())
+    y0 = mx.nd.array(labels[:n], ctx=mx.gpu())
+    gluon_loss, gluon_delta = classic_step(mx, net, x0, y0, MODULE_LR,
+                                           MODULE_MOMENTUM)
+    del x0, y0
+    _release_gateway()
+    # the Module: fit over the iterator, the first step's state kept
+    mod = mx.mod.Module(head, context=mx.gpu())
+    it = mx.io.NDArrayIter(data, labels, batch_size=n, ctx=mx.gpu())
+    ck_prefix = os.path.join(out_dir, "finetune")
+    first, losses, stamps = {}, [], []
+
+    def batch_end(param):
+        prob = mod.get_outputs()[0]._data
+        lab = param.locals["data_batch"].label[0]._data.long()
+        losses.append(float(-prob.gather(1, lab[:, None]).log().mean()))
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        if param.nbatch == 0:
+            for part in mod.get_params():
+                first.update(part)
+    torch.cuda.reset_peak_memory_stats()
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(arg_params=args, aux_params=auxs)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    mod.fit(it, optimizer="sgd", optimizer_params=(
+        ("learning_rate", MODULE_LR), ("momentum", MODULE_MOMENTUM)),
+        eval_metric="acc", num_epoch=1,
+        batch_end_callback=[mx.callback.Speedometer(n, 1), batch_end],
+        epoch_end_callback=mx.callback.do_checkpoint(ck_prefix))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    seconds = [b - a for a, b in zip(stamps, stamps[1:])]
+    start = {**args, **auxs}
+    dist = compare({k: first[k]._data - start[k]._data for k in gluon_delta},
+                   gluon_delta, sym)
+    score = mod.score(it, "acc")
+    # do_checkpoint → load_checkpoint, bit for bit
+    arg_now, aux_now = mod.get_params()
+    sym2, arg2, aux2 = mx.model.load_checkpoint(ck_prefix, 1, ctx=mx.gpu())
+    ckpt = {"json_equal": sym2.tojson() == head.tojson(),
+            "bit_equal": all(_same_bits(a[k]._data, b[k]._data)
+                             for a, b in ((arg_now, arg2), (aux_now, aux2))
+                             for k in a) and set(arg_now) == set(arg2)
+            and set(aux_now) == set(aux2),
+            "arrays": len(arg2) + len(aux2)}
+    row = {"batch": n, "steps": steps, "losses": losses,
+           "gluon_first_loss": gluon_loss,
+           "loss_rel": abs(losses[0] - gluon_loss) / abs(gluon_loss),
+           "loss_bound": MODULE_LOSS_REL,
+           **dist, "update_bound": MODULE_UPDATE_REL,
+           "param_bound": MODULE_PARAM_REL, "bn_bound": MODULE_BN_REL,
+           "step_seconds": seconds, "img_per_s": [n / t for t in seconds],
+           "peak_gb": peak, "score": score,
+           "score_captures": mod._exec.captures}
+    del mod, it, first
+    return row, ckpt
+
+
+def _bucketing_word_lm(mx):
+    """(d) of ``symbol_module``: a ``BucketingModule`` over two bucket
+    lengths of an LSTM word LM (``example/rnn/bucketing``'s symbol at
+    BUCKET_* widths: Embedding, fused LSTM with learned initial states,
+    FC to the vocabulary at every step), one sgd step each."""
+    import torch
+    sym = mx.sym
+    B, V, E, H = BUCKET_BATCH, BUCKET_VOCAB, BUCKET_EMBED, BUCKET_HIDDEN
+    _, total = mx.nd.ops.rnn_param_layout("lstm", E, H, 1, False)
+
+    def sym_gen(seq_len):
+        emb = sym.Embedding(sym.var("data"), input_dim=V, output_dim=E,
+                            name="embed")
+        out = sym.RNN(sym.transpose(emb, axes=(1, 0, 2)),
+                      sym.var("lstm_parameters", shape=(total,)),
+                      sym.var("lstm_h0", shape=(1, B, H)),
+                      state_cell=sym.var("lstm_c0", shape=(1, B, H)),
+                      state_size=H, num_layers=1, mode="lstm", name="lstm")
+        pred = sym.FullyConnected(sym.reshape(out, shape=(-1, H)),
+                                  num_hidden=V, name="pred")
+        label = sym.reshape(sym.transpose(sym.var("softmax_label")),
+                            shape=(-1,))
+        return sym.SoftmaxOutput(pred, label, name="softmax",
+                                 normalization="batch"), ("data",), \
+            ("softmax_label",)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    mx.random.seed(SEED)
+    mod = mx.mod.BucketingModule(sym_gen, default_bucket_key=BUCKET_KEYS[0],
+                                 context=mx.gpu())
+    mod.bind(data_shapes=[("data", (B, BUCKET_KEYS[0]))],
+             label_shapes=[("softmax_label", (B, BUCKET_KEYS[0]))])
+    mod.init_params(initializer=mx.initializer.Uniform(0.1))
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params=(("learning_rate", 1.0),))
+    losses, seconds = [], []
+    for k in BUCKET_KEYS:
+        seq = torch.randint(0, V, (B, k + 1), generator=gen, device="cuda")
+        batch = mx.io.DataBatch(
+            data=[mx.nd.NDArray(seq[:, :-1].float())],
+            label=[mx.nd.NDArray(seq[:, 1:].float())], bucket_key=k,
+            provide_data=[mx.io.DataDesc("data", (B, k))],
+            provide_label=[mx.io.DataDesc("softmax_label", (B, k))])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+        prob = mod.get_outputs()[0]._data
+        lab = seq[:, 1:].t().reshape(-1, 1)
+        losses.append(float(-prob.gather(1, lab).log().mean()))
+        seconds.append(time.perf_counter() - t0)
+    return {"vocab": V, "embed": E, "hidden": H, "batch": B,
+            "buckets": sorted(mod._buckets), "losses": losses,
+            "ln_vocab": math.log(V), "step_seconds": seconds}
+
+
 def split_vs_unsplit(x, w, y, y1):
     """The split kernel's ``y`` against the unsplit one's ``y1`` on the
     same inputs: the largest |y - y1| over its allowance, one bf16 ulp of
@@ -5514,13 +5860,15 @@ def main():
     bert_launches = bert_phase()
     torch.cuda.empty_cache()
     gluon_launches = gluon_phase()
+    torch.cuda.empty_cache()
+    symbol_launches = symbol_module_phase()
     telemetry_phase()
     launches = {k: fwd_launches[k] + train_launches[k]
                 + flywheel_launches[k] + resnet_launches[k]
                 + probe_launches[k] + frontend_launches[k]
                 + random_launches[k] + serde_launches[k]
                 + mixtral_launches[k] + bert_launches[k]
-                + gluon_launches[k]
+                + gluon_launches[k] + symbol_launches[k]
                 for k in LAUNCH_COUNTERS}
 
     main_row, bwd = rows["llama3_8b"], bwd_rows["llama3_8b"]

@@ -5,7 +5,9 @@ module names (``context``, ``ndarray``, ``autograd``, ``rtc``,
 ``ops.attention``, ``models.llama``, ``models.resnet``,
 ``parallel.step``, ``serve``, ``serve.gateway``, ``contrib.chaos``,
 ``telemetry``, ``gluon``, ``optimizer``, ``initializer``,
-``lr_scheduler``, ``model``, ``amp``, ``parallel.mesh``) so a reader finds each
+``lr_scheduler``, ``model``, ``amp``, ``parallel.mesh``, ``symbol``,
+``module``, ``io``, ``metric``, ``callback``, ``monitor``,
+``visualization``) so a reader finds each
 counterpart; ``prng`` is the key chain of ``jax.random`` (its float32
 roundings of XLA's CPU math in ``xla_math``), ``random`` is
 ``mx.random``, ``serde`` the ``.params`` container; ``ops.conv``
@@ -36,7 +38,14 @@ _LAZY = {"gluon": "mxtpu_torch.gluon", "optimizer": "mxtpu_torch.optimizer",
          "initializer": "mxtpu_torch.initializer",
          "init": "mxtpu_torch.initializer",
          "lr_scheduler": "mxtpu_torch.lr_scheduler",
-         "model": "mxtpu_torch.model", "amp": "mxtpu_torch.amp"}
+         "model": "mxtpu_torch.model", "amp": "mxtpu_torch.amp",
+         "sym": "mxtpu_torch.symbol", "symbol": "mxtpu_torch.symbol",
+         "mod": "mxtpu_torch.module", "module": "mxtpu_torch.module",
+         "io": "mxtpu_torch.io", "metric": "mxtpu_torch.metric",
+         "callback": "mxtpu_torch.callback",
+         "monitor": "mxtpu_torch.monitor",
+         "viz": "mxtpu_torch.visualization",
+         "visualization": "mxtpu_torch.visualization"}
 
 
 def __getattr__(name):

@@ -36,7 +36,14 @@ How a call runs:
 ``shard(mesh, rules)`` takes a one-device mesh (``parallel.mesh``):
 every parameter stays whole on that device (``hybridize(mesh=,
 rules=)`` is sugar for it). A mesh across devices raises (ROADMAP
-Queue A item 11), as do ``export``/``export_stablehlo``/``SymbolBlock`` (item 10.4).
+Queue A item 11).
+
+``export`` traces the block with ``F = mx.sym`` (each child's
+``hybrid_forward`` composes symbols, its parameters become variables)
+and writes the reference's ``prefix-symbol.json`` and
+``prefix-%04d.params``; :class:`SymbolBlock` runs such a graph as a
+block. ``export_stablehlo`` (a JAX artifact) raises, naming the later
+sub-item of ROADMAP Queue A item 10.4 that holds ``contrib.deploy``.
 """
 from __future__ import annotations
 
@@ -50,18 +57,19 @@ import torch
 from .. import autograd
 from .. import ndarray as nd
 from ..base import MXNetError
+from ..cuda_graphs import capture_graph, graphs_on
 from ..ndarray import NDArray
 from ..ndarray import random as _random
 from ..ndarray.ndarray import _parents_of
-from ..telemetry import watcher
 from .parameter import (DeferredInitializationError, Parameter, ParameterDict)
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 MESH_SLICE = ("mesh sharding of a Gluon block over more than one device "
               "comes with the multi-device slice (ROADMAP Queue A item 11)")
-EXPORT_SLICE = ("the Symbol export path (export, export_stablehlo, "
-                "SymbolBlock) comes with ROADMAP Queue A item 10.4")
+STABLEHLO_SLICE = ("export_stablehlo writes a JAX StableHLO artifact; its "
+                   "counterpart comes with contrib.deploy, the contrib/ "
+                   "sub-item of ROADMAP Queue A item 10.4")
 
 
 # ---------------------------------------------------------------------------
@@ -154,39 +162,15 @@ def _unflatten_nds(tree, flat: List[Any], pos: List[int]):
 
 
 _TRACE_DEPTH = threading.local()
+_SYM_MODE = threading.local()
 
 
 def _in_trace() -> bool:
     return getattr(_TRACE_DEPTH, "depth", 0) > 0
 
 
-def _graphs_on(device: torch.device) -> bool:
-    """Whether a predict-mode call on ``device`` replays a CUDA graph."""
-    return device.type == "cuda"
-
-
-def capture_graph(build: str, fn: Callable[[], None],
-                  warm: Callable[[], None], device: torch.device):
-    """``fn`` as one CUDA graph, counted as the build ``build``:
-    ``warm`` (a run that writes nothing the graph reads) goes first on a
-    side stream, its blocks go back to the card, then ``fn`` is
-    captured in ``thread_local`` mode (autograd's device thread may run
-    a backward onto the capturing stream). One capture at a time
-    process-wide; a capture that fails raises."""
-    from ..serve.engine import _CAPTURE_LOCK
-    main = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    with _CAPTURE_LOCK, watcher.build(build):
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            warm()
-        main.wait_stream(side)
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            fn()
-    return graph
+def _in_symbolic() -> bool:
+    return getattr(_SYM_MODE, "active", False)
 
 
 # ---------------------------------------------------------------------------
@@ -454,6 +438,8 @@ class HybridBlock(Block):
 
     # -- cached path ----------------------------------------------------------
     def __call__(self, *args):
+        if _in_symbolic():
+            return self._symbolic_call(*args)
         if self._active and not _in_trace():
             return self._call_cached_op(*args)
         return super().__call__(*args)
@@ -480,7 +466,7 @@ class HybridBlock(Block):
         device = next((d.device for d in datas
                        if isinstance(d, torch.Tensor)), torch.device("cpu"))
         datas.append(_random._next_key(device))
-        if _graphs_on(device) and not training \
+        if graphs_on(device) and not training \
                 and not autograd.is_recording():
             outs, aux = self._replay(raw, cache_key, datas, len(flat_in),
                                      params)
@@ -587,20 +573,169 @@ class HybridBlock(Block):
         self.captures += 1
         return cap
 
-    # -- the Symbol export path (a later slice) -------------------------------
-    def export(self, path: str, epoch: int = 0, num_inputs: int = 1):
-        raise NotImplementedError(EXPORT_SLICE)
+    # -- symbolic tracing / deploy ------------------------------------------
+    def _symbolic_call(self, *args):
+        """This block with Symbol inputs → Symbol outputs (the
+        reference's trace of ``hybrid_forward`` with Symbol
+        placeholders). State that takes no gradient (grad_req 'null')
+        exports as an aux variable whatever its name, so
+        ``SymbolBlock.imports`` rebuilds it as frozen state."""
+        from .. import symbol as sym
+        param_syms = {k: sym.var(p.name, aux=p.grad_req == "null")
+                      for k, p in self._reg_params.items()}
+        return self.hybrid_forward(sym, *args, **param_syms)
+
+    def _trace_symbol(self, *input_syms):
+        """Run the whole net symbolically; children are traced through
+        ``__call__`` by the thread's symbolic mode."""
+        prev = _in_symbolic()
+        _SYM_MODE.active = True
+        try:
+            out = self(*input_syms)
+        finally:
+            _SYM_MODE.active = prev
+        return out
+
+    def export(self, path: str, epoch: int = 0, num_inputs: int = 1) -> None:
+        """Write the traced graph and the parameters in the reference's
+        export layout (``path-symbol.json``, ``path-%04d.params``), which
+        ``SymbolBlock.imports`` of either package reloads without the
+        Python class. Inputs are named ``data``, or ``data0``,
+        ``data1``, ... for ``num_inputs`` > 1."""
+        from .. import symbol as sym
+        inputs = [sym.var("data" if num_inputs == 1 else f"data{i}")
+                  for i in range(num_inputs)]
+        out = self._trace_symbol(*inputs)
+        if isinstance(out, (list, tuple)):
+            out = sym.Group(list(out))
+        out.save(f"{path}-symbol.json")
+        aux_names = set(out.list_auxiliary_states())
+        params = {}
+        for p in self.collect_params().values():
+            kind = "aux:" if p.name in aux_names else "arg:"
+            params[kind + p.name] = p.data()
+        nd.save(f"{path}-{epoch:04d}.params", params)
 
     def export_stablehlo(self, path: str, *example_inputs):
-        raise NotImplementedError(EXPORT_SLICE)
+        raise NotImplementedError(STABLEHLO_SLICE)
 
 
 class SymbolBlock(HybridBlock):
-    """Runs a Symbol graph as a block: comes with the Symbol frontend."""
+    """Run a Symbol graph as a Gluon block (reference
+    ``gluon.SymbolBlock``): the reload path of ``HybridBlock.export``.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(EXPORT_SLICE)
+    Parameters are made from the symbol's argument and aux lists, less
+    the declared inputs; their shapes come from the params given, or
+    from the first forward's input shapes through shape inference. The
+    forward interprets the graph through the registry ops, so under
+    ``autograd.record()`` it is taped like any op and, hybridized, it
+    is one tape node, or one CUDA graph a signature in predict mode on
+    the card.
+    """
+
+    def __init__(self, outputs, inputs, params=None, prefix=None,
+                 ctx=None):
+        super().__init__(prefix=prefix or "", params=None)
+        from .. import symbol as sym
+        if isinstance(outputs, (list, tuple)):
+            outputs = sym.Group(list(outputs))
+        if not isinstance(inputs, (list, tuple)):
+            inputs = [inputs]
+        self._sb_symbol = outputs
+        self._input_names = [i.name if isinstance(i, sym.Symbol) else str(i)
+                             for i in inputs]
+        aux_names = set(outputs.list_auxiliary_states())
+        self._sb_params: Dict[str, Parameter] = {}
+        loaded = params or {}
+        for name in outputs.list_inputs():
+            if name in self._input_names:
+                continue
+            p = Parameter(name,
+                          grad_req="null" if name in aux_names else "write",
+                          shape=None, allow_deferred_init=True,
+                          differentiable=name not in aux_names)
+            if name in loaded:
+                p._load_init(loaded[name], ctx)
+            self._sb_params[name] = p
+            self._reg_params[name] = p
 
     @classmethod
-    def imports(cls, *args, **kwargs):
-        raise NotImplementedError(EXPORT_SLICE)
+    def imports(cls, symbol_file: str, input_names, param_file=None,
+                ctx=None) -> "SymbolBlock":
+        """Load an exported ``prefix-symbol.json`` (and its params, on
+        ``ctx``; None: the card) — reference ``SymbolBlock.imports``."""
+        from .. import symbol as sym
+        from ..model import split_arg_aux
+        out = sym.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        params = {}
+        if param_file:
+            arg_p, aux_p = split_arg_aux(nd.load(param_file, ctx))
+            params = {**arg_p, **aux_p}
+        return cls(out, [sym.var(n) for n in input_names], params=params,
+                   ctx=ctx)
+
+    def _resolve_shapes(self, *args) -> None:
+        from ..symbol.symbol import _meta
+        shapes = {n: _meta(a.shape, a.dtype)
+                  for n, a in zip(self._input_names, args)
+                  if isinstance(a, NDArray)}
+        for n, p in self._sb_params.items():
+            if p.shape is not None and 0 not in p.shape:
+                shapes[n] = _meta(p.shape, p.dtype)
+        structs = self._sb_symbol._infer_structs(**shapes)
+        if structs is None:
+            raise MXNetError("SymbolBlock: cannot infer parameter shapes "
+                             "from input shapes")
+        _, var_structs = structs
+        for n, p in self._sb_params.items():
+            if p.shape is None or 0 in (p.shape or (0,)):
+                p.shape = tuple(var_structs[n].shape)
+
+    def forward(self, *args):
+        from ..symbol.symbol import interpret_nd
+        unresolved = [p for p in self._sb_params.values()
+                      if p.shape is None or (p.shape and 0 in p.shape)]
+        if unresolved and any(p._data is None for p in unresolved):
+            self._resolve_shapes(*args)
+            for p in self._sb_params.values():
+                if p._data is None and p._deferred_init:
+                    p._finish_deferred_init()
+        values = dict(zip(self._input_names, args))
+        for n, p in self._sb_params.items():
+            values[n] = p.data()
+        ctx = next((a.context for a in args if isinstance(a, NDArray)),
+                   None)
+        outs, aux_up = interpret_nd(self._sb_symbol._entries, values, ctx)
+        if aux_up:
+            with autograd.pause():
+                for n, v in aux_up.items():
+                    self._sb_params[n].set_data(v)
+        return outs[0] if len(outs) == 1 else tuple(outs)
+
+    def _symbolic_call(self, *args):
+        # re-exporting a SymbolBlock: splice the stored graph
+        return _splice_symbol(self._sb_symbol,
+                              dict(zip(self._input_names, args)))
+
+
+def _splice_symbol(symbol, input_map):
+    """Rebuild a symbol graph with its input variables replaced (for
+    re-export)."""
+    from ..symbol.symbol import Symbol, _Node
+    memo = {}
+
+    def clone(node):
+        if id(node) in memo:
+            return memo[id(node)]
+        if node.op == "null" and node.name in input_map:
+            repl = input_map[node.name]._entries[0][0]
+            memo[id(node)] = repl
+            return repl
+        new = _Node(node.op, node.name, dict(node.attrs),
+                    [(clone(p), i) for p, i in node.inputs])
+        memo[id(node)] = new
+        return new
+
+    return Symbol([(clone(n), i) for n, i in symbol._entries])

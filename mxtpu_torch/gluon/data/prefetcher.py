@@ -13,8 +13,9 @@ stream is bit-identical to the source's.
 
 It takes plain iterables of numpy arrays, torch tensors and NDArrays,
 nested in dicts, lists and tuples (a DataLoader's batches, or a
-functional step's). An ``io.DataBatch`` source comes with the
-``mx.io`` iterators (ROADMAP Queue A item 10.4) and raises.
+functional step's), and ``mx.io`` iterators, whose ``io.DataBatch``es
+come out with their data and labels on the device and the rest as
+they were.
 """
 from __future__ import annotations
 
@@ -28,12 +29,10 @@ import torch
 
 from ... import telemetry
 from ...context import resolve_device
+from ...io import DataBatch
 from ...ndarray import NDArray
 
 __all__ = ["DevicePrefetcher"]
-
-DATABATCH_SLICE = ("a DataBatch source comes with the mx.io iterators "
-                   "(ROADMAP Queue A item 10.4)")
 
 _SENTINEL = object()
 
@@ -89,8 +88,13 @@ class DevicePrefetcher:
         return t.to(self._device, non_blocking=self._cuda)
 
     def _to_device(self, obj):
-        if hasattr(obj, "provide_data") or type(obj).__name__ == "DataBatch":
-            raise NotImplementedError(DATABATCH_SLICE)
+        if isinstance(obj, DataBatch):
+            return DataBatch(
+                data=[self._to_device(d) for d in (obj.data or [])],
+                label=[self._to_device(lab) for lab in (obj.label or [])],
+                pad=obj.pad, index=obj.index, bucket_key=obj.bucket_key,
+                provide_data=obj.provide_data,
+                provide_label=obj.provide_label)
         if isinstance(obj, NDArray):
             return NDArray(self._upload(obj._data))
         if isinstance(obj, torch.Tensor):

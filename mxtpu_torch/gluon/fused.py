@@ -51,10 +51,11 @@ from .. import optimizer as opt_mod
 from .. import prng
 from ..amp.loss_scaler import MAX_LOSS_SCALE
 from ..base import MXNetError
+from ..cuda_graphs import capture_graph, graphs_on
 from ..ndarray import NDArray
 from ..ndarray import random as _random
 from ..parallel.mesh import use_mesh
-from .block import _TRACE_DEPTH, _graphs_on, capture_graph
+from .block import _TRACE_DEPTH
 
 __all__ = ["make_fused_step"]
 
@@ -605,7 +606,7 @@ def make_fused_step(trainer, net, loss_fn: Optional[Callable] = None,
                         S.amp[k].fill_(v)
         sig = tuple((tuple(b.shape), b.dtype) for b in raw)
         var = box["variants"].get(sig)
-        graphs = _graphs_on(device)
+        graphs = graphs_on(device)
         with use_mesh(mesh):
             if var is None:
                 var = _Variant()

@@ -28,10 +28,6 @@ from ..ndarray import NDArray
 __all__ = ["DeferredInitializationError", "Parameter", "Constant",
            "ParameterDict"]
 
-_SYMBOL_SLICE = ("Parameter.var() (the Symbol frontend) comes with ROADMAP "
-                 "Queue A item 10.4")
-
-
 class DeferredInitializationError(MXNetError):
     """Raised when a parameter's value is requested before its shape is
     known (reference: same-named error class)."""
@@ -227,7 +223,10 @@ class Parameter:
                 self._data.attach_grad(grad_req)
 
     def var(self):
-        raise NotImplementedError(_SYMBOL_SLICE)
+        """This parameter as a symbolic variable (reference
+        ``Parameter.var``)."""
+        from .. import symbol
+        return symbol.var(self.name, shape=self.shape, dtype=self.dtype)
 
 
 class Constant(Parameter):

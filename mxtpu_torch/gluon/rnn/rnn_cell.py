@@ -119,6 +119,12 @@ class RecurrentCell(HybridBlock):
             params = {k: p.data() for k, p in self._reg_params.items()}
         return self.hybrid_forward(nd, inputs, states, **params)
 
+    def _symbolic_call(self, inputs, states):
+        from ... import symbol as sym
+        param_syms = {k: sym.var(p.name, aux=p.grad_req == "null")
+                      for k, p in self._reg_params.items()}
+        return self.hybrid_forward(sym, inputs, states, **param_syms)
+
 
 def _split_seq(x, length, axis):
     return [x.slice_axis(axis=axis, begin=i, end=i + 1)

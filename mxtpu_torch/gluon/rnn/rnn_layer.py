@@ -115,6 +115,28 @@ class _RNNLayer(HybridBlock):
             return out[0]
         return out
 
+    def _symbolic_call(self, *args):
+        """Trace with Symbol inputs. Without explicit states, synthesize
+        zero begin-states as ops on the data symbol (batch size flows from
+        the input at bind time) and return only the sequence output —
+        mirroring forward()'s state-less contract."""
+        from ... import symbol as sym
+        param_syms = {k: sym.var(p.name) for k, p in self._reg_params.items()}
+        x = args[0]
+        states = args[1] if len(args) > 1 else None
+        skip_states = states is None
+        if skip_states:
+            xt = sym.swapaxes(x, dim1=0, dim2=1) if self._layout == "NTC" \
+                else x
+            n = self._num_layers * self._dir
+            states = [sym._rnn_init_state(xt, num_states=n,
+                                          state_size=self._hidden_size)]
+            if self._mode == "lstm":
+                states.append(sym._rnn_init_state(
+                    xt, num_states=n, state_size=self._hidden_size))
+        out = self.hybrid_forward(sym, x, states, **param_syms)
+        return out[0] if skip_states else out
+
     def hybrid_forward(self, F, x, states, **params):
         if self._layout == "NTC":
             x = F.swapaxes(x, dim1=0, dim2=1)

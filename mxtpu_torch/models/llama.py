@@ -617,14 +617,22 @@ def init_cache(cfg: LlamaConfig, batch_size: int, max_len: int, mesh=None,
 
 def _layer_cached(cfg: LlamaConfig, cos, sin, pos, x, lp, ck, cv):
     """One block over the cache. x: (b, s, dim), s the prompt length or
-    1; ck/cv: (b, kvh, max_len, hd), written in place at [pos, pos+s)."""
+    1; ck/cv: (b, kvh, max_len, hd), written in place at [pos, pos+s).
+    ``pos`` is a host int, or a 0-d int64 tensor on x's device (a
+    captured chunk): the rows are then written by an index op, and the
+    same values reach the same ops."""
     b, s, _ = x.shape
     hd, dt = cfg.head_dim, cfg.dtype
     max_len = ck.shape[2]
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q, k, v = _qkv(cfg, lp, h, cos, sin)
-    ck[:, :, pos:pos + s] = k
-    cv[:, :, pos:pos + s] = v
+    rows = pos + torch.arange(s, device=x.device)
+    if isinstance(pos, torch.Tensor):
+        ck.index_copy_(2, rows, k)
+        cv.index_copy_(2, rows, v)
+    else:
+        ck[:, :, pos:pos + s] = k
+        cv[:, :, pos:pos + s] = v
 
     # attend q against the whole cache, masked to the causal prefix:
     # key j visible to query i iff j <= pos + i. GQA-native: group the
@@ -634,8 +642,7 @@ def _layer_cached(cfg: LlamaConfig, cos, sin, pos, x, lp, ck, cv):
     logits = torch.einsum("bgrsd,bgkd->bgrsk", qg.float(), ck.float())
     logits = logits / math.sqrt(hd)
     kpos = torch.arange(max_len, device=x.device)[None, :]
-    qpos = pos + torch.arange(s, device=x.device)[:, None]
-    logits = torch.where(kpos <= qpos, logits, -math.inf)
+    logits = torch.where(kpos <= rows[:, None], logits, -math.inf)
     p = torch.softmax(logits, dim=-1).to(dt)
     o = torch.einsum("bgrsk,bgkd->bgrsd", p, cv)
     o = o.reshape(b, cfg.n_heads, s, hd)
@@ -647,23 +654,33 @@ def _layer_cached(cfg: LlamaConfig, cos, sin, pos, x, lp, ck, cv):
 
 
 def _forward_cached(cfg: LlamaConfig, params, tokens, cache,
-                    last_only: bool = False, last_index=None):
+                    last_only: bool = False, last_index=None, rope=None):
     """Shared prefill/decode body: runs the stack over the cache and
     returns (logits (b, s, V) f32, cache). ``last_only`` applies the
     lm_head to the final position only; ``last_index`` (a 0-d int
     tensor on the tokens' device) to that one position instead, picked
     by an index op: a bucketed serving prefill pads its prompt, so the
-    last real position is not the last row."""
+    last real position is not the last row. ``cache["pos"]`` is a host
+    int, or a 0-d int64 tensor on the tokens' device, which is never
+    read back (a captured chunk: its RoPE rows are picked by an index
+    op from ``rope``, tables the caller holds, and the bound is the
+    caller's). ``rope`` None takes the shared cached tables."""
     s = tokens.shape[1]
     max_len = cache["k"].shape[3]
-    pos = int(cache["pos"])
-    if pos + s > max_len:
-        # mxtpu's dynamic_update_slice would clamp the write silently
-        raise ValueError(f"cache overflow: pos {pos} + {s} new tokens > "
-                         f"max_len {max_len}")
+    pos = cache["pos"]
+    if not isinstance(pos, torch.Tensor):
+        pos = int(pos)
+        if pos + s > max_len:
+            # mxtpu's dynamic_update_slice would clamp the write silently
+            raise ValueError(f"cache overflow: pos {pos} + {s} new tokens "
+                             f"> max_len {max_len}")
     x = _embed(cfg, params, tokens)
-    cos_t, sin_t = _rope_cached(cfg, max_len, x.device)
-    cos, sin = cos_t[pos:pos + s], sin_t[pos:pos + s]
+    cos_t, sin_t = rope or _rope_cached(cfg, max_len, x.device)
+    if isinstance(pos, torch.Tensor):
+        rows = pos + torch.arange(s, device=x.device)
+        cos, sin = cos_t.index_select(0, rows), sin_t.index_select(0, rows)
+    else:
+        cos, sin = cos_t[pos:pos + s], sin_t[pos:pos + s]
     for i in range(cfg.n_layers):
         x = _layer_cached(cfg, cos, sin, pos, x, _layer_params(params, i),
                           cache["k"][i], cache["v"][i])
@@ -1053,7 +1070,7 @@ def prefill_detached(cfg: LlamaConfig, params, tokens, true_len, rng,
 
 def prefill_detached_chunk(cfg: LlamaConfig, params, chunk, cache,
                            true_len, rng, temperature, top_k, top_p,
-                           mesh=None):
+                           mesh=None, rope=None):
     """One chunk of a streamed detached prefill: ``chunk`` (1, cw),
     positions ``cache["pos"]`` to ``pos + cw`` of the end-padded prompt,
     through the cached stack. Iterated over the bucket it is one
@@ -1063,18 +1080,31 @@ def prefill_detached_chunk(cfg: LlamaConfig, params, chunk, cache,
     buffers of :func:`init_cache` and ``pos``, carried across calls.
     Returns (tok (1,), k_chunk, v_chunk, the carried key, cache), the
     chunks (L, n_kv_heads, cw, hd); ``tok`` and the key mean something
-    only from the chunk that holds position ``true_len - 1``."""
+    only from the chunk that holds position ``true_len - 1``.
+
+    With ``cache["pos"]`` a 0-d int64 tensor, ``true_len`` a 0-d tensor
+    and the sampling knobs (1,) tensors, nothing is read back to the
+    host, so the chunk can be captured as a CUDA graph (pass ``rope``
+    tables the caller holds); it gives the same bits as the host-int
+    chunk."""
     _no_mesh(mesh)
     cw = chunk.shape[1]
-    pos0 = int(cache["pos"])
+    pos0 = cache["pos"]
+    if not isinstance(pos0, torch.Tensor):
+        pos0 = int(pos0)
     true_len = _scalar(true_len, torch.int64, chunk.device)
     last = (true_len - 1 - pos0).clamp(0, cw - 1)
     logits, cache = _forward_cached(cfg, params, chunk, cache,
-                                    last_index=last)
+                                    last_index=last, rope=rope)
     rng, sub = prng.split(rng)
     tok = sample_logits(sub, logits[:, 0], temperature, top_k, top_p)
-    k_chunk = cache["k"][:, 0, :, pos0:pos0 + cw].clone()
-    v_chunk = cache["v"][:, 0, :, pos0:pos0 + cw].clone()
+    if isinstance(pos0, torch.Tensor):
+        rows = pos0 + torch.arange(cw, device=chunk.device)
+        k_chunk = cache["k"][:, 0].index_select(2, rows)
+        v_chunk = cache["v"][:, 0].index_select(2, rows)
+    else:
+        k_chunk = cache["k"][:, 0, :, pos0:pos0 + cw].clone()
+        v_chunk = cache["v"][:, 0, :, pos0:pos0 + cw].clone()
     return tok, k_chunk, v_chunk, rng, cache
 
 

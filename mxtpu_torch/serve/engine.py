@@ -72,6 +72,7 @@ import torch
 from .. import prng, telemetry
 from ..base import env_int, env_str
 from ..context import DeviceLike, resolve_device
+from ..cuda_graphs import capture_graph
 from ..models import llama
 from ..telemetry import distributed as dtrace, perfscope, watcher
 
@@ -84,8 +85,6 @@ _WAIT_STEP_BUCKETS = (0.0, 1, 2, 4, 8, 16, 32, 64, 128, 256, 1024)
 # decode steps run on a side stream before the capture (lazy cuBLAS
 # handles and workspaces are made there, not inside the graph)
 _WARMUP_STEPS = 2
-# one capture at a time in the process: engines may start on threads
-_CAPTURE_LOCK = threading.Lock()
 
 _engine_seq = itertools.count(1)     # atomic: engines build on threads
 
@@ -565,22 +564,18 @@ class _DecodeGraph:
         self._turn = 0
         self._stage(knobs)
         saved = {n: t.clone() for n, t in self.sv.items()}
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        with _CAPTURE_LOCK, watcher.build(self.name):
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                for _ in range(_WARMUP_STEPS - 1):
-                    self._step(*self._static)
-                with watcher.counted(self.device):
-                    self._step(*self._static)
-            main.wait_stream(side)
+
+        def warm():
+            for _ in range(_WARMUP_STEPS - 1):
+                self._step(*self._static)
+            with watcher.counted(self.device):
+                self._step(*self._static)
             for n, t in saved.items():
                 self.sv[n].copy_(t)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self._out = self._step(*self._static)
-        self._graph = graph
+
+        def fn():
+            self._out = self._step(*self._static)
+        self._graph = capture_graph(self.name, fn, warm, self.device)
         self.captures += 1
 
 

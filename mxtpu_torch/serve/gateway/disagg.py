@@ -64,6 +64,7 @@ import torch
 from ... import prng, rpc, telemetry
 from ...base import env_float, env_int, env_str
 from ...context import DeviceLike, resolve_device
+from ...cuda_graphs import capture_graph
 from ...models import llama
 from ...telemetry import distributed as dtrace, watcher
 from ..engine import (KVHandoff, Request, ServeEngine, _tensor_leaves,
@@ -636,6 +637,110 @@ class CircuitBreaker:
                     "threshold": self.threshold}
 
 
+class _ChunkProgram:
+    """The streamed-prefill chunk program of one bucket:
+    :func:`llama.prefill_detached_chunk` over a bucket-sized K/V cache
+    that this object owns and every request of the bucket reuses.
+
+    On the CPU it is the eager function, its position a host int. On a
+    CUDA device it is one CUDA graph, captured at the first call (after
+    a warm-up run on a side stream) and replayed for every chunk after
+    that: the chunk's tokens, its start position (a 0-d device tensor),
+    ``true_len``, the request key and the sampling knobs ((1,) tensors:
+    the sampler's traced mode, which gives the static mode's tokens)
+    are static device buffers, staged by device copies and fills, never
+    read back to the host; the RoPE tables are the graph's own. A call
+    returns (tok, k_chunk, v_chunk, the carried key), each cloned out
+    of the graph's outputs on the current stream before the next replay
+    can write them. A capture that fails raises: there is no eager
+    fallback on the card.
+
+    The reused cache is left dirty by the previous request: a position
+    past the causal prefix is masked to -inf before the softmax, so its
+    weight is exactly 0 and its stale (finite) K/V add nothing; a fresh
+    cache gives the same bits. It is a watchable program
+    (``telemetry.watch``): ``_cache_size()`` is its captures on the
+    card and, on the CPU, 1 once it has run; the build (the capture, or
+    the CPU's first chunk) runs inside ``watcher.build(name)``."""
+
+    def __init__(self, cfg, params, bucket: int, cw: int,
+                 device: torch.device, name: str):
+        self.cfg, self.params, self.cw, self.name = cfg, params, cw, name
+        self.device = device
+        cache = llama.init_cache(cfg, 1, bucket, device=device)
+        self.k, self.v = cache["k"], cache["v"]
+        self.calls = 0
+        self.captures = 0
+        self._graph = None
+
+    def _cache_size(self) -> int:
+        if self.device.type == "cuda":
+            return self.captures
+        return int(self.calls > 0)
+
+    def __call__(self, padded, pos: int, true_len: int, key, temperature,
+                 top_k, top_p):
+        self.calls += 1
+        if self.device.type != "cuda":
+            cache = {"k": self.k, "v": self.v, "pos": pos}
+            run = partial(llama.prefill_detached_chunk, self.cfg,
+                          self.params, padded[:, pos:pos + self.cw], cache,
+                          true_len, key, temperature, top_k, top_p)
+            if self.calls > 1:
+                return run()[:4]
+            with watcher.build(self.name), watcher.counted():
+                return run()[:4]
+        if self._graph is None:
+            self._capture(padded, key)
+        self._stage(padded, pos, true_len, key, temperature, top_k, top_p)
+        self._graph.replay()
+        return tuple(o.clone() for o in self._out)
+
+    def _stage(self, padded, pos, true_len, key, temperature, top_k,
+               top_p) -> None:
+        """Write one chunk's inputs into the static buffers: device
+        copies and scalar fills, no host-to-device transfer."""
+        self._tokens.copy_(padded[:, pos:pos + self.cw])
+        self._pos.fill_(pos)
+        self._true_len.fill_(true_len)
+        self._key.copy_(key)
+        self._temperature.fill_(float(temperature))
+        self._top_k.fill_(self.cfg.vocab_size if top_k is None else top_k)
+        self._top_p.fill_(1.0 if top_p is None else top_p)
+
+    def _step(self):
+        cache = {"k": self.k, "v": self.v, "pos": self._pos}
+        with torch.no_grad():
+            return llama.prefill_detached_chunk(
+                self.cfg, self.params, self._tokens, cache, self._true_len,
+                self._key, self._temperature, self._top_k, self._top_p,
+                rope=self._rope)[:4]
+
+    def _capture(self, padded, key) -> None:
+        dev = self.device
+        with torch.inference_mode(False):   # written from any thread
+            self._tokens = torch.zeros((1, self.cw), dtype=padded.dtype,
+                                       device=dev)
+            self._pos = torch.zeros((), dtype=torch.int64, device=dev)
+            self._true_len = torch.ones((), dtype=torch.int64, device=dev)
+            self._key = torch.zeros_like(key)
+            self._temperature = torch.zeros((1,), dtype=torch.float32,
+                                            device=dev)
+            self._top_k = torch.ones((1,), dtype=torch.int64, device=dev)
+            self._top_p = torch.ones((1,), dtype=torch.float32, device=dev)
+            self._rope = llama.rope_tables(self.cfg, self.k.shape[3],
+                                           device=dev)
+
+        def warm():
+            with watcher.counted(dev):
+                self._step()
+
+        def fn():
+            self._out = self._step()
+        self._graph = capture_graph(self.name, fn, warm, dev)
+        self.captures += 1
+
+
 class PrefillWorker:
     """One prefill compute thread: pops (rid, Request) jobs, runs the
     bucketed ``prefill_detached`` program on ``device`` (the card by
@@ -765,16 +870,16 @@ class PrefillWorker:
     def _chunk_fn(self, bucket: int):
         """The streamed-prefill chunk program for one bucket (chunk
         width is fixed per worker, so this is one program per bucket
-        — the same growth rate as the one-shot prefill). The running
-        cache is written in place: chunk c+1 reuses chunk c's
-        buffers."""
+        — the same growth rate as the one-shot prefill): a
+        :class:`_ChunkProgram`, whose bucket-sized cache every request
+        of the bucket reuses, chunk c+1 writing after chunk c."""
         fn = self._cfns.get(bucket)
         if fn is None:
             name = f"gateway_prefill_stream_b{bucket}"
             fn = telemetry.watch(
-                watcher.Program(partial(llama.prefill_detached_chunk,
-                                        self.cfg), name),
-                name, expected=1)
+                _ChunkProgram(self.cfg, self.params, bucket,
+                              min(self.stream_chunk, bucket), self.device,
+                              name), name, expected=1)
             self._cfns[bucket] = fn
         return fn
 
@@ -917,9 +1022,8 @@ class PrefillWorker:
         # every page that carries prompt tokens, capped at the bucket
         # (same trim rule as handoff_to_page_frames)
         n_send = min(bucket, -(-true_len // ps) * ps)
-        # two distinct bucket-sized buffers on the worker's device: the
-        # chunk program writes k and v in place, chunk after chunk
-        cache = llama.init_cache(self.cfg, 1, bucket, device=self.device)
+        program = self._chunk_fn(bucket)
+        cuda = self.device.type == "cuda"
         temp, tk, tp = float(req.temperature), req.top_k, req.top_p
         tok = rng_out = None
         # unbounded on purpose: worst case it holds the full block on
@@ -929,14 +1033,24 @@ class PrefillWorker:
         shipped = []
         fault: list = []
 
+        # on the card the shipper copies on its own stream, after the
+        # event that follows each chunk's clones: a copy waits for its
+        # own chunk, never for the replays queued after it
+        copies = torch.cuda.Stream(self.device) if cuda else None
+
         def _shipper():
             while True:
                 item = todo.get()
                 if item is None:
                     return
                 try:
+                    pos, kc, vc, done = item
+                    if done is not None:
+                        done.synchronize()
+                        with torch.cuda.stream(copies):
+                            kc, vc = _host_array(kc), _host_array(vc)
                     shipped.append(
-                        self._ship_pages(rid, *item, n_send))
+                        self._ship_pages(rid, pos, kc, vc, n_send))
                 except BaseException as e:      # noqa: BLE001 — must
                     fault.append(e)             # cross the thread seam
                     return
@@ -945,14 +1059,19 @@ class PrefillWorker:
                                    name="mxtpu-kv-shipper")
         shipper.start()
         for pos in range(0, n_send, cw):
-            t, kc, vc, r, cache = self._chunk_fn(bucket)(
-                self.params, padded[:, pos:pos + cw], cache,
-                true_len, key, temp, tk, tp)
+            t, kc, vc, r = program(padded, pos, true_len, key, temp, tk,
+                                   tp)
+            done = None
+            if cuda:
+                done = torch.cuda.Event()
+                done.record()
             if pos <= true_len - 1 < pos + cw:
                 tok, rng_out = t, r
-            todo.put((pos, kc, vc))
+            todo.put((pos, kc, vc, done))
         # the compute loop's end: what the span spends after it is the
-        # shipper's tail (host copies and the wire)
+        # shipper's tail (host copies and the wire; on the card the
+        # loop only queues the replays, so the chunks' device time
+        # falls in the tail too, where the shipper waits on each event)
         telemetry.instant("gateway.prefill_computed")
         todo.put(None)
         shipper.join()

@@ -405,7 +405,7 @@ def test_cuda_graph_branch_with_a_stand_in_graph(monkeypatch, opt, kw, bn,
 
     eager = run("port", opt, kw, edit=rebind, bn=bn, accum=accum,
                 dtype=dtype)
-    monkeypatch.setattr(tfused, "_graphs_on", lambda device: True)
+    monkeypatch.setattr(tfused, "graphs_on", lambda device: True)
     monkeypatch.setattr(tfused, "capture_graph", _stand_in_capture)
     graph = run("port", opt, kw, edit=rebind, bn=bn, accum=accum,
                 dtype=dtype)

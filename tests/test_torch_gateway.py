@@ -336,6 +336,90 @@ def test_disagg_prefill_error_and_pending_deadline(model, plan):
         gw.close()
 
 
+def _chunk_inputs(tcfg, plen, bucket, seed):
+    rng = np.random.default_rng(seed)
+    padded = torch.zeros((1, bucket), dtype=torch.int32)
+    padded[0, :plen] = torch.from_numpy(
+        rng.integers(0, tcfg.vocab_size, plen).astype(np.int32))
+    return padded
+
+
+@pytest.mark.parametrize("knobs", [(0.0, None, None), (0.8, 5, 0.9)])
+def test_chunk_program_tensor_position_matches_eager(model, knobs):
+    """The chunk program the prefill worker captures on the card (start
+    position a 0-d tensor, true_len a 0-d tensor, the sampling knobs
+    (1,) tensors, RoPE tables of its own) against the eager
+    ``prefill_detached_chunk`` with host ints, chunk by chunk over a
+    bucket: every chunk's K/V, token and key, and the caches, bit for
+    bit (greedy and sampled)."""
+    _, _, tcfg, tparams = model
+    plen, bucket, cw = 13, 16, 4
+    padded = _chunk_inputs(tcfg, plen, bucket, 3)
+    temp, tk, tp = knobs
+    key = prng.PRNGKey(7, device="cpu")
+    eager = tl.init_cache(tcfg, 1, bucket, device="cpu")
+    k = torch.zeros_like(eager["k"])
+    v = torch.zeros_like(eager["v"])
+    rope = tl.rope_tables(tcfg, bucket, device="cpu")
+    knob_t = (torch.tensor([temp], dtype=torch.float32),
+              torch.tensor([tcfg.vocab_size if tk is None else tk]),
+              torch.tensor([1.0 if tp is None else tp],
+                           dtype=torch.float32))
+    with torch.no_grad():
+        for pos in range(0, bucket, cw):
+            chunk = padded[:, pos:pos + cw]
+            want = tl.prefill_detached_chunk(tcfg, tparams, chunk, eager,
+                                             plen, key, temp, tk, tp)
+            eager = want[4]
+            got = tl.prefill_detached_chunk(
+                tcfg, tparams, chunk.clone(),
+                {"k": k, "v": v, "pos": torch.tensor(pos)},
+                torch.tensor(plen), key, *knob_t, rope=rope)
+            for a, b in zip(got[:4], want[:4]):
+                assert a.dtype == b.dtype and torch.equal(a, b), pos
+    assert torch.equal(k, eager["k"]) and torch.equal(v, eager["v"])
+
+
+def _streamed_backend(model):
+    return DisaggBackend(model[2], model[3], n_prefill=1, n_decode=1,
+                         max_slots=2, max_len=32, min_bucket=4, paged=True,
+                         page_size=4, stream_chunk=4, device="cpu")
+
+
+def test_streamed_worker_reuses_its_cache(model, plan):
+    """Streamed prefill (chunks of 4 over pages of 4) through the
+    disaggregated gateway: each stream is the reference's; the worker's
+    second request of a bucket runs on the cache the first left dirty
+    and gives the stream a fresh worker gives; one chunk program a
+    bucket, each a watched build."""
+    jobs = [plan[2], plan[3], plan[2]]
+    assert bucket_for(len(plan[2]["prompt"]), 4, 32) == \
+        bucket_for(len(plan[3]["prompt"]), 4, 32)
+    gw = Gateway(backend=_streamed_backend(model), queue_max=16)
+    try:
+        worker = gw.backend.prefill[0]
+        assert worker.stream_chunk == 4
+        got = []
+        for job in jobs:
+            h = _submit(gw, job)
+            got.append(list(h.result(timeout=WAIT)))
+            assert h.reason == "complete"
+        assert len(worker._cfns) == 1 and worker.compile_count == \
+            len(worker._fns) + 1
+        program = next(iter(worker._cfns.values()))
+        assert program.captures == 0 and program.calls >= 6
+    finally:
+        gw.close()
+    fresh = Gateway(backend=_streamed_backend(model), queue_max=16)
+    try:
+        h = _submit(fresh, plan[3])
+        first = list(h.result(timeout=WAIT))
+    finally:
+        fresh.close()
+    assert got[1] == first == _job_ref(model, plan[3])
+    assert got[0] == got[2] == _job_ref(model, plan[2])
+
+
 def test_kv_channel_tcp_listen_connect():
     """The cross-host path: the handoff channel over TCP loopback with
     HMAC, same framed codec."""

@@ -330,9 +330,12 @@ def test_prefetcher_close_errors_and_reset():
         pf.reset()
     pf.close()
 
-    class DataBatch:
-        data, label = [], []
-
-    with pytest.raises(NotImplementedError, match="item 10.4"):
-        next(iter(tdata.DevicePrefetcher(iter([DataBatch()]),
-                                         device="cpu")))
+    # an mx.io source: each DataBatch comes out whole, its arrays moved
+    from mxtpu_torch import io as tio
+    src = tio.NDArrayIter(np.arange(6, dtype=np.float32).reshape(3, 2),
+                          np.arange(3, dtype=np.float32), batch_size=2,
+                          ctx="cpu")
+    got = list(tdata.DevicePrefetcher(src, device="cpu"))
+    assert [b.pad for b in got] == [0, 1]
+    assert got[1].data[0].asnumpy().tolist() == [[4, 5], [0, 1]]
+    assert got[0].label[0].asnumpy().tolist() == [0, 1]

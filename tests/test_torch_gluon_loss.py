@@ -234,7 +234,7 @@ def _stand_in_capture(self, raw, sig, datas, n_in, tensors, versions):
 
 
 def test_predict_after_step_reads_new_weights(monkeypatch):
-    monkeypatch.setattr(tblock, "_graphs_on", lambda device: True)
+    monkeypatch.setattr(tblock, "graphs_on", lambda device: True)
     monkeypatch.setattr(tblock.HybridBlock, "_capture", _stand_in_capture)
     net, trainer, _ = train(tmx, "cpu", "sgd", dict(learning_rate=0.5))
     x = tmx.nd.array(X, ctx="cpu")
@@ -287,9 +287,9 @@ def test_later_slices_raise():
     with pytest.raises(NotImplementedError, match="item 11"):
         net.shard(None, None)
     with pytest.raises(NotImplementedError, match="item 10.4"):
-        net.export("x")
+        net.export_stablehlo("x")
     with pytest.raises(NotImplementedError, match="item 10.4"):
-        tmx.gluon.SymbolBlock(None, None)
+        tmx.io.ImageRecordIter(path_imgrec="x.rec", data_shape=(3, 8, 8))
     with pytest.raises(NotImplementedError, match="item 11"):
         tmx.gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_sync")
     tr = tmx.gluon.Trainer(net.collect_params(), "sgd")
@@ -305,4 +305,5 @@ def test_later_slices_raise():
     with pytest.raises(NotImplementedError, match="item 10.4"):
         tmx.amp.convert_model(None, {}, {})
     with pytest.raises(NotImplementedError, match="item 10.4"):
-        tmx.model.load_checkpoint("x", 0)
+        tmx.io.NativeImageRecordIter(path_imgrec="x.rec",
+                                     data_shape=(3, 8, 8))

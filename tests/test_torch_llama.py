@@ -175,7 +175,8 @@ def test_port_imports_no_jax():
             "mxtpu_torch.ops._build, mxtpu_torch.tools.rtc_kernels, "
             "mxtpu_torch.prng, mxtpu_torch.serve, mxtpu_torch.serve.engine, "
             "mxtpu_torch.telemetry, mxtpu_torch.telemetry.perfscope, "
-            "mxtpu_torch.telemetry.watcher, mxtpu_torch.rpc, "
+            "mxtpu_torch.telemetry.watcher, mxtpu_torch.cuda_graphs, "
+            "mxtpu_torch.tools.module_tolerance, mxtpu_torch.rpc, "
             "mxtpu_torch.ndarray.random, mxtpu_torch.serde, "
             "mxtpu_torch.xla_math, mxtpu_torch.parallel.moe, "
             "mxtpu_torch.models.bert, mxtpu_torch.serve.gateway, "
@@ -209,6 +210,12 @@ def test_port_imports_no_jax():
             "mxtpu_torch.gluon.data.vision, "
             "mxtpu_torch.gluon.data.vision.datasets, "
             "mxtpu_torch.gluon.data.vision.transforms, "
+            "mxtpu_torch.symbol, mxtpu_torch.symbol.symbol, "
+            "mxtpu_torch.module, mxtpu_torch.module.module, "
+            "mxtpu_torch.module.base_module, "
+            "mxtpu_torch.module.bucketing_module, mxtpu_torch.io, "
+            "mxtpu_torch.metric, mxtpu_torch.callback, "
+            "mxtpu_torch.monitor, mxtpu_torch.visualization, "
             "mxtpu_torch.gluon.model_zoo.vision.alexnet, "
             "mxtpu_torch.gluon.model_zoo.vision.vgg, "
             "mxtpu_torch.gluon.model_zoo.vision.squeezenet, "
