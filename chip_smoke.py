@@ -498,6 +498,48 @@ host's cost of a call.
    batch 32), one step each: finite losses. The files live under
    ``build/symbol_module`` and go at the end.
 
+19. image_record: the image half of ``mx.io`` at ImageNet width, with
+   the launch counts set to 0 before and read after (cuDNN's convs and
+   the JPEG codec: no port kernel). (a) The host: ``g++``, libjpeg's
+   and nvJPEG's files, ``nproc``, PIL, and the codec the native IO
+   library was built with; its decodes of ``tests/data/jpeg``'s JPEGs
+   (RGB and luma) against libjpeg's, bit-equal under libjpeg and within
+   mean |Δ| < 2, max ≤ 16 under nvJPEG, and its quality-95 round trip
+   of their sources losing at most 0.5 more (mean) than libjpeg's.
+   (b) 2,048 photographic-like 500×375 JPEGs (``train_real_data.py``'s
+   images, ``np.random.default_rng(0)``, labels ``i % 1000``) written
+   by ``recordio.pack_img`` into an indexed ``.rec``; the raw pipe's
+   decode img/s at 1, 2, 4 and ``nproc`` threads; one uint8 batch
+   normalized on the card and the host, bit for bit, and the card's
+   iterator (pinned buffers, its own stream) against the host's;
+   ``ImageRecordIter(batch 256, 224², shuffle, nproc threads, mean and
+   std)`` routed to ``NativeImageRecordIter``, its pure input img/s
+   (fenced), then the zoo's ResNet-50 (1000 classes, bf16 on float32
+   masters) through ``make_fused_step`` (sgd 0.05, momentum 0.9, wd
+   1e-4) under ``DevicePrefetcher(depth=2)`` for 2 epochs of 8 steps:
+   the second epoch's img/s, its data waits p50/p99, the same step fed
+   from memory (the last batch, 4 steps), finite losses (the first
+   within 1.0 of ln 1000), peak GB, and whether the input bounds
+   the step (median wait at least a tenth of a step). (c)
+   ``rand_crop``/``rand_mirror`` route to ``ImageIter`` under a
+   ``PrefetchingIter``: img/s over 256 images at batch 64. (d) 256
+   300×300 JPEGs with 1-5 boxes read by ``ImageDetIter`` (batch 32,
+   ``rand_crop``, ``rand_mirror``): img/s; SSD300's 8,732 anchors from
+   ``MultiBoxPrior`` over maps of 38, 19, 10, 5, 3 and 1; for 20
+   classes (21 channels) ``MultiBoxTarget`` (batch 32, hard negatives
+   3:1) and ``MultiBoxDetection`` (4 images, NMS 0.45) on the card
+   against the CPU: class targets and masks equal, loc targets within
+   1e-5 relative, the kept rows equal or the first difference in an
+   image an IoU within 1e-4 of the threshold; each op's card ms. (e)
+   64 of (b)'s images as ``.jpg`` files in 4 class folders, read by
+   ``ImageFolderDataset`` under ``DataLoader(num_workers=2)``: worker
+   threads under nvJPEG (a worker process hides the card), processes
+   under libjpeg, the batches bit-equal to the loader's without
+   workers; and a process with ``CUDA_VISIBLE_DEVICES=''`` that decodes
+   one of them raises naming the cause under nvJPEG (decodes under
+   libjpeg). The files live under ``build/image_record`` and go at the
+   end.
+
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result when no
 CUDA card is visible or when the package is not beside the script.
@@ -5806,6 +5848,498 @@ def kernel_report(info):
     return out
 
 
+# -- 19. image_record --------------------------------------------------------
+IMG_RECORDS = 2048             # JPEG records, 500x375, quality 95
+IMG_SIZE = (375, 500)          # (h, w)
+IMG_QUALITY = 95
+IMG_CLASSES = 1000
+IMG_BATCH = 256
+IMG_CROP = 224                 # data_shape (3, 224, 224)
+IMG_EPOCHS, IMG_STEPS = 2, 8   # 8 steps of 256 an epoch
+IMG_LR, IMG_MOMENTUM, IMG_WD = 0.05, 0.9, 1e-4
+IMG_MEAN, IMG_STD = (123.7, 116.3, 103.5), (58.4, 57.1, 57.4)
+IMG_SWEEP_IMAGES = 512         # the raw pipe's decode rate, per thread count
+IMG_AUG_IMAGES, IMG_AUG_BATCH = 256, 64
+FOLDER_IMAGES, FOLDER_BATCH, FOLDER_WORKERS = 64, 16, 2
+DET_RECORDS, DET_SIZE, DET_BATCH = 256, 300, 32
+DET_CLASSES = 20               # VOC: 20 classes, 21 channels with background
+DET_NMS_BATCH = 4              # MultiBoxDetection's images (N x N IoU each)
+DET_NMS_THRESH = 0.45          # MXNet's SSD example's nms_thresh
+# SSD300 (vgg16_reduced) anchors: feature map, sizes, ratios (MXNet's
+# example/ssd/symbol/symbol_factory.py): 8,732 anchors
+SSD300_ANCHORS = [
+    (38, (0.1, 0.141), (1, 2, 0.5)),
+    (19, (0.2, 0.272), (1, 2, 0.5, 3, 1 / 3.0)),
+    (10, (0.37, 0.447), (1, 2, 0.5, 3, 1 / 3.0)),
+    (5, (0.54, 0.619), (1, 2, 0.5, 3, 1 / 3.0)),
+    (3, (0.71, 0.79), (1, 2, 0.5)),
+    (1, (0.88, 0.961), (1, 2, 0.5)),
+]
+JPEG_MEAN_BOUND, JPEG_MAX_BOUND = 2.0, 16   # tests/test_native.py:76-78
+# nvJPEG's quality-95 round trip against libjpeg's on the same pixels
+JPEG_ENCODE_SLACK = 0.5
+LOC_REL = 1e-5                 # MultiBoxTarget's loc targets, card vs CPU
+NMS_TIE = 1e-4                 # |IoU - threshold| of a near tie
+
+
+def _host_probe():
+    """(a) of ``image_record``: what the card's host has for the native
+    IO library, and which codec the library was built with."""
+    from mxtpu_torch import native
+
+    def sh(cmd):
+        out = subprocess.run(["bash", "-c", cmd], capture_output=True,
+                             text=True, timeout=60)
+        return (out.stdout + out.stderr).strip()
+    return {"gxx": sh("g++ --version | head -1"),
+            "libjpeg": sh("ls /usr/include/jpeglib.h "
+                          "/usr/lib/x86_64-linux-gnu/libjpeg.so* 2>&1"),
+            "nvjpeg": sh("ls /usr/local/cuda/include/nvjpeg.h "
+                         "/usr/local/cuda/lib64/libnvjpeg* 2>&1"),
+            "nproc": int(sh("nproc")),
+            "PIL": sh("python3 -c 'import PIL; print(PIL.__version__)' "
+                      "2>&1 | tail -1"),
+            "codec": native.backend()}
+
+
+def _jpeg_stats(a, b):
+    d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+    return {"mean": float(d.mean()), "max": int(d.max())}
+
+
+def _codec_check(codec):
+    """The host's codec against libjpeg's pixels: the fixtures under
+    ``tests/data/jpeg`` (``python -m mxtpu_torch.tools.jpeg_fixtures``).
+    Each JPEG's decode (RGB and luma) within the JPEG bounds of
+    libjpeg's, bit-equal where the codec is libjpeg; each source encoded
+    here at quality 95 and decoded loses no more than libjpeg's round
+    trip, within JPEG_ENCODE_SLACK of its mean."""
+    import glob
+    from mxtpu_torch import native
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "data", "jpeg")
+    rows = {}
+    for jpg in sorted(glob.glob(os.path.join(root, "*.jpg"))):
+        name = jpg[:-len(".jpg")]
+        with open(jpg, "rb") as f:
+            buf = f.read()
+        row = {}
+        for channels, suffix in ((3, "rgb"), (1, "luma")):
+            want = np.load(f"{name}.{suffix}.npy")
+            got = native.jpeg_decode(buf, channels)
+            if got.shape != want.shape:
+                raise AssertionError(f"{jpg} {suffix}: {got.shape} vs "
+                                     f"{want.shape}")
+            row[suffix] = _jpeg_stats(got, want)
+        src = np.load(f"{name}.src.npy")
+        ours = native.jpeg_decode(native.jpeg_encode(src, IMG_QUALITY), 3)
+        row["encode_round_trip"] = _jpeg_stats(ours, src)
+        row["libjpeg_round_trip"] = _jpeg_stats(np.load(f"{name}.rgb.npy"),
+                                                src)
+        rows[os.path.basename(name)] = row
+    if len(rows) != 3:
+        raise AssertionError(f"the JPEG fixtures are missing: {rows}")
+    exact = codec == "libjpeg"
+    for name, row in rows.items():
+        for suffix in ("rgb", "luma"):
+            s = row[suffix]
+            ok = s["max"] == 0 if exact else \
+                s["mean"] < JPEG_MEAN_BOUND and s["max"] <= JPEG_MAX_BOUND
+            if not ok:
+                raise AssertionError(f"{codec} decode of {name} {suffix}: "
+                                     f"{s}")
+        if row["encode_round_trip"]["mean"] > \
+                row["libjpeg_round_trip"]["mean"] + JPEG_ENCODE_SLACK:
+            raise AssertionError(f"{codec} encode of {name}: {row}")
+    return {"case": "bit-equal to libjpeg" if exact else
+            f"{codec} within mean < {JPEG_MEAN_BOUND}, max <= "
+            f"{JPEG_MAX_BOUND} of libjpeg", "images": rows}
+
+
+def _decode_rate(rec, threads):
+    """The raw pipe's img/s: IMG_SWEEP_IMAGES decoded, centre-cropped
+    and resized to 224² by ``threads`` workers (uint8 out)."""
+    from mxtpu_torch import native
+    pipe = native.NativePipeline(rec, IMG_CROP, IMG_CROP, 3, threads=threads,
+                                 out_u8=True)
+    try:
+        t0 = time.perf_counter()
+        n = 0
+        while n < IMG_SWEEP_IMAGES:
+            data, _ = pipe.next_batch(IMG_BATCH)
+            if not len(data):
+                break
+            n += len(data)
+        return n / (time.perf_counter() - t0)
+    finally:
+        pipe.close()
+
+
+def _post_bit_equal(mx, rec, threads):
+    """One uint8 batch normalized on the card and on the host, bit for
+    bit; and the first batch of the card's iterator (pinned buffers, its
+    own stream) against the host's."""
+    import torch
+    from mxtpu_torch import io as mio, native
+    mean = torch.tensor(IMG_MEAN, dtype=torch.float32)
+    std = torch.tensor(IMG_STD, dtype=torch.float32)
+    pipe = native.NativePipeline(rec, IMG_CROP, IMG_CROP, 3, threads=threads,
+                                 out_u8=True)
+    try:
+        u8 = torch.from_numpy(pipe.next_batch(IMG_BATCH)[0].copy())
+    finally:
+        pipe.close()
+    host = mio.normalize_u8(u8, mean, std)
+    card = mio.normalize_u8(u8.cuda(), mean.cuda(), std.cuda()).cpu()
+    batches = []
+    for ctx in ("cuda", "cpu"):
+        it = mio.NativeImageRecordIter(
+            rec, (3, IMG_CROP, IMG_CROP), IMG_BATCH, preprocess_threads=threads,
+            mean=list(IMG_MEAN), std=list(IMG_STD), ctx=ctx)
+        try:
+            batches.append(it.next().data[0]._data.cpu())
+        finally:
+            it.close()
+    torch.cuda.synchronize()
+    return {"post": bool(torch.equal(host, card)),
+            "iterator": bool(torch.equal(*batches))}
+
+
+def _image_train(mx, rec, threads):
+    """(b) of ``image_record``: ImageRecordIter (native) → DevicePrefetcher
+    → the zoo's ResNet-50 in bf16 through ``make_fused_step``."""
+    import torch
+    from mxtpu_torch import io as mio
+    from mxtpu_torch.gluon import data as gdata
+    from mxtpu_torch.tools.synth_images import build_resnet50_step
+    kw = dict(path_imgrec=rec, data_shape=(3, IMG_CROP, IMG_CROP),
+              batch_size=IMG_BATCH, shuffle=True, preprocess_threads=threads,
+              mean_r=IMG_MEAN[0], mean_g=IMG_MEAN[1], mean_b=IMG_MEAN[2],
+              std_r=IMG_STD[0], std_g=IMG_STD[1], std_b=IMG_STD[2],
+              ctx="cuda")
+    it = mio.ImageRecordIter(**kw)
+    if not isinstance(it, mio.NativeImageRecordIter):
+        raise AssertionError(f"ImageRecordIter routed to {type(it)}")
+    # the pure input rate: decode + the uint8 upload + the card's post,
+    # no training, fenced on the last batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_in = 0
+    for b in it:
+        n_in += b.data[0].shape[0] - b.pad
+    torch.cuda.synchronize()
+    input_rate = n_in / (time.perf_counter() - t0)
+    it.reset()
+    step = build_resnet50_step(IMG_LR, IMG_MOMENTUM, IMG_WD, SEED, IMG_CROP,
+                               IMG_CLASSES)
+    torch.cuda.reset_peak_memory_stats()
+    losses, waits, epoch_s = [], [], []
+    with gdata.DevicePrefetcher(it, depth=2, device="cuda") as batches:
+        for epoch in range(IMG_EPOCHS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps = 0
+            while True:
+                w0 = time.perf_counter()
+                try:
+                    b = next(batches)
+                except StopIteration:
+                    break
+                if epoch:
+                    waits.append(1e3 * (time.perf_counter() - w0))
+                losses.append(float(step(b.data[0], b.label[0])
+                                    .asscalar()))
+                steps += 1
+            torch.cuda.synchronize()
+            epoch_s.append(time.perf_counter() - t0)
+            if steps != IMG_STEPS:
+                raise AssertionError(f"epoch {epoch}: {steps} steps")
+            batches.reset()
+    # the same step fed from memory: the last batch, already on the card
+    x, y = b.data[0], b.label[0]
+    step(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(IMG_STEPS // 2):
+        step(x, y)
+    torch.cuda.synchronize()
+    memory_ms = 1e3 * (time.perf_counter() - t0) / (IMG_STEPS // 2)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    train_rate = IMG_STEPS * IMG_BATCH / epoch_s[-1]
+    step_ms = 1e3 * epoch_s[-1] / IMG_STEPS
+    row = {"routed": type(it).__name__, "input_img_per_s": input_rate,
+           "train_img_per_s": train_rate, "epoch_seconds": epoch_s,
+           "step_ms": step_ms, "from_memory_step_ms": memory_ms,
+           "from_memory_img_per_s": 1e3 * IMG_BATCH / memory_ms,
+           "losses": losses,
+           "data_wait_ms": {"p50": _pct(waits, 50), "p99": _pct(waits, 99),
+                            "count": len(waits)},
+           # the step waits on its input when the median wait is a tenth
+           # of a step or more
+           "input_bounds_step": _pct(waits, 50) >= 0.1 * step_ms,
+           "peak_gb": peak, "num_compiles": step.num_compiles()}
+    del step, batches, x, y, b
+    _release_gateway()
+    first_ok = abs(losses[0] - math.log(IMG_CLASSES)) < 1.0
+    if not (all(map(math.isfinite, losses)) and first_ok):
+        raise AssertionError(f"image_record losses {losses}")
+    return row
+
+
+def _image_augment(rec, threads):
+    """(c): ImageRecordIter with rand_crop and rand_mirror (the Python
+    ImageIter under a PrefetchingIter), IMG_AUG_IMAGES images."""
+    import torch
+    from mxtpu_torch import io as mio
+    it = mio.ImageRecordIter(
+        path_imgrec=rec, data_shape=(3, IMG_CROP, IMG_CROP), batch_size=IMG_AUG_BATCH,
+        shuffle=True, preprocess_threads=threads, rand_crop=True,
+        rand_mirror=True, mean_r=IMG_MEAN[0], mean_g=IMG_MEAN[1],
+        mean_b=IMG_MEAN[2], std_r=IMG_STD[0], std_g=IMG_STD[1],
+        std_b=IMG_STD[2], ctx="cuda")
+    if not isinstance(it, mio.PrefetchingIter):
+        raise AssertionError(f"the augmenting path routed to {type(it)}")
+    try:
+        t0 = time.perf_counter()
+        n = 0
+        while n < IMG_AUG_IMAGES:
+            b = it.next()
+            n += b.data[0].shape[0] - b.pad
+        torch.cuda.synchronize()
+        rate = n / (time.perf_counter() - t0)
+    finally:
+        it.close()
+    if b.data[0].shape != (IMG_AUG_BATCH, 3, IMG_CROP, IMG_CROP) or \
+            not bool(torch.isfinite(b.data[0]._data).all()):
+        raise AssertionError("the augmenting path's batch is wrong")
+    return {"routed": "ImageIter under PrefetchingIter", "images": n,
+            "img_per_s": rate}
+
+
+def _det_labels(rng):
+    """DET_RECORDS images' boxes, 1-5 each, packed as im2rec's detection
+    labels ``[2, 5, (class, x1, y1, x2, y2) * k]``."""
+    labels = []
+    for i in range(DET_RECORDS):
+        lab = [2.0, 5.0]
+        for _ in range(1 + i % 5):
+            x1, y1 = rng.uniform(0, 0.6, 2)
+            bw, bh = rng.uniform(0.15, 0.4, 2)
+            lab += [float(rng.integers(0, DET_CLASSES)), x1, y1,
+                    min(1.0, x1 + bw), min(1.0, y1 + bh)]
+        labels.append(lab)
+    return labels
+
+
+def _ssd300_anchors(mx, ctx):
+    outs = [mx.nd.contrib.MultiBoxPrior(
+        mx.nd.zeros((1, 1, side, side), ctx=ctx), sizes=sizes, ratios=ratios)
+        for side, sizes, ratios in SSD300_ANCHORS]
+    return mx.nd.concat(*outs, dim=1)
+
+
+def _nms_ties(cpu, card, thresh):
+    """Rows whose kept/suppressed state differs between the card and the
+    CPU: the first in each image must be an IoU near tie at the
+    threshold (the decoded boxes differ in the last bits of ``exp``);
+    later ones follow from it."""
+    diffs, ties = 0, []
+    for b in range(cpu.shape[0]):
+        kc, kg = cpu[b, :, 1] >= 0, card[b, :, 1] >= 0
+        rows = np.nonzero(kc != kg)[0]
+        diffs += len(rows)
+        if not len(rows):
+            continue
+        # the rows before j are kept alike; j's class and its box as
+        # the CPU decoded it, against the earlier kept boxes of its class
+        j = rows[0]
+        same = (cpu[b, :j, 0] == cpu[b, j, 0]) & kc[:j]
+        bj = cpu[b, j, 2:].astype(np.float64)
+        bi = cpu[b, :j, 2:][same].astype(np.float64)
+        ix = np.clip(np.minimum(bi[:, 2], bj[2]) - np.maximum(bi[:, 0], bj[0]),
+                     0, None)
+        iy = np.clip(np.minimum(bi[:, 3], bj[3]) - np.maximum(bi[:, 1], bj[1]),
+                     0, None)
+        inter = ix * iy
+        union = (bi[:, 2] - bi[:, 0]) * (bi[:, 3] - bi[:, 1]) + \
+            (bj[2] - bj[0]) * (bj[3] - bj[1]) - inter
+        iou = inter / np.where(union > 0, union, 1)
+        ties.append(float(np.min(np.abs(iou - thresh))) if len(iou)
+                    else float("inf"))
+    return diffs, ties
+
+
+def _image_detection(mx, rec):
+    """(d): ImageDetIter over the detection .rec, then SSD300's anchors,
+    MultiBoxTarget and MultiBoxDetection on the card against the CPU."""
+    import random
+    import torch
+    from mxtpu_torch import image
+    from mxtpu_torch.tools.timing import time_ms
+    random.seed(SEED)
+    np.random.seed(SEED)
+    it = image.ImageDetIter(DET_BATCH, (3, DET_SIZE, DET_SIZE),
+                            path_imgrec=rec, shuffle=True, rand_crop=1,
+                            rand_mirror=True, ctx="cuda")
+    t0 = time.perf_counter()
+    n, first = 0, None
+    for b in it:
+        n += b.data[0].shape[0] - b.pad
+        first = first or b
+    torch.cuda.synchronize()
+    det_rate = n / (time.perf_counter() - t0)
+    label = first.label[0]
+    rng = np.random.default_rng(SEED)
+    anchors = {ctx: _ssd300_anchors(mx, ctx) for ctx in ("cuda", "cpu")}
+    n_anchor = anchors["cpu"].shape[1]
+    logits = rng.standard_normal((DET_BATCH, DET_CLASSES + 1, n_anchor),
+                                 dtype=np.float32)
+    prob = np.exp(logits - logits.max(axis=1, keepdims=True))
+    prob = (prob / prob.sum(axis=1, keepdims=True)).astype(np.float32)
+    loc = (0.3 * rng.standard_normal((DET_BATCH, n_anchor * 4))) \
+        .astype(np.float32)
+    args = {ctx: [mx.nd.array(a, ctx=ctx) for a in
+                  (label.asnumpy(), logits, prob[:DET_NMS_BATCH],
+                   loc[:DET_NMS_BATCH])] for ctx in ("cuda", "cpu")}
+    c = mx.nd.contrib
+    out = {}
+    for ctx in ("cuda", "cpu"):
+        lab, lg, pr, lc = args[ctx]
+        out[ctx] = [o.asnumpy() for o in c.MultiBoxTarget(
+            anchors[ctx], lab, lg, overlap_threshold=0.5,
+            negative_mining_ratio=3, negative_mining_thresh=0.5)]
+        out[ctx].append(c.MultiBoxDetection(pr, lc, anchors[ctx],
+                                            nms_threshold=DET_NMS_THRESH).asnumpy())
+    (loc_c, mask_c, cls_c, det_c), (loc_g, mask_g, cls_g, det_g) = \
+        out["cpu"], out["cuda"]
+    lab, lg, pr, lc = args["cuda"]
+    ms = {"MultiBoxPrior": time_ms(lambda: _ssd300_anchors(mx, "cuda"), 3),
+          "MultiBoxTarget": time_ms(lambda: c.MultiBoxTarget(
+              anchors["cuda"], lab, lg, negative_mining_ratio=3), 3),
+          "MultiBoxDetection": time_ms(lambda: c.MultiBoxDetection(
+              pr, lc, anchors["cuda"], nms_threshold=DET_NMS_THRESH), 1, warmup=0)}
+    loc_err = float(np.max(np.abs(loc_g - loc_c)
+                           / np.maximum(np.abs(loc_c), 1.0)))
+    diffs, ties = _nms_ties(det_c, det_g, DET_NMS_THRESH)
+    row = {"images": n, "img_per_s": det_rate, "anchors": n_anchor,
+           "classes": DET_CLASSES, "channels": DET_CLASSES + 1,
+           "target_batch": DET_BATCH, "detection_batch": DET_NMS_BATCH,
+           "cls_target_equal": bool(np.array_equal(cls_g, cls_c)),
+           "mask_equal": bool(np.array_equal(mask_g, mask_c)),
+           "loc_target_max_rel": loc_err,
+           "positives": int(mask_c.sum() // 4),
+           "kept": int((det_c[..., 1] >= 0).sum()),
+           "kept_differ": diffs, "first_differences_iou_margin": ties,
+           "card_ms": ms}
+    if n_anchor != 8732:
+        raise AssertionError(f"SSD300 has 8732 anchors, not {n_anchor}")
+    if not (row["cls_target_equal"] and row["mask_equal"]
+            and loc_err <= LOC_REL):
+        raise AssertionError(f"MultiBoxTarget on the card differs: {row}")
+    if any(t > NMS_TIE for t in ties):
+        raise AssertionError(f"MultiBoxDetection on the card differs: {row}")
+    if label.shape != (DET_BATCH, 5, 5):
+        raise AssertionError(f"ImageDetIter's labels: {label.shape}")
+    return row
+
+
+def _image_folder_loader(root, make_image, codec):
+    """(e): ImageFolderDataset over JPEG files under
+    ``DataLoader(num_workers=FOLDER_WORKERS)``, Gluon's usual image
+    training input. A worker process hides the card, so under nvJPEG
+    the workers must be threads of this process; and a process that
+    hides the card must say why nvJPEG cannot decode there."""
+    from mxtpu_torch import image
+    from mxtpu_torch.gluon.data import DataLoader
+    from mxtpu_torch.gluon.data.vision import ImageFolderDataset
+    for i in range(FOLDER_IMAGES):
+        folder = os.path.join(root, f"class{i % 4}")
+        os.makedirs(folder, exist_ok=True)
+        with open(os.path.join(folder, f"{i}.jpg"), "wb") as f:
+            f.write(image.imencode(make_image(i), ".jpg",
+                                   quality=IMG_QUALITY))
+    ds = ImageFolderDataset(root)
+
+    def batches(**kw):
+        loader = DataLoader(ds, batch_size=FOLDER_BATCH, ctx="cpu", **kw)
+        t0 = time.perf_counter()
+        out = [(x.asnumpy(), y.asnumpy()) for x, y in loader]
+        return loader, out, len(ds) / (time.perf_counter() - t0)
+    _, want, rate0 = batches()
+    loader, got, rate = batches(num_workers=FOLDER_WORKERS)
+    equal = len(got) == len(want) and all(
+        np.array_equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w))
+    code = ("import sys\nfrom mxtpu_torch import native\n"
+            "try:\n    native.jpeg_decode(open(sys.argv[1], 'rb').read())\n"
+            "    print('decoded')\nexcept RuntimeError as e:\n    print(e)\n")
+    hidden = subprocess.run(
+        [sys.executable, "-c", code, ds.items[0][0]], capture_output=True,
+        text=True, timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES="")).stdout.strip()
+    expect = "threads" if codec == "nvjpeg" else "processes"
+    row = {"images": len(ds), "workers": FOLDER_WORKERS,
+           "worker_kind": loader.worker_kind, "batches_equal": equal,
+           "img_per_s": {"no_workers": rate0, "workers": rate},
+           "card_hidden_decode": hidden}
+    named = "cannot run in this process" in hidden and \
+        "CUDA_VISIBLE_DEVICES=''" in hidden
+    if loader.worker_kind != expect or not equal or \
+            not (named if codec == "nvjpeg" else hidden == "decoded"):
+        raise AssertionError(f"ImageFolderDataset under DataLoader: {row}")
+    return row
+
+
+def image_record_phase():
+    """19 in the docstring: the image half of mx.io at ImageNet width."""
+    import torch
+    import mxtpu_torch as mx
+    from mxtpu_torch.tools.synth_images import SynthImages, write_rec
+    reset_launches()
+    out_dir = os.path.join(build_dir(), "image_record")
+    os.makedirs(out_dir, exist_ok=True)
+    try:
+        probe = _host_probe()
+        threads = probe["nproc"]
+        codec = _codec_check(probe["codec"])
+        rec = os.path.join(out_dir, "train.rec")
+        write_s = write_rec(rec, IMG_RECORDS,
+                            SynthImages(0, IMG_RECORDS, *IMG_SIZE),
+                            lambda i: float(i % IMG_CLASSES), threads,
+                            IMG_QUALITY)
+        sweep = {t: _decode_rate(rec, t)
+                 for t in sorted({1, 2, 4, threads})}
+        post = _post_bit_equal(mx, rec, threads)
+        train = _image_train(mx, rec, threads)
+        augment = _image_augment(rec, threads)
+        det_rec = os.path.join(out_dir, "det.rec")
+        boxes = _det_labels(np.random.default_rng(1))
+        write_rec(det_rec, DET_RECORDS,
+                  SynthImages(1, DET_RECORDS, DET_SIZE, DET_SIZE),
+                  lambda i: boxes[i], threads, IMG_QUALITY)
+        detection = _image_detection(mx, det_rec)
+        loader = _image_folder_loader(os.path.join(out_dir, "folder"),
+                                      SynthImages(2, FOLDER_IMAGES,
+                                                  *IMG_SIZE),
+                                      probe["codec"])
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    launches = read_launches()
+    emit({"phase": "image_record", "card": nvidia_smi(), "host": probe,
+          "codec_check": codec,
+          "records": {"n": IMG_RECORDS, "hw": IMG_SIZE,
+                      "quality": IMG_QUALITY, "write_seconds": write_s},
+          "decode_img_per_s_by_threads": sweep,
+          "post_bit_equal": post, "train": train, "augment": augment,
+          "detection": detection, "loader": loader, "launches": launches})
+    if not (post["post"] and post["iterator"]):
+        raise AssertionError(f"the card's post differs from the host's: "
+                             f"{post}")
+    if launches != only():
+        raise AssertionError(f"image_record launched {launches}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5862,6 +6396,8 @@ def main():
     gluon_launches = gluon_phase()
     torch.cuda.empty_cache()
     symbol_launches = symbol_module_phase()
+    torch.cuda.empty_cache()
+    image_launches = image_record_phase()
     telemetry_phase()
     launches = {k: fwd_launches[k] + train_launches[k]
                 + flywheel_launches[k] + resnet_launches[k]
@@ -5869,6 +6405,7 @@ def main():
                 + random_launches[k] + serde_launches[k]
                 + mixtral_launches[k] + bert_launches[k]
                 + gluon_launches[k] + symbol_launches[k]
+                + image_launches[k]
                 for k in LAUNCH_COUNTERS}
 
     main_row, bwd = rows["llama3_8b"], bwd_rows["llama3_8b"]

@@ -7,8 +7,10 @@ module names (``context``, ``ndarray``, ``autograd``, ``rtc``,
 ``telemetry``, ``gluon``, ``optimizer``, ``initializer``,
 ``lr_scheduler``, ``model``, ``amp``, ``parallel.mesh``, ``symbol``,
 ``module``, ``io``, ``metric``, ``callback``, ``monitor``,
-``visualization``) so a reader finds each
-counterpart; ``prng`` is the key chain of ``jax.random`` (its float32
+``visualization``, ``recordio``, ``native``, ``image``) so a reader
+finds each counterpart, and serves them under the reference's names
+(``mxtpu_torch.serve``, ``mxtpu_torch.rnn``, ...); ``prng`` is the
+key chain of ``jax.random`` (its float32
 roundings of XLA's CPU math in ``xla_math``), ``random`` is
 ``mx.random``, ``serde`` the ``.params`` container; ``ops.conv``
 ports the ResNet shape experiment's conv; ``parallel.optim`` holds the
@@ -16,7 +18,8 @@ optax transforms the train step takes, and ``tools`` the scripts that
 measure the port. Plain tensor code is PyTorch; every kernel ``mxtpu``
 wrote in Pallas becomes a hand-written CUDA C++ kernel for ``sm_90a``
 under ``ops/csrc/``, built at first use, and ``mx.rtc`` compiles the
-user's own CUDA C at run time.
+user's own CUDA C at run time; ``csrc/`` holds the native IO library,
+host C++ built with g++ at first use (``native``).
 
 This package imports ``torch`` and numpy only — never ``jax`` and
 nothing of ``mxtpu`` (whose ``__init__`` imports jax). Entry points run
@@ -45,7 +48,23 @@ _LAZY = {"gluon": "mxtpu_torch.gluon", "optimizer": "mxtpu_torch.optimizer",
          "callback": "mxtpu_torch.callback",
          "monitor": "mxtpu_torch.monitor",
          "viz": "mxtpu_torch.visualization",
-         "visualization": "mxtpu_torch.visualization"}
+         "visualization": "mxtpu_torch.visualization",
+         "serve": "mxtpu_torch.serve", "parallel": "mxtpu_torch.parallel",
+         "models": "mxtpu_torch.models", "ops": "mxtpu_torch.ops",
+         "contrib": "mxtpu_torch.contrib",
+         "checkpoint": "mxtpu_torch.checkpoint",
+         "serde": "mxtpu_torch.serde", "rnn": "mxtpu_torch.gluon.rnn",
+         "telemetry": "mxtpu_torch.telemetry",
+         "image": "mxtpu_torch.image", "recordio": "mxtpu_torch.recordio",
+         "native": "mxtpu_torch.native"}
+
+# the reference's other lazy names, each with the ROADMAP item that
+# brings it
+_LATER = {"kvstore": "item 11", "kv": "item 11",
+          "np": "item 10.4(c)", "npx": "item 10.4(c)",
+          "profiler": "item 10.4(c)", "util": "item 10.4(c)",
+          "test_utils": "item 10.4(c)", "engine": "item 10.4(c)",
+          "runtime": "item 10.4(c)", "operator": "item 10.4(b)"}
 
 
 def __getattr__(name):
@@ -54,4 +73,7 @@ def __getattr__(name):
         mod = importlib.import_module(_LAZY[name])
         globals()[name] = mod
         return mod
+    if name in _LATER:
+        raise AttributeError(
+            f"mxtpu_torch.{name} comes with ROADMAP Queue A {_LATER[name]}")
     raise AttributeError(f"module 'mxtpu_torch' has no attribute {name!r}")

@@ -4,8 +4,9 @@
 The target dtype is bfloat16 by default, which shares float32's
 exponent range, so its loss scale is a static 1.0; float16 gets the
 dynamic :class:`LossScaler`. Casting a block's parameters is the
-conversion: each op computes in its inputs' dtype. The Symbol
-conversion (``convert_model``) comes with the Symbol frontend.
+conversion: each op computes in its inputs' dtype. ``convert_model``
+casts a Symbol's arg params the same way and leaves the Symbol as it
+is.
 """
 from __future__ import annotations
 
@@ -20,9 +21,6 @@ from .loss_scaler import MAX_LOSS_SCALE, LossScaler
 __all__ = ["init", "init_trainer", "scale_loss", "unscale",
            "convert_hybrid_block", "convert_model", "LossScaler",
            "MAX_LOSS_SCALE", "amp_cast", "amp_multicast"]
-
-SYMBOL_SLICE = ("amp.convert_model converts a Symbol, which comes with "
-                "ROADMAP Queue A item 10.4; use convert_hybrid_block")
 
 _TARGET_DTYPE: Optional[str] = None
 
@@ -69,7 +67,16 @@ def convert_hybrid_block(block, target_dtype: Optional[str] = None,
 
 def convert_model(sym, arg_params, aux_params,
                   target_dtype: Optional[str] = None, **kwargs):
-    raise NotImplementedError(SYMBOL_SLICE)
+    """Symbolic conversion (reference ``amp.convert_model``): cast the
+    floating arg params to the target dtype, ``gamma`` and ``beta``
+    excepted; the aux params (BatchNorm statistics) and the symbol are
+    returned unchanged, each op computing in its inputs' dtype."""
+    target = target_dtype or _target()
+    new_args = {}
+    for k, v in arg_params.items():
+        new_args[k] = v.astype(target) if v.dtype.is_floating_point and \
+            not k.endswith(("gamma", "beta")) else v
+    return sym, new_args, dict(aux_params)
 
 
 def init_trainer(trainer):

@@ -17,6 +17,14 @@ The worker model mirrors the reference:
   (``CUDA_VISIBLE_DEVICES`` is empty in every child), and a dataset
   whose samples hold CUDA tensors is refused before any worker starts.
 
+  A JPEG codec that runs on the card (the native library's nvJPEG
+  build, on a host without libjpeg) cannot run there: when the sample
+  probed in the parent went through it, the workers are threads of the
+  parent instead (the decode runs outside the interpreter lock), with
+  the same batchify function and the same batches. ``worker_kind``
+  says which the last epoch used ("processes" or "threads"; None
+  without workers).
+
   Workers start through the ``forkserver`` context by default (a fork
   of a parent whose CUDA runtime is up cannot use it, and a fork of a
   multithreaded parent can deadlock), so the dataset and batchify_fn
@@ -159,6 +167,7 @@ class DataLoader:
         self._pin_memory = pin_memory
         self._ctx = ctx
         self._timeout = timeout
+        self.worker_kind = None
 
     def __len__(self):
         return len(self._batch_sampler)
@@ -177,12 +186,15 @@ class DataLoader:
         return _pinned(batch) if self._pin_memory and \
             torch.cuda.is_available() else batch
 
-    def _check_mp_safe(self):
+    def _check_mp_safe(self) -> bool:
         """Probe one sample in the parent: a CUDA tensor anywhere in it
         (a nested tuple/list/dict too) would make a worker initialize
-        CUDA, which it must never do — refuse with the fix instead."""
+        CUDA, which it must never do — refuse with the fix instead.
+        Returns whether the sample went through a JPEG codec that runs
+        on the card, which a worker process cannot run."""
+        from ... import native
         if len(self._dataset) == 0:
-            return
+            return False
 
         def on_card(x):
             if isinstance(x, NDArray):
@@ -195,12 +207,16 @@ class DataLoader:
                 return any(on_card(v) for v in x.values())
             return False
 
-        if on_card(self._dataset[0]):
+        calls = native.codec_calls()
+        sample = self._dataset[0]
+        if on_card(sample):
             raise ValueError(
                 "DataLoader(num_workers>0) runs worker processes, but "
                 "this dataset yields CUDA tensors — worker processes must "
                 "not touch the card. Use thread_pool=True or make the "
                 "dataset/transforms yield host arrays.")
+        return native.codec_calls() != calls and \
+            native.backend() == "nvjpeg"
 
     @property
     def _pool(self):
@@ -307,7 +323,6 @@ class DataLoader:
         second timeout on the same batch raises, naming the dead
         workers' exit codes."""
         import collections
-        self._check_mp_safe()
         device = self._device()
         pool = self._pool
         window = max(self._prefetch, self._num_workers)
@@ -360,9 +375,45 @@ class DataLoader:
             fill()
             yield _np_to_nd(batch, device, self._pin_memory)
 
+    def _iter_threads(self):
+        """Worker threads in place of worker processes (a sample decoded
+        on the card, see ``_check_mp_safe``): ``num_workers`` threads
+        each batchify a batch as a worker process would, in a window of
+        the same size, and batches come out in order."""
+        import collections
+        import itertools
+        from concurrent.futures import ThreadPoolExecutor, TimeoutError
+        device = self._device()
+        window = max(self._prefetch, self._num_workers)
+        sampler_it = iter(self._batch_sampler)
+
+        def work(indices):
+            return self._batchify_fn([self._dataset[i] for i in indices])
+        pool = ThreadPoolExecutor(self._num_workers,
+                                  thread_name_prefix="dataloader")
+        try:
+            pending = collections.deque(
+                pool.submit(work, indices)
+                for indices in itertools.islice(sampler_it, window))
+            while pending:
+                try:
+                    batch = pending.popleft().result(self._timeout)
+                except TimeoutError:
+                    raise RuntimeError(f"DataLoader worker thread timed "
+                                       f"out after {self._timeout}s")
+                for indices in sampler_it:
+                    pending.append(pool.submit(work, indices))
+                    break
+                yield _np_to_nd(batch, device, self._pin_memory)
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+
     def __iter__(self):
         if self._mp:
-            yield from self._iter_multiprocess()
+            on_card = self._check_mp_safe()
+            self.worker_kind = "threads" if on_card else "processes"
+            yield from (self._iter_threads() if on_card
+                        else self._iter_multiprocess())
             return
         device = self._device()
         if self._prefetch == 0:

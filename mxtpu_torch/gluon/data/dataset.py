@@ -8,10 +8,6 @@ from ...ndarray import NDArray
 
 __all__ = ["Dataset", "SimpleDataset", "ArrayDataset", "RecordFileDataset"]
 
-RECORDIO_SLICE = ("RecordFileDataset reads RecordIO files, which come with "
-                  "ROADMAP Queue A item 10.4")
-
-
 class Dataset:
     def __getitem__(self, idx):
         raise NotImplementedError
@@ -96,8 +92,20 @@ class ArrayDataset(Dataset):
 
 
 class RecordFileDataset(Dataset):
-    """Dataset over a RecordIO ``.rec`` file (reference
-    ``RecordFileDataset``): comes with the RecordIO codec."""
+    """Dataset over a RecordIO ``.rec`` file and its ``.idx`` (reference
+    ``RecordFileDataset``): item ``i`` is the raw bytes of the ``i``-th
+    indexed record. (``mxtpu``'s opens ``recordio.IndexedRecordIO``,
+    which its recordio module does not define; this opens
+    ``MXIndexedRecordIO``.)"""
 
     def __init__(self, filename: str):
-        raise NotImplementedError(RECORDIO_SLICE)
+        from ... import recordio
+        self._filename = filename
+        idx_file = filename[:filename.rfind(".")] + ".idx"
+        self._record = recordio.MXIndexedRecordIO(idx_file, filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

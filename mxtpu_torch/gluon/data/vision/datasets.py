@@ -22,10 +22,6 @@ from ..dataset import Dataset
 
 __all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100", "ImageFolderDataset"]
 
-IMAGE_SLICE = ("decoding image files (mx.image) comes with ROADMAP Queue A "
-               "item 10.4; ImageFolderDataset reads .npy files")
-
-
 # 7x5 glyph masks for digits 0-9 (standard seven-segment-ish bitmaps)
 _GLYPHS = [
     "01110100011001110101110011000101110",
@@ -197,8 +193,9 @@ class CIFAR100(CIFAR10):
 
 class ImageFolderDataset(Dataset):
     """Images arranged in ``root/class_x/xxx.jpg`` folders (reference
-    ``ImageFolderDataset``). ``.npy`` images load here; decoding the
-    other formats comes with ``mx.image`` and raises."""
+    ``ImageFolderDataset``): ``.jpg``/``.jpeg``/``.png`` decoded by
+    ``mx.image.imread`` (``flag`` 0 for grayscale), ``.npy`` loaded, each
+    a host NDArray."""
 
     def __init__(self, root, flag=1, transform=None):
         self._root = os.path.expanduser(root)
@@ -218,10 +215,12 @@ class ImageFolderDataset(Dataset):
                     self.items.append((os.path.join(path, filename), label))
 
     def __getitem__(self, idx):
+        from .... import image
         path, label = self.items[idx]
-        if not path.endswith(".npy"):
-            raise NotImplementedError(IMAGE_SLICE)
-        img = nd.array(_np.load(path), ctx="cpu")
+        if path.endswith(".npy"):
+            img = nd.array(_np.load(path), ctx="cpu")
+        else:
+            img = image.imread(path, self._flag, ctx="cpu")
         if self._transform is not None:
             return self._transform(img, label)
         return img, label

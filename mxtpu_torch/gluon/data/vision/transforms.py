@@ -9,7 +9,9 @@ from numpy's global generator in the reference's order, so one
 ``np.random.seed`` gives both packages the same crops and flips.
 ``Resize`` is the reference's ``jax.image.resize(method="linear")``:
 a triangle filter at half-pixel centres that widens by the scale when
-it shrinks (antialiasing), as separable weight matrices.
+it shrinks (antialiasing), as separable weight matrices;
+:func:`resize_tensor` also holds jax's Keys cubic, lanczos3 and nearest
+for ``mx.image.imresize``.
 """
 from __future__ import annotations
 
@@ -74,21 +76,71 @@ class Normalize(HybridBlock):
         return (x - mean) / std
 
 
-def _resize_weights(n_in: int, n_out: int) -> _np.ndarray:
+def _keys_cubic(x):
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = _np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return _np.where(x >= 2.0, 0.0, out)
+
+
+def _lanczos3(x, radius=3.0):
+    y = radius * _np.sin(_np.pi * x) * _np.sin(_np.pi * x / radius)
+    out = _np.where(x > 1e-3, y / _np.where(x != 0, _np.pi ** 2 * x ** 2, 1),
+                    1.0)
+    return _np.where(x > radius, 0.0, out)
+
+
+# jax.image.resize's kernels, over |distance| / kernel scale
+_KERNELS = {"linear": lambda x: _np.maximum(0.0, 1.0 - _np.abs(x)),
+            "cubic": _keys_cubic, "lanczos3": _lanczos3}
+
+
+def _resize_weights(n_in: int, n_out: int, method: str = "linear"
+                    ) -> _np.ndarray:
     """(n_in, n_out) weights of jax's ``compute_weight_mat`` for the
-    triangle kernel with antialiasing, in float64."""
+    ``method`` kernel (linear's triangle, Keys cubic, lanczos3) with
+    antialiasing, in float64."""
     scale = n_out / n_in
     inv = 1.0 / scale
     kernel_scale = max(inv, 1.0)
     sample = (_np.arange(n_out, dtype=_np.float64) + 0.5) * inv - 0.5
     x = _np.abs(sample[None, :] - _np.arange(n_in, dtype=_np.float64)[:, None]
                 ) / kernel_scale
-    w = _np.maximum(0.0, 1.0 - _np.abs(x))
+    w = _KERNELS[method](x)
     total = w.sum(axis=0, keepdims=True)
     w = _np.where(_np.abs(total) > 1000.0 * float(_np.finfo(_np.float32).eps),
                   w / _np.where(total != 0, total, 1), 0.0)
     inside = (sample >= -0.5) & (sample <= n_in - 0.5)
     return _np.where(inside[None, :], w, 0.0)
+
+
+def _nearest_index(n_in: int, n_out: int) -> _np.ndarray:
+    """jax's nearest source index, floor((i + 0.5) * n_in / n_out) in
+    float32."""
+    f = (_np.arange(n_out, dtype=_np.float32) + _np.float32(0.5)) \
+        * _np.float32(n_in) / _np.float32(n_out)
+    return _np.floor(f).astype(_np.int64)
+
+
+def resize_tensor(t: torch.Tensor, sizes, axes, method: str = "linear"
+                  ) -> torch.Tensor:
+    """``jax.image.resize`` of ``t`` to ``sizes`` along ``axes``:
+    float32 out for the kernels (linear, cubic, lanczos3), the input's
+    dtype for ``nearest``."""
+    out = t if method == "nearest" else t.to(torch.float32)
+    for axis, n_out in zip(axes, sizes):
+        n_in = out.shape[axis]
+        if n_in == n_out:
+            continue
+        if method == "nearest":
+            idx = torch.from_numpy(_nearest_index(n_in, n_out)).to(
+                out.device)
+            out = torch.index_select(out, axis, idx)
+            continue
+        m = torch.from_numpy(_resize_weights(n_in, n_out, method).astype(
+            _np.float32)).to(out.device)
+        out = torch.movedim(torch.tensordot(out, m, dims=([axis], [0])),
+                            -1, axis)
+    return out
 
 
 def _resize_nd(x: NDArray, size) -> NDArray:
@@ -97,16 +149,7 @@ def _resize_nd(x: NDArray, size) -> NDArray:
     h, w = size[1], size[0]  # reference Resize takes (w, h)
     hw = (0, 1) if x.ndim == 3 else (1, 2)
     t = x._data
-    out = t.to(torch.float32)
-    for axis, n_out in zip(hw, (h, w)):
-        n_in = out.shape[axis]
-        if n_in == n_out:
-            continue
-        m = torch.from_numpy(_resize_weights(n_in, n_out).astype(
-            _np.float32)).to(out.device)
-        out = torch.movedim(torch.tensordot(out, m, dims=([axis], [0])),
-                            -1, axis)
-    return NDArray(out.to(t.dtype))
+    return NDArray(resize_tensor(t, (h, w), hw).to(t.dtype))
 
 
 class Resize(HybridBlock):

@@ -9,9 +9,16 @@ numpy's global generator, as the reference's does, so
 ``ResizeIter`` fixes an epoch's length and ``PrefetchingIter`` reads
 ahead on a thread, every wait of it bounded. Batches come out on
 ``ctx`` (None: the card), as the reference's come out on its default
-device. The image half (``ImageRecordIter``,
-``NativeImageRecordIter``, with ``recordio`` and ``image/``) is a later
-sub-item of ROADMAP Queue A item 10.4 and raises.
+device.
+
+The image half: ``ImageRecordIter`` routes as the reference's does, to
+``NativeImageRecordIter`` (the native library's threaded read, JPEG
+decode, centre crop and resize; uint8 to the card, where the batch is
+made float32, normalized and laid out NCHW) when only those are asked
+for and the images have 3 channels, and otherwise to ``mx.image``'s
+``ImageIter`` under a ``PrefetchingIter``. Where the native route is
+asked for and the library cannot be built, it raises, where the
+reference falls back to the Python path.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from collections import namedtuple
 from typing import Optional
 
 import numpy as onp
+import torch
 
 from .. import ndarray as nd
 from ..base import MXNetError
@@ -32,9 +40,6 @@ __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "CSVIter",
            "ResizeIter", "PrefetchingIter", "ImageRecordIter", "MNISTIter",
            "LibSVMIter", "NativeImageRecordIter"]
 
-IMAGE_SLICE = ("the image iterators come with mx.io's image half, recordio "
-               "and mx.image: the next sub-item of ROADMAP Queue A item "
-               "10.4")
 # how long PrefetchingIter waits for its reader: a batch, or a stop
 PREFETCH_TIMEOUT_S = 120.0
 
@@ -412,12 +417,191 @@ class PrefetchingIter(DataIter):
             pass
 
 
-def ImageRecordIter(*args, **kwargs):
-    raise NotImplementedError(IMAGE_SLICE)
+def ImageRecordIter(path_imgrec=None, data_shape=None, batch_size=1,
+                    shuffle=False, preprocess_threads=2, prefetch_buffer=2,
+                    ctx=None, **kwargs) -> DataIter:
+    """RecordIO image pipeline (reference C++ ``ImageRecordIter``,
+    ``src/io/iter_image_recordio_2.cc``); batches on ``ctx`` (None: the
+    card).
+
+    Accepts the reference's flag names (mean_r/g/b, std_r/g/b,
+    rand_mirror, rand_crop, ...). When only decode/resize/normalize are
+    asked for and the images have 3 channels, the native threaded
+    pipeline serves the batches (and raises if the native library
+    cannot be built); augmentation flags route through ``ImageIter``
+    under a ``PrefetchingIter``."""
+    mean = None
+    if any(f"mean_{c}" in kwargs for c in "rgb"):
+        mean = [kwargs.pop("mean_r", 0.0), kwargs.pop("mean_g", 0.0),
+                kwargs.pop("mean_b", 0.0)]
+    std = None
+    if any(f"std_{c}" in kwargs for c in "rgb"):
+        std = [kwargs.pop("std_r", 1.0), kwargs.pop("std_g", 1.0),
+               kwargs.pop("std_b", 1.0)]
+    # route natively only when EVERY remaining kwarg is semantics the
+    # C++ pipeline implements (decode + center-crop + resize + mean/std);
+    # anything else (label_width, hue, inter_method, augmenters, ...)
+    # goes through the Python ImageIter
+    native_ok_keys = {"seed", "data_name", "label_name"}
+    device_pipeline = kwargs.pop("device_pipeline", True)
+    blocking = {k for k, v in kwargs.items()
+                if k not in native_ok_keys and v}
+    if not blocking and data_shape and data_shape[0] == 3:
+        return NativeImageRecordIter(
+            path_imgrec=path_imgrec, data_shape=data_shape,
+            batch_size=batch_size, shuffle=shuffle,
+            preprocess_threads=preprocess_threads, mean=mean, std=std,
+            seed=int(kwargs.get("seed", 0)),
+            device_pipeline=device_pipeline, ctx=ctx)
+    from ..image import ImageIter
+    inner = ImageIter(batch_size, data_shape, path_imgrec=path_imgrec,
+                      shuffle=shuffle, mean=mean, std=std, ctx=ctx,
+                      **kwargs)
+    return PrefetchingIter(inner, prefetch=prefetch_buffer)
 
 
-def NativeImageRecordIter(*args, **kwargs):
-    raise NotImplementedError(IMAGE_SLICE)
+def normalize_u8(x: torch.Tensor, mean: Optional[torch.Tensor],
+                 std: Optional[torch.Tensor]) -> torch.Tensor:
+    """uint8 NHWC → float32, minus ``mean``, over ``std``, NCHW: the
+    counterpart of the reference's jitted ``post``, in its order, on
+    whatever device ``x`` is (the card's result is bit-equal to the
+    host's)."""
+    y = x.to(torch.float32)
+    if mean is not None:
+        y = y - mean
+    if std is not None:
+        y = y / std
+    return y.permute(0, 3, 1, 2).contiguous()
+
+
+class NativeImageRecordIter(DataIter):
+    """C++ decode pipeline (the native library): threaded RecordIO read
+    + JPEG decode + centre crop + bilinear resize off the Python thread
+    — the native counterpart of ImageRecordIter.
+
+    With ``device_pipeline=True`` the host does only the irregular work
+    (read, decode, crop/resize) and hands over rounded uint8 HWC, a
+    quarter of the float bytes: the batch and its labels are written
+    into one of two pinned host buffer pairs, copied to ``ctx`` (None:
+    the card) on the iterator's own stream, and the batch converted to
+    float32, normalized and laid out NCHW there (:func:`normalize_u8`);
+    the consumer's stream waits for it. ``pinned=False`` copies new
+    pageable buffers on the consumer's stream instead (the plain
+    hand-over, which ``tools.input_ab`` measures against this one).
+    ``device_pipeline=False`` keeps the all-host float32 path (the C++
+    pipeline emits f32 and numpy normalizes and transposes)."""
+
+    def __init__(self, path_imgrec, data_shape, batch_size=1,
+                 shuffle=False, seed=0, preprocess_threads=2,
+                 mean=None, std=None, data_name="data",
+                 label_name="softmax_label", device_pipeline=True,
+                 ctx=None, pinned=True, **kwargs):
+        from ..context import resolve_device
+        from ..native import NativePipeline
+        super().__init__(batch_size)
+        c, h, w = data_shape
+        self._device = bool(device_pipeline)
+        self._ctx = resolve_device(ctx)
+        self._pipe = NativePipeline(path_imgrec, h, w, c, shuffle, seed,
+                                    preprocess_threads,
+                                    out_u8=self._device)
+        self._shape = (c, h, w)
+        self._mean = onp.asarray(mean, onp.float32) if mean is not None \
+            else None
+        self._std = onp.asarray(std, onp.float32) if std is not None \
+            else None
+        self._consts = [None if v is None else
+                        torch.from_numpy(v).to(self._ctx)
+                        for v in (self._mean, self._std)]
+        cuda = self._ctx.type == "cuda"
+        self._stream = torch.cuda.Stream(self._ctx) if cuda and \
+            self._device and pinned else None
+        self._bufs = []   # two pinned (images, labels) pairs, at first use
+        self._copied = [None, None]   # the event of each pair's last copy
+        self._turn = 0
+        self.provide_data = [DataDesc(data_name, (batch_size,) + self._shape)]
+        self.provide_label = [DataDesc(label_name, (batch_size,))]
+
+    def reset(self):
+        self._pipe.reset()
+
+    def _host_buffers(self):
+        """(images, labels, slot): uint8 NHWC and float32 buffers for a
+        batch — on the way to the card one of two pinned pairs (slot 0
+        or 1), waited for until its last copy is done; else new ones."""
+        c, h, w = self._shape
+        shapes = ((self.batch_size, h, w, c), (self.batch_size,))
+        dtypes = (torch.uint8, torch.float32)
+        if self._stream is None:
+            return (*(torch.empty(sh, dtype=dt)
+                      for sh, dt in zip(shapes, dtypes)), None)
+        if not self._bufs:
+            self._bufs = [[torch.empty(sh, dtype=dt, pin_memory=True)
+                           for sh, dt in zip(shapes, dtypes)]
+                          for _ in range(2)]
+        i, self._turn = self._turn, self._turn ^ 1
+        if self._copied[i] is not None:
+            self._copied[i].synchronize()
+        return (*self._bufs[i], i)
+
+    def _to_card(self, images, labels, i):
+        """Copy and normalize on the iterator's stream (a pageable copy
+        on the consumer's stream would wait for the step it is
+        running); the consumer's stream waits for the result."""
+        main = torch.cuda.current_stream(self._ctx)
+        with torch.cuda.stream(self._stream):
+            x = images.to(self._ctx, non_blocking=True)
+            y = labels.to(self._ctx, non_blocking=True)
+            self._copied[i] = torch.cuda.Event()
+            self._copied[i].record(self._stream)
+            out = normalize_u8(x, *self._consts)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        main.wait_event(done)
+        out.record_stream(main)
+        y.record_stream(main)
+        return out, y
+
+    def next(self):
+        if not self._device:
+            return self._next_host()
+        images, labels, slot = self._host_buffers()
+        data, lab = self._pipe.next_batch(self.batch_size, images.numpy())
+        n = len(data)
+        if n == 0:
+            raise StopIteration
+        images[n:] = 0
+        labels.zero_()
+        labels[:n] = torch.from_numpy(lab)
+        if slot is None:
+            out = normalize_u8(images.to(self._ctx), *self._consts)
+            y = labels.to(self._ctx)
+        else:
+            out, y = self._to_card(images, labels, slot)
+        return DataBatch(data=[NDArray(out)], label=[NDArray(y)],
+                         pad=self.batch_size - n)
+
+    def _next_host(self):
+        """The all-host float32 path."""
+        data, labels = self._pipe.next_batch(self.batch_size)
+        n = len(data)
+        if n == 0:
+            raise StopIteration
+        pad = self.batch_size - n
+        if pad:
+            labels = onp.concatenate([labels, onp.zeros(pad, onp.float32)])
+            data = onp.concatenate(
+                [data, onp.zeros((pad,) + data.shape[1:], data.dtype)])
+        if self._mean is not None:
+            data = data - self._mean
+        if self._std is not None:
+            data = data / self._std
+        data = onp.ascontiguousarray(data.transpose(0, 3, 1, 2))
+        return DataBatch(data=[nd.array(data, ctx=self._ctx)],
+                         label=[nd.array(labels, ctx=self._ctx)], pad=pad)
+
+    def close(self):
+        self._pipe.close()
 
 
 def MNISTIter(image=None, label=None, batch_size=1, shuffle=False,

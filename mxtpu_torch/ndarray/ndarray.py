@@ -267,6 +267,12 @@ class NDArray:
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
+        if t.is_cuda:
+            # wait for the stream here, not inside the copy: a thread
+            # blocked in a device-to-host copy stalls every other
+            # thread's copies on the card (the native decoder's among
+            # them) until the work ahead of it ends
+            torch.cuda.current_stream(t.device).synchronize()
         return t.to("cpu", copy=True).numpy()
 
     def asscalar(self):
@@ -654,9 +660,12 @@ def array(source, ctx: DeviceLike = None, dtype=None) -> NDArray:
         dtype = source.dtype if isinstance(source, _np.ndarray) \
             and source.dtype.kind in "iub" else "float32"
     dt = dtype_torch(dtype)
-    # numpy has no bfloat16: it goes through float32
+    # numpy has no bfloat16: it goes through float32; a view with
+    # negative strides (a flipped image) is copied, as torch needs
     np_val = _np.asarray(source, "float32" if dt == torch.bfloat16
                          else dtype_name(dt))
+    if any(st < 0 for st in np_val.strides):
+        np_val = np_val.copy()
     return NDArray(torch.tensor(np_val, device=dev).to(dt))
 
 

@@ -18,9 +18,9 @@ __all__ = ["LATER", "LATER_SLICE"]
 
 LATER_SLICE = "comes with ROADMAP Queue A item 10.4"
 
-# the reference's other registered names (its ops_extended, contrib_ops,
+# the reference's other registered names (its ops_extended,
 # contrib.quantization and operator's Custom), each raising until item
-# 10.4
+# 10.4 (its contrib_ops are ported: ``contrib_ops.py``)
 LATER = frozenset("""
 BilinearResize2D BilinearSampler Convolution_v1 Correlation Crop
 DeformableConvolution GELU GridGenerator GroupNorm IdentityAttachKLSparseReg
@@ -43,12 +43,6 @@ sample_multinomial sample_normal sample_poisson sample_uniform
 scatter_set_nd searchsorted selu sgd_mom_update sgd_update shuffle
 signsgd_update slogdet softmax_activation softplus softrelu svm_output
 trace unique unravel_index upsampling
-AdaptiveAvgPooling2D MultiBoxDetection MultiBoxPrior MultiBoxTarget ROIAlign
-ROIPooling _contrib_AdaptiveAvgPooling2D _contrib_MultiBoxDetection
-_contrib_MultiBoxPrior _contrib_MultiBoxTarget _contrib_ROIAlign
-_contrib_allclose _contrib_arange_like _contrib_bipartite_matching
-_contrib_box_iou _contrib_box_nms _contrib_index_copy allclose arange_like
-bipartite_matching box_iou box_nms index_copy
 _contrib_dequantize _contrib_quantize_v2 _contrib_quantized_conv
 _contrib_quantized_fully_connected dequantize quantize_v2
 Custom

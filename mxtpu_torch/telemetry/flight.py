@@ -5,8 +5,8 @@ a post-mortem needs when the metrics endpoint died with the process.
 
 A copy of ``mxtpu/telemetry/flight.py`` (host code). Anything can call
 ``telemetry.flight().dump()``; ``tools/diagnose.py`` prints the live
-tail. (The reference's ``checkpoint.PreemptionGuard`` also dumps it on
-SIGTERM/SIGINT; that caller comes with the port's checkpoint slice.)
+tail, and ``mxtpu_torch.checkpoint.PreemptionGuard`` dumps it on
+SIGTERM/SIGINT.
 The buffer is size-bounded
 (``MXTPU_TELEMETRY_FLIGHT_SIZE``) so an always-on recorder costs a
 fixed few hundred KB, never an OOM.

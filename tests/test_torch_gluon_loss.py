@@ -288,8 +288,9 @@ def test_later_slices_raise():
         net.shard(None, None)
     with pytest.raises(NotImplementedError, match="item 10.4"):
         net.export_stablehlo("x")
-    with pytest.raises(NotImplementedError, match="item 10.4"):
-        tmx.io.ImageRecordIter(path_imgrec="x.rec", data_shape=(3, 8, 8))
+    with pytest.raises(OSError, match="x.rec"):     # ported: no such file
+        tmx.io.ImageRecordIter(path_imgrec="x.rec", data_shape=(3, 8, 8),
+                               ctx="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         tmx.gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_sync")
     tr = tmx.gluon.Trainer(net.collect_params(), "sgd")
@@ -300,10 +301,11 @@ def test_later_slices_raise():
     assert tmx.gluon.model_zoo.vision.get_model("vgg11").__class__.__name__ \
         == "VGG"
     assert callable(tmx.gluon.model_zoo.vision.mobilenet1_0)
-    with pytest.raises(NotImplementedError, match="item 10.4"):
+    # ported since: each opens its file, or converts
+    with pytest.raises(FileNotFoundError):
         tmx.gluon.data.RecordFileDataset("x.rec")
-    with pytest.raises(NotImplementedError, match="item 10.4"):
-        tmx.amp.convert_model(None, {}, {})
-    with pytest.raises(NotImplementedError, match="item 10.4"):
+    assert tmx.amp.convert_model(None, {}, {}, target_dtype="bfloat16") \
+        == (None, {}, {})
+    with pytest.raises(OSError, match="x.rec"):
         tmx.io.NativeImageRecordIter(path_imgrec="x.rec",
-                                     data_shape=(3, 8, 8))
+                                     data_shape=(3, 8, 8), ctx="cpu")

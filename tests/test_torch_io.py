@@ -6,9 +6,8 @@ shuffle, dict inputs, ``CSVIter``, ``LibSVMIter``, ``MNISTIter``,
 ``PrefetchingIter``, ``ResizeIter``) run through the port, and every
 case drains both packages' iterators over the same numpy inputs, after
 the same ``np.random.seed`` where they shuffle: each batch's data,
-labels, pad and index equal, bit for bit. The image iterators raise,
-naming the later sub-item of ROADMAP Queue A item 10.4. Every wait is
-bounded (``io.PREFETCH_TIMEOUT_S``).
+labels, pad and index equal, bit for bit. Every wait is bounded
+(``io.PREFETCH_TIMEOUT_S``).
 """
 import gzip
 import struct
@@ -228,5 +227,244 @@ def test_databatch_and_datadesc():
 
 @pytest.mark.parametrize("name", ["ImageRecordIter", "NativeImageRecordIter"])
 def test_image_iterators_raise(name):
-    with pytest.raises(NotImplementedError, match="item 10.4"):
-        getattr(tio, name)(path_imgrec="x.rec", data_shape=(3, 8, 8))
+    """A missing ``.rec`` raises in both packages (the native route
+    opens it at once)."""
+    with pytest.raises(OSError, match="x.rec"):
+        getattr(jio, name)(path_imgrec="x.rec", data_shape=(3, 8, 8))
+    with pytest.raises(OSError, match="x.rec"):
+        getattr(tio, name)(path_imgrec="x.rec", data_shape=(3, 8, 8),
+                           ctx="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the image half: ImageRecordIter's routing, the native iterator in both
+# modes, RecordFileDataset, ImageFolderDataset and im2rec
+# ---------------------------------------------------------------------------
+def _photo(rng, h, w):
+    y, x = onp.mgrid[0:h, 0:w].astype(onp.float32)
+    img = onp.stack([x / w * 180, y / h * 180, (x + y) / (h + w) * 180], -1)
+    return onp.clip(img + rng.normal(0, 10, (h, w, 3)), 0, 255).astype(
+        onp.uint8)
+
+
+@pytest.fixture(scope="module")
+def jpeg_rec(tmp_path_factory):
+    """An indexed .rec of 11 JPEGs the port encoded, labels i % 4."""
+    from mxtpu_torch import recordio as trec
+    tmp = tmp_path_factory.mktemp("tio_img")
+    rec, idx = str(tmp / "img.rec"), str(tmp / "img.idx")
+    rng = onp.random.default_rng(0)
+    w = trec.MXIndexedRecordIO(idx, rec, "w")
+    for i in range(11):
+        w.write_idx(i, trec.pack_img(trec.IRHeader(0, float(i % 4), i, 0),
+                                     _photo(rng, 18 + i % 3 * 4, 20 + i % 5),
+                                     quality=92))
+    w.close()
+    return rec
+
+
+def test_image_record_iter_routing(jpeg_rec):
+    kw = dict(path_imgrec=jpeg_rec, data_shape=(3, 16, 16), batch_size=4,
+              ctx="cpu")
+    for extra in ({}, dict(mean_r=1.0, std_b=2.0, seed=3,
+                           data_name="x", device_pipeline=False)):
+        it = tio.ImageRecordIter(**kw, **extra)
+        assert isinstance(it, tio.NativeImageRecordIter)
+        ref = jio.ImageRecordIter(**{k: v for k, v in kw.items()
+                                     if k != "ctx"}, **extra)
+        assert isinstance(ref, jio.NativeImageRecordIter)
+        it.close()
+        ref.close()
+    for extra in (dict(rand_mirror=True), dict(rand_crop=True),
+                  dict(label_width=2), dict(inter_method=1)):
+        it = tio.ImageRecordIter(**kw, **extra)
+        assert isinstance(it, tio.PrefetchingIter), extra
+        it.close()
+    gray = tio.ImageRecordIter(**dict(kw, data_shape=(1, 16, 16)))
+    assert isinstance(gray, tio.PrefetchingIter)
+    gray.close()
+
+
+def _img_batches(it):
+    return [(b.data[0].asnumpy(), b.label[0].asnumpy(), b.pad) for b in it]
+
+
+@pytest.mark.parametrize("device_pipeline", [True, False])
+@pytest.mark.parametrize("shuffle", [False, True])
+def test_native_iter_matches_mxtpu(jpeg_rec, device_pipeline, shuffle):
+    kw = dict(path_imgrec=jpeg_rec, data_shape=(3, 14, 16), batch_size=4,
+              shuffle=shuffle, seed=5, preprocess_threads=2,
+              mean=[120.0, 110.0, 100.0], std=[58.0, 57.0, 56.5],
+              device_pipeline=device_pipeline)
+    mine = tio.NativeImageRecordIter(ctx="cpu", **kw)
+    ref = jio.NativeImageRecordIter(**kw)
+    for epoch in range(2):
+        got, want = _img_batches(mine), _img_batches(ref)
+        assert len(got) == len(want) == 3
+        for (gd, gl, gp), (wd, wl, wp) in zip(got, want):
+            assert gd.dtype == onp.float32 and gd.shape == (4, 3, 14, 16)
+            assert gp == wp
+            onp.testing.assert_array_equal(gl, wl)
+            if not device_pipeline:
+                # the same f32 samples, the same numpy post: bit-equal
+                onp.testing.assert_array_equal(gd, wd)
+                continue
+            # the same uint8 samples; XLA folds the reference's jitted
+            # ``/ std`` into a multiply by the reciprocal, the port
+            # divides: within one ulp, each equal to its own formula
+            u8 = onp.clip(gd.transpose(0, 2, 3, 1) * kw["std"] + kw["mean"],
+                          0, 255).round().astype(onp.float32)
+            mean = onp.asarray(kw["mean"], onp.float32)
+            std = onp.asarray(kw["std"], onp.float32)
+            onp.testing.assert_array_equal(
+                gd, ((u8 - mean) / std).transpose(0, 3, 1, 2))
+            onp.testing.assert_array_equal(
+                wd, ((u8 - mean) * (onp.float32(1) / std))
+                .transpose(0, 3, 1, 2))
+            ulps = onp.abs(gd.view(onp.int32).astype(onp.int64)
+                           - wd.view(onp.int32))
+            assert ulps.max() <= 1
+        mine.reset()
+        ref.reset()
+    mine.close()
+    ref.close()
+
+
+def test_normalize_u8_is_the_host_post():
+    rng = onp.random.default_rng(1)
+    x = rng.integers(0, 256, (2, 5, 6, 3), dtype=onp.uint8)
+    mean = onp.array([1.5, 2.0, 3.25], onp.float32)
+    std = onp.array([2.0, 3.0, 0.7], onp.float32)
+    got = tio.normalize_u8(torch.from_numpy(x), torch.from_numpy(mean),
+                           torch.from_numpy(std)).numpy()
+    want = ((x.astype(onp.float32) - mean) / std).transpose(0, 3, 1, 2)
+    onp.testing.assert_array_equal(got, want)
+    onp.testing.assert_array_equal(
+        tio.normalize_u8(torch.from_numpy(x), None, None).numpy(),
+        x.astype(onp.float32).transpose(0, 3, 1, 2))
+
+
+def test_image_record_iter_python_route_matches(jpeg_rec):
+    import random
+    kw = dict(path_imgrec=jpeg_rec, data_shape=(3, 12, 12), batch_size=4,
+              shuffle=True, rand_crop=True, rand_mirror=True,
+              mean_r=120.0, mean_g=110.0, mean_b=100.0)
+    outs = []
+    for io, extra in ((jio, {}), (tio, CPU)):
+        random.seed(2)
+        it = io.ImageRecordIter(**kw, **extra)
+        outs.append(_img_batches(it))
+        it.close()
+    for (gd, gl, gp), (wd, wl, wp) in zip(*outs[::-1]):
+        assert gp == wp
+        onp.testing.assert_array_equal(gl, wl)
+        # libjpeg here, TF's libjpeg-turbo there: the JPEG bounds
+        diff = onp.abs(gd - wd)
+        assert diff.mean() < 2.0 and diff.max() <= 16
+
+
+def test_record_file_dataset(jpeg_rec):
+    from mxtpu import recordio as jrec
+    from mxtpu_torch.gluon.data import RecordFileDataset
+    ds = RecordFileDataset(jpeg_rec)
+    ref = jrec.MXIndexedRecordIO(jpeg_rec[:-4] + ".idx", jpeg_rec, "r")
+    assert len(ds) == len(ref.keys) == 11
+    for i in (0, 10, 4):
+        assert ds[i] == ref.read_idx(ref.keys[i])
+
+
+def test_image_folder_dataset_decodes_jpeg_and_png(tmp_path):
+    from mxtpu.gluon.data.vision import ImageFolderDataset as JFolder
+    from mxtpu_torch.gluon.data.vision import ImageFolderDataset as TFolder
+    from mxtpu_torch import image as timg
+    rng = onp.random.default_rng(2)
+    for cls in ("cat", "dog"):
+        (tmp_path / cls).mkdir()
+        for j in range(2):
+            img = _photo(rng, 12, 15)
+            (tmp_path / cls / f"{j}.png").write_bytes(
+                timg.imencode(img, ".png"))
+            (tmp_path / cls / f"{j}.jpg").write_bytes(
+                timg.imencode(img, ".jpg", quality=90))
+    for flag in (1, 0):
+        mine, ref = TFolder(str(tmp_path), flag=flag), \
+            JFolder(str(tmp_path), flag=flag)
+        assert mine.synsets == ref.synsets and len(mine) == len(ref) == 8
+        for i in range(len(mine)):
+            (g, gl), (w, wl) = mine[i], ref[i]
+            assert gl == wl and g.context == torch.device("cpu")
+            g, w = g.asnumpy().astype(int), w.asnumpy().astype(int)
+            assert g.shape == w.shape == (12, 15, 3 if flag else 1)
+            if mine.items[i][0].endswith(".png"):
+                onp.testing.assert_array_equal(g, w)
+            else:
+                assert onp.abs(g - w).max() <= 16
+
+
+@pytest.mark.parametrize("codec", ["libjpeg", "nvjpeg"])
+def test_image_folder_loader_workers_follow_the_codec(tmp_path, monkeypatch,
+                                                      codec):
+    """ImageFolderDataset of JPEGs under DataLoader(num_workers=2). With
+    the codec on the host the workers are processes. With a codec on
+    the card (nvJPEG, which a worker process cannot run: the card is
+    hidden there) they are threads of this process; the library's
+    report of its codec is stood in for here, the decode stays
+    libjpeg's. Either way the batches are bit-equal to the loader's
+    without workers."""
+    from mxtpu_torch import image as timg, native
+    from mxtpu_torch.gluon.data import DataLoader
+    from mxtpu_torch.gluon.data.vision import ImageFolderDataset
+    rng = onp.random.default_rng(3)
+    for cls in ("cat", "dog"):
+        (tmp_path / cls).mkdir()
+        for j in range(4):
+            (tmp_path / cls / f"{j}.jpg").write_bytes(
+                timg.imencode(_photo(rng, 12, 15), ".jpg", quality=90))
+    assert native.backend() == "libjpeg"
+    monkeypatch.setattr(native, "backend", lambda: codec)
+    ds = ImageFolderDataset(str(tmp_path))
+
+    def batches(**kw):
+        loader = DataLoader(ds, batch_size=3, ctx="cpu", timeout=60, **kw)
+        return loader, [(x.asnumpy(), y.asnumpy()) for x, y in loader]
+    _, want = batches()
+    loader, got = batches(num_workers=2)
+    assert loader.worker_kind == \
+        {"libjpeg": "processes", "nvjpeg": "threads"}[codec]
+    assert [x.shape for x, _ in got] == [(3, 12, 15, 3)] * 2 + \
+        [(2, 12, 15, 3)]
+    for (gx, gy), (wx, wy) in zip(got, want, strict=True):
+        onp.testing.assert_array_equal(gx, wx)
+        onp.testing.assert_array_equal(gy, wy)
+
+
+def test_im2rec_matches_the_reference_tool(tmp_path):
+    import os
+    import subprocess
+    import sys
+    from mxtpu_torch import image as timg
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    root = tmp_path / "imgs"
+    rng = onp.random.default_rng(3)
+    for cls in ("a", "b"):
+        (root / cls).mkdir(parents=True)
+        for j in range(3):
+            (root / cls / f"{j}.jpg").write_bytes(
+                timg.imencode(_photo(rng, 10, 12 + j), ".jpg", quality=88))
+        (root / cls / "skip.txt").write_text("not an image")
+    env = dict(os.environ, PYTHONPATH=repo, JAX_PLATFORMS="cpu")
+    out = {}
+    for tag, cmd in (("ref", [sys.executable,
+                              os.path.join(repo, "tools", "im2rec.py")]),
+                     ("port", [sys.executable, "-m",
+                               "mxtpu_torch.tools.im2rec"])):
+        prefix = str(tmp_path / tag)
+        for extra in (["--list", "--recursive"], []):
+            res = subprocess.run(cmd + extra + [prefix, str(root)],
+                                 capture_output=True, text=True, timeout=120,
+                                 env=env, cwd=repo)
+            assert res.returncode == 0, res.stderr[-2000:]
+        out[tag] = [open(prefix + ext, "rb").read()
+                    for ext in (".lst", ".rec", ".idx")]
+    assert out["port"] == out["ref"]
+    assert out["port"][0].count(b"\n") == 6

@@ -221,7 +221,13 @@ def test_port_imports_no_jax():
             "mxtpu_torch.gluon.model_zoo.vision.squeezenet, "
             "mxtpu_torch.gluon.model_zoo.vision.mobilenet, "
             "mxtpu_torch.gluon.model_zoo.vision.densenet, "
-            "mxtpu_torch.gluon.model_zoo.vision.inception\n"
+            "mxtpu_torch.gluon.model_zoo.vision.inception, "
+            "mxtpu_torch.recordio, mxtpu_torch.native, mxtpu_torch.image, "
+            "mxtpu_torch.image.image, mxtpu_torch.image.detection, "
+            "mxtpu_torch.image._png, mxtpu_torch.ndarray.contrib, "
+            "mxtpu_torch.ndarray.contrib_ops, mxtpu_torch.tools.im2rec, "
+            "mxtpu_torch.tools.synth_images, mxtpu_torch.tools.input_ab, "
+            "mxtpu_torch.tools.decode_contention\n"
             "assert mxtpu_torch.gluon is mxtpu_torch.gluon and "
             "mxtpu_torch.init is mxtpu_torch.initializer\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
