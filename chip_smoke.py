@@ -540,6 +540,55 @@ host's cost of a call.
    libjpeg). The files live under ``build/image_record`` and go at the
    end.
 
+20. op_set: the rest of the op set (ROADMAP item 10.4(b)) at published
+   widths, with the launch counts set to 0 before and read after (plain
+   PyTorch, cuBLAS and cuBLASLt: no port kernel). (a) The update ops
+   (``sgd``, ``sgd_mom``, ``nag_mom``, ``adam``, ``adamw``, ``rmsprop``,
+   ``ftrl``, ``signsgd``, ``mp_sgd`` with bf16 weights over f32 masters)
+   over one llama3_8b layer's tree (9 arrays, 218 M parameters, f32),
+   one call an array with ``out=weight`` as MXNet's optimizer makes
+   them: device ms for the
+   tree, GB/s and the share of the byte bound (each input read once,
+   each output written once, at 3.35 TB/s); the first 2^16 elements of
+   every updated weight and state within 1 ulp of the port's update on
+   the CPU from the same inputs (bf16 weights equal); ``multi_all_finite``
+   over the tree 1, and 0 with one ``inf`` planted. (b) Sparse at
+   Avazu's shape as MXNet's ``example/sparse/linear_classification``
+   reads it (batch 8,192 of 1,000,000 hashed features, 15 a row):
+   ``dot(csr, w)``, ``dot(csr, g, transpose_a=True)`` (row-sparse),
+   ``add`` and ``retain`` of two such gradients, and llama3_8b's
+   embedding as a one-hot CSR (2,048 × 128,256) times the (128,256 ×
+   4,096) table and its csrᵀ backward: against the CPU on the same
+   inputs within the reassociation bound 2·n·2^-24 of the sum of |terms|
+   (n the most terms an output sums; ``add``, ``retain`` and the
+   one-hot product bit for bit), no dense form built, peak memory above
+   the inputs at most 1 GB, a CSR and a row-sparse ``.params`` entry
+   saved from the card byte-equal to the CPU's save, whether two calls
+   of the transposed dots are bit-equal (``index_add_`` accumulates
+   with atomics), and each op's ms. (c) A numpy softmax ``CustomOp``
+   (MXNet's ``example/numpy-ops/custom_softmax.py``, backward
+   y - onehot(label)) over (2,048, 128,256) f32 logits under
+   ``autograd.record()``: output against ``mx.nd.softmax`` and gradient
+   against ``SoftmaxOutput``'s within 1e-6 of their largest magnitude,
+   forward and backward seconds and the bytes that crossed to the host
+   and back; the same op in a hybridized block raises on the card,
+   naming it. (d) ``quantize_net`` of the zoo's ResNet-50 (f32, NCHW,
+   seeded Xavier weights), naive calibration over 4 batches of 64, then
+   eval at batch 256 of 224²: int8 and f32 img/s (both replayed CUDA
+   graphs), the logits' distance ``||int8 - f32|| / ||f32||`` within
+   0.03 (0.0142-0.0144 on the CPU, ``python -m
+   mxtpu_torch.tools.int8_tolerance``), and the stem's quantized conv,
+   the first 3×3 one and the quantized FC on the first 4 images each
+   bit-equal to the same op on the CPU. (e) ``Correlation`` at
+   FlowNetC's setting ((8, 256, 48, 64), kernel 1, displacement 20,
+   stride2 2, pad 20), ``GroupNorm`` with 32 groups at (32, 256, 56,
+   56), ``DeformableConvolution`` 3×3 256→256 at (8, 256, 56, 56) with
+   random offsets, and ``BilinearSampler`` on an affine grid at (32,
+   256, 56, 56): forward and one backward each, image 0's output and
+   input gradients against the CPU within 1e-4 of their largest
+   magnitude, whether two backward calls are bit-equal, forward ms and
+   forward-plus-backward ms (input copies included).
+
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result when no
 CUDA card is visible or when the package is not beside the script.
@@ -6340,6 +6389,545 @@ def image_record_phase():
     return launches
 
 
+# op_set: the rest of the op set at published widths (ROADMAP item
+# 10.4(b)): the update ops over one llama3_8b layer, sparse dot/add/
+# retain at Avazu's shape and llama3_8b's embedding, a numpy Custom op
+# at the vocabulary width, an int8 ResNet-50, and four vision ops.
+OPSET_CHECK = 2 ** 16          # elements of each array held against the CPU
+UPDATE_ULPS = 1                # card vs CPU update, f32 ulps (bf16: equal)
+UPDATE_RULES = (               # (op, kwargs, state arrays, bytes a param)
+    ("sgd_update", {"lr": 0.01, "wd": 1e-4}, (), 12),
+    ("sgd_mom_update", {"lr": 0.01, "momentum": 0.9, "wd": 1e-4},
+     ("mom",), 20),
+    ("nag_mom_update", {"lr": 0.01, "momentum": 0.9, "wd": 1e-4},
+     ("mom",), 20),
+    ("adam_update", {"lr": 1e-3, "wd": 1e-4}, ("mean", "var"), 28),
+    ("adamw_update", {"lr": 1e-3, "wd": 0.01, "eta": 1.0},
+     ("mean", "var"), 28),
+    ("rmsprop_update", {"lr": 1e-3, "gamma1": 0.95, "wd": 1e-4}, ("n",),
+     20),
+    ("ftrl_update", {"lr": 0.1, "lamda1": 1e-3, "beta": 1.0, "wd": 1e-4},
+     ("z", "n"), 28),
+    ("signsgd_update", {"lr": 0.01, "wd": 1e-4}, (), 12),
+    ("mp_sgd_update", {"lr": 0.01, "wd": 1e-4}, ("weight32",), 14),
+)
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM5 HBM3 peak memory rate
+AVAZU = (8192, 1_000_000, 15)  # batch, hashed features, non-zeros a row
+EMBED_TOKENS = 2048
+SPARSE_PEAK_GB = 1.0           # allocated above the inputs
+SOFTMAX_REL = 1e-6             # Custom vs mx.nd ops, of max |ref|
+INT8_BATCH, INT8_CALIB_BATCH, INT8_IMAGE = 256, 64, 224
+INT8_LAYER_IMAGES = 4          # images of the first batch per layer check
+# ||int8 - f32|| / ||f32|| of the logits: 0.0142-0.0144 on the CPU at
+# batch 4-16 (python -m mxtpu_torch.tools.int8_tolerance), 0.149-0.154
+# with every activation threshold halved
+INT8_LOGITS_REL = 0.03
+VISION_REL = 1e-4              # card vs CPU on image 0, of max |ref|
+
+
+def _ulps_any(got, want):
+    """Largest distance in ulps (f32) or 0/1 for inequality (others)."""
+    import torch
+    if got.dtype == torch.float32:
+        return int(_f32_ulps(got, want).max().item()) if got.numel() else 0
+    return int(not torch.equal(got, want))
+
+
+def _opset_updates(mx):
+    """(a) each update rule over one llama3_8b layer's tree, one call
+    an array, against the port's update on the CPU."""
+    import torch
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.tools import timing
+    cfg = llama.CONFIGS["llama3_8b"]
+    d, h, kv = cfg.dim, cfg.hidden_dim, cfg.n_kv_heads * cfg.head_dim
+    shapes = [(d, d), (d, kv), (d, kv), (d, d), (d, h), (d, h), (h, d),
+              (d,), (d,)]
+    n_params = sum(math.prod(s) for s in shapes)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+
+    def rand(s, kind):
+        x = torch.randn(s, generator=gen, device="cuda")
+        if kind in ("var", "n"):
+            return x.abs() * 1e-6
+        return x * {"w": 0.02, "g": 1e-3, "z": 1e-2}.get(kind, 1e-3)
+    ws = [rand(s, "w") for s in shapes]
+    gs = [rand(s, "g") for s in shapes]
+    rows, n = [], OPSET_CHECK
+    for op, kw, state_names, per_param in UPDATE_RULES:
+        fn = getattr(mx.nd, op)
+        mp = op == "mp_sgd_update"
+        w_in = [w.to(torch.bfloat16) if mp else w for w in ws]
+        g_in = [g.to(torch.bfloat16) if mp else g for g in gs]
+        st_in = [[w.clone() if mp else rand(w.shape, s) for s in state_names]
+                 for w in ws]
+        weights = [mx.nd.NDArray(w) for w in w_in]
+        grads = [mx.nd.NDArray(g) for g in g_in]
+        states = [[mx.nd.NDArray(t) for t in st] for st in st_in]
+        # as MXNet's optimizer calls them: the new weight into ``out``
+        new_w = [fn(w, g, *st, out=w, **kw) for w, g, st in
+                 zip(weights, grads, states)]
+        if any(a is not b for a, b in zip(new_w, weights)):
+            raise AssertionError(f"{op}(..., out=w) returned another array")
+        worst = 0
+        for i in range(len(shapes)):
+            cut = [t.reshape(-1)[:n].cpu() for t in
+                   [w_in[i], g_in[i]] + st_in[i]]
+            cst = [mx.nd.NDArray(t.clone()) for t in cut[2:]]
+            cw = fn(mx.nd.NDArray(cut[0]), mx.nd.NDArray(cut[1]), *cst, **kw)
+            pairs = [(new_w[i]._data, cw._data)] + [
+                (a._data, b._data) for a, b in zip(states[i], cst)]
+            for got, want in pairs:
+                worst = max(worst, _ulps_any(got.reshape(-1)[:n].cpu(),
+                                             want))
+        ms = timing.time_ms(
+            lambda: [fn(w, g, *st, out=w, **kw) for w, g, st in
+                     zip(weights, grads, states)], 3, warmup=1)
+        nbytes = per_param * n_params
+        rows.append({"op": op, "ms": ms, "bytes": nbytes,
+                     "gb_per_s": nbytes / ms / 1e6,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "share_of_bound": nbytes / HBM_BYTES_PER_S * 1e3 / ms,
+                     "max_ulps": worst})
+        del weights, grads, states, new_w, st_in
+    tree = [mx.nd.NDArray(w) for w in ws]
+    finite = float(mx.nd.multi_all_finite(*tree, num_arrays=9).asscalar())
+    planted = ws[4].clone()
+    planted[7, 11] = math.inf
+    tree[4] = mx.nd.NDArray(planted)
+    with_inf = float(mx.nd.multi_all_finite(*tree, num_arrays=9)
+                     .asscalar())
+    bad = [r["op"] for r in rows if r["max_ulps"] > UPDATE_ULPS]
+    if bad or finite != 1.0 or with_inf != 0.0:
+        raise AssertionError(f"op_set updates: beyond {UPDATE_ULPS} ulps "
+                             f"{bad}, multi_all_finite {finite}/{with_inf}:"
+                             f" {rows}")
+    return {"params": n_params, "arrays": len(shapes), "rules": rows,
+            "multi_all_finite": finite, "with_inf": with_inf}
+
+
+def _csr_batch(mx, gen, rows, features, per_row, ones=False):
+    """A CSR batch on the card: ``per_row`` sorted hashed features a row
+    (a collision stays a duplicate entry), normal values (or ones)."""
+    import torch
+    from mxtpu_torch.ndarray import sparse
+    cols = torch.randint(0, features, (rows, per_row), generator=gen,
+                         device="cuda").sort(dim=1).values
+    nnz = rows * per_row
+    data = torch.ones(nnz, device="cuda") if ones else \
+        torch.randn(nnz, generator=gen, device="cuda")
+    indptr = torch.arange(0, nnz + 1, per_row, device="cuda",
+                          dtype=torch.int32)
+    return sparse.CSRNDArray(mx.nd.NDArray(data),
+                             mx.nd.NDArray(cols.reshape(-1).to(torch.int32)),
+                             mx.nd.NDArray(indptr), (rows, features))
+
+
+def _reassoc_ok(got, want, absolute, n_terms):
+    """|got - want| within 2·n·2^-24 of the sum of |terms| (the same
+    products summed in any order)."""
+    import torch
+    bound = 2.0 * n_terms * 2.0 ** -24 * absolute
+    return bool(torch.all((got - want).abs() <= bound + 1e-30).item())
+
+
+def _abs_csr(csr):
+    import torch
+    from mxtpu_torch.ndarray import sparse
+    return sparse.CSRNDArray(
+        csr.data.__class__(torch.abs(csr.data._data)), csr.indices,
+        csr.indptr, csr.shape)
+
+
+def _opset_sparse(mx):
+    """(b) sparse dot/add/retain at Avazu's shape and llama3_8b's
+    one-hot embedding, against the CPU, with the peak memory above the
+    inputs."""
+    import tempfile
+    import torch
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.ndarray import sparse
+    from mxtpu_torch.tools import timing
+    rows, feats, per_row = AVAZU
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    csr = _csr_batch(mx, gen, rows, feats, per_row)
+    csr2 = _csr_batch(mx, gen, rows, feats, per_row)
+    w = mx.nd.NDArray(torch.randn(feats, 1, generator=gen, device="cuda")
+                      * 0.01)
+    g = mx.nd.NDArray(torch.randn(rows, 1, generator=gen, device="cuda"))
+    g2 = mx.nd.NDArray(torch.randn(rows, 1, generator=gen, device="cuda"))
+    vocab, dim = llama.CONFIGS["llama3_8b"].vocab_size, \
+        llama.CONFIGS["llama3_8b"].dim
+    onehot = _csr_batch(mx, gen, EMBED_TOKENS, vocab, 1, ones=True)
+    emb = mx.nd.NDArray(torch.randn(vocab, dim, generator=gen,
+                                    device="cuda") * 0.02)
+    gout = mx.nd.NDArray(torch.randn(EMBED_TOKENS, dim, generator=gen,
+                                     device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    y = sparse.dot(csr, w)
+    gw = sparse.dot(csr, g, transpose_a=True)
+    gw2 = sparse.dot(csr2, g2, transpose_a=True)
+    summed = sparse.add(gw, gw2)
+    keep = mx.nd.NDArray(csr.indices._data[:4096])
+    kept = sparse.retain(summed, keep)
+    e_fwd = sparse.dot(onehot, emb)
+    e_bwd = sparse.dot(onehot, gout, transpose_a=True)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    dense_built = [a._dense_cache is not None
+                   for a in (csr, csr2, onehot, gw, gw2, summed, kept,
+                             e_bwd)]
+    again = sparse.dot(csr, g, transpose_a=True)
+    e_again = sparse.dot(onehot, gout, transpose_a=True)
+    bit_equal = {
+        "avazu_t": torch.equal(again.data._data, gw.data._data),
+        "embedding_t": torch.equal(e_again.data._data, e_bwd.data._data)}
+    # the CPU on the same inputs
+    c_csr, c_hot, cw, cg, cemb, cgo = (a.as_in_context("cpu") for a in
+                                       (csr, onehot, w, g, emb, gout))
+    col_count = torch.bincount(c_csr.indices._data.long()).max().item()
+    tok_count = torch.bincount(c_hot.indices._data.long()).max().item()
+    checks = {
+        "avazu": _reassoc_ok(
+            y._data.cpu(), sparse.dot(c_csr, cw)._data,
+            sparse.dot(_abs_csr(c_csr), cw.abs())._data, per_row),
+        "avazu_t": _reassoc_ok(
+            gw.data._data.cpu(),
+            sparse.dot(c_csr, cg, transpose_a=True).data._data,
+            sparse.dot(_abs_csr(c_csr), cg.abs(),
+                       transpose_a=True).data._data, col_count),
+        "avazu_t_rows": torch.equal(
+            gw.indices._data.cpu(),
+            sparse.dot(c_csr, cg, transpose_a=True).indices._data),
+        "add": torch.equal(summed.data._data.cpu(), sparse.add(
+            gw.as_in_context("cpu"), gw2.as_in_context("cpu")).data._data),
+        "retain": torch.equal(kept.data._data.cpu(), sparse.retain(
+            summed.as_in_context("cpu"),
+            keep.as_in_context("cpu")).data._data),
+        "embedding": torch.equal(e_fwd._data.cpu(),
+                                 sparse.dot(c_hot, cemb)._data),
+        "embedding_t": _reassoc_ok(
+            e_bwd.data._data.cpu(),
+            sparse.dot(c_hot, cgo, transpose_a=True).data._data,
+            sparse.dot(c_hot, cgo.abs(), transpose_a=True).data._data,
+            tok_count)}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f) for f in ("card.params", "cpu.params")]
+        mx.nd.save(paths[0], {"csr": csr, "rsp": gw})
+        mx.nd.save(paths[1], {"csr": c_csr, "rsp": gw.as_in_context("cpu")})
+        with open(paths[0], "rb") as f1, open(paths[1], "rb") as f2:
+            checks["params_bytes_equal"] = f1.read() == f2.read()
+    ms = {"avazu_dot": timing.time_ms(lambda: sparse.dot(csr, w), 5),
+          "avazu_dot_t": timing.time_ms(
+              lambda: sparse.dot(csr, g, transpose_a=True), 5),
+          "add": timing.time_ms(lambda: sparse.add(gw, gw2), 5),
+          "retain": timing.time_ms(lambda: sparse.retain(summed, keep), 5),
+          "embedding_dot": timing.time_ms(lambda: sparse.dot(onehot, emb),
+                                          5),
+          "embedding_dot_t": timing.time_ms(
+              lambda: sparse.dot(onehot, gout, transpose_a=True), 5)}
+    row = {"avazu": {"rows": rows, "features": feats, "nnz": rows * per_row,
+                     "grad_rows": gw.indices.shape[0],
+                     "summed_rows": summed.indices.shape[0],
+                     "kept_rows": kept.indices.shape[0]},
+           "embedding": {"tokens": EMBED_TOKENS, "vocab": vocab, "dim": dim,
+                         "grad_rows": e_bwd.indices.shape[0]},
+           "ms": ms, "peak_gb_above_inputs": peak_gb,
+           "dense_built": any(dense_built), "checks": checks,
+           "two_calls_bit_equal": bit_equal,
+           "note": "the transposed dots and add read their row count back "
+                   "to the host inside the timed window"}
+    if not all(checks.values()) or any(dense_built) or \
+            peak_gb > SPARSE_PEAK_GB:
+        raise AssertionError(f"op_set sparse: {row}")
+    del csr, csr2, onehot, emb, gout, e_fwd, e_bwd, e_again
+    return row
+
+
+def _numpy_softmax_op(mx, moved):
+    """MXNet's example/numpy-ops/custom_softmax.py: softmax in numpy,
+    backward y - onehot(label), adding the bytes it moves to ``moved``."""
+    class NumpySoftmax(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0].asnumpy()
+            moved["to_host"] += x.nbytes
+            y = np.exp(x - x.max(axis=1, keepdims=True))
+            y /= y.sum(axis=1, keepdims=True)
+            self.assign(out_data[0], req[0], y)
+            moved["to_card"] += y.nbytes
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            lab = in_data[1].asnumpy()
+            y = out_data[0].asnumpy()
+            moved["to_host"] += lab.nbytes + y.nbytes
+            lab = lab.ravel().astype(np.int64)
+            y[np.arange(lab.shape[0]), lab] -= 1.0
+            self.assign(in_grad[0], req[0], y)
+            moved["to_card"] += y.nbytes
+
+    @mx.operator.register("op_set_softmax")
+    class NumpySoftmaxProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return in_shape, [in_shape[0]], []
+
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            return NumpySoftmax()
+
+
+def _opset_custom(mx):
+    """(c) the numpy softmax Custom op over (2048, 128256) f32 logits
+    under record, against mx.nd.softmax and SoftmaxOutput's gradient;
+    a hybridized Custom on the card raises."""
+    import torch
+    from mxtpu_torch.models import llama
+    moved = {"to_host": 0, "to_card": 0}
+    _numpy_softmax_op(mx, moved)
+    vocab = llama.CONFIGS["llama3_8b"].vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    x = mx.nd.NDArray(torch.randn(EMBED_TOKENS, vocab, generator=gen,
+                                  device="cuda") * 2.0)
+    label = mx.nd.NDArray(torch.randint(0, vocab, (EMBED_TOKENS,),
+                                        generator=gen, device="cuda")
+                          .to(torch.float32))
+    x.attach_grad()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mx.autograd.record():
+        y = mx.nd.Custom(x, label, op_type="op_set_softmax")
+    y.wait_to_read()
+    fwd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    y.backward()
+    x.grad.wait_to_read()
+    bwd_s = time.perf_counter() - t0
+    want = mx.nd.softmax(x)
+    out_rel = ((y._data - want._data).abs().max()
+               / want._data.abs().max()).item()
+    x2 = mx.nd.NDArray(x._data.clone())
+    x2.attach_grad()
+    with mx.autograd.record():
+        so = mx.nd.SoftmaxOutput(x2, label)
+    so.backward()
+    grad_rel = ((x.grad._data - x2.grad._data).abs().max()
+                / x2.grad._data.abs().max()).item()
+
+    class Net(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, a, b):
+            return F.Custom(a, b, op_type="op_set_softmax")
+    net = Net()
+    net.initialize(ctx=mx.gpu())
+    net.hybridize()
+    raised = ""
+    try:
+        net(mx.nd.NDArray(x._data[:4, :16].clone()),
+            mx.nd.NDArray(label._data[:4].remainder(16)))
+    except mx.MXNetError as e:
+        raised = str(e)
+    row = {"shape": list(x.shape), "forward_s": fwd_s, "backward_s": bwd_s,
+           "bytes_to_host": moved["to_host"],
+           "bytes_to_card": moved["to_card"], "out_rel": out_rel,
+           "grad_rel": grad_rel, "hybridized_raises": raised}
+    if out_rel > SOFTMAX_REL or grad_rel > SOFTMAX_REL or not (
+            "op_set_softmax" in raised and "un-hybridized" in raised):
+        raise AssertionError(f"op_set custom: {row}")
+    del x, y, want, x2, so
+    return row
+
+
+def _first_node(qsym, op, pred=lambda n: True):
+    return next(n for n in qsym._topo() if n.op == op and pred(n))
+
+
+def _int8_layer_check(mx, qnet, x):
+    """The stem's quantized conv, the first 3×3 one and the quantized
+    FC on the first images of the batch: their card outputs against the
+    same op on the CPU on the same inputs, bit for bit."""
+    import torch
+    qsym = qnet._sb_symbol
+    params = {k: p.data() for k, p in qnet.collect_params().items()}
+    stem = _first_node(qsym, "_contrib_quantized_conv")
+    conv3 = _first_node(qsym, "_contrib_quantized_conv",
+                        lambda n: tuple(n.attrs["kernel"]) == (3, 3))
+    fc = _first_node(qsym, "_contrib_quantized_fully_connected")
+    nodes = [stem, conv3, fc]
+    feeds = [n.inputs[0][0].name for n in nodes[1:]]
+    internals = qsym.get_internals()
+    aux = set(qsym.list_auxiliary_states())
+    ex = mx.sym.Group([internals[f] for f in feeds]).bind(
+        mx.gpu(), {**{k: v for k, v in params.items() if k not in aux},
+                   "data": x}, grad_req="null",
+        aux_states={k: v for k, v in params.items() if k in aux})
+    inputs = [x] + ex.forward(is_train=False)
+    out = {}
+    for node, inp in zip(nodes, inputs):
+        fn = mx.nd.OP_REGISTRY[node.op]
+        attrs = {k: v for k, v in node.attrs.items() if not k.startswith("__")}
+        arrays = [inp] + [params[p.name] for p, _ in node.inputs[1:]]
+        card = fn(*arrays, **attrs)._data
+        cpu = fn(*[a.as_in_context("cpu") for a in arrays], **attrs)._data
+        out[node.name] = {"shape": list(card.shape),
+                          "bit_equal": torch.equal(card.cpu(), cpu)}
+    return out
+
+
+def _opset_int8(mx):
+    """(d) quantize_net of the zoo's ResNet-50, naive calibration over 4
+    batches of 64, then eval at batch 256: int8 img/s against the f32
+    net's replay, three quantized layers bit for bit with the CPU, and
+    the logits' distance."""
+    import torch
+    from mxtpu_torch.tools import int8_tolerance as it
+    from mxtpu_torch.tools import timing
+    net = it.resnet50(mx.gpu(), INT8_IMAGE)
+    t0 = time.perf_counter()
+    qnet = it.quantize(net, INT8_CALIB_BATCH, INT8_IMAGE, mx.gpu())
+    quantize_s = time.perf_counter() - t0
+    x = mx.nd.NDArray(torch.from_numpy(
+        it.images(INT8_BATCH, INT8_IMAGE, 2)).cuda())
+    with mx.autograd.predict_mode():
+        want = net(x)
+        got = qnet(x)
+        rel = it.logits_rel(got, want)
+        f32_ms = timing.time_ms(lambda: net(x), 3, warmup=1)
+        int8_ms = timing.time_ms(lambda: qnet(x), 3, warmup=1)
+        layers = _int8_layer_check(
+            mx, qnet, mx.nd.NDArray(x._data[:INT8_LAYER_IMAGES].clone()))
+    n_q = sum(n.op.startswith("_contrib_quantized") for n in
+              qnet._sb_symbol._topo())
+    row = {"batch": INT8_BATCH, "image": INT8_IMAGE,
+           "calib": [4, INT8_CALIB_BATCH], "quantized_layers": n_q,
+           "quantize_s": quantize_s, "f32_ms": f32_ms, "int8_ms": int8_ms,
+           "f32_img_per_s": INT8_BATCH / f32_ms * 1e3,
+           "int8_img_per_s": INT8_BATCH / int8_ms * 1e3,
+           "logits_rel": rel, "logits_rel_bound": INT8_LOGITS_REL,
+           "finite": bool(torch.isfinite(got._data).all().item()),
+           "layers": layers,
+           "route": "im2col + torch._int_mm (int32), CPU float64"}
+    if not (row["finite"] and rel <= INT8_LOGITS_REL
+            and all(v["bit_equal"] for v in layers.values())):
+        raise AssertionError(f"op_set int8: {row}")
+    del net, qnet, x, want, got
+    return row
+
+
+def _vision_inputs(gen):
+    import torch
+    r = functools.partial(torch.randn, generator=gen, device="cuda")
+    a = r(8, 256, 48, 64)
+    theta = torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0], device="cuda") \
+        + 0.05 * r(32, 6)
+    return {
+        "Correlation": ([a, r(8, 256, 48, 64)],
+                        {"kernel_size": 1, "max_displacement": 20,
+                         "stride1": 1, "stride2": 2, "pad_size": 20}, 2),
+        "GroupNorm": ([r(32, 256, 56, 56), 1.0 + 0.1 * r(256),
+                       0.1 * r(256)], {"num_groups": 32}, 1),
+        "DeformableConvolution": (
+            [r(8, 256, 56, 56), r(8, 18, 56, 56),
+             0.02 * r(256, 256, 3, 3), 0.1 * r(256)],
+            {"kernel": (3, 3), "pad": (1, 1), "num_filter": 256}, 2),
+        "BilinearSampler": ([r(32, 256, 56, 56), theta], {}, 2),
+    }
+
+
+def _vision_run(mx, name, arrays, kw, n_grad, sample=None):
+    """Forward and backward of one op: (output, input grads). For
+    BilinearSampler the second input is theta, made into an affine grid
+    by GridGenerator on the tape."""
+    import torch
+    xs = [mx.nd.NDArray(a.clone()) for a in arrays]
+    for x in xs[:n_grad]:
+        x.attach_grad()
+    with mx.autograd.record():
+        if name == "BilinearSampler":
+            grid = mx.nd.GridGenerator(xs[1], transform_type="affine",
+                                       target_shape=xs[0].shape[2:])
+            y = mx.nd.BilinearSampler(xs[0], grid)
+        else:
+            y = getattr(mx.nd, name)(*xs, **kw)
+    gen = torch.Generator(device=y._data.device).manual_seed(SEED + 24)
+    head = torch.randn(y.shape, generator=gen, device=y._data.device) \
+        if sample is None else sample
+    y.backward(mx.nd.NDArray(head))
+    return y._data, [x.grad._data for x in xs[:n_grad]], head
+
+
+def _opset_vision(mx):
+    """(e) four vision ops at published widths: forward and backward
+    on the card, image 0 against the CPU, device ms."""
+    import torch
+    from mxtpu_torch.tools import timing
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    rows = {}
+    for name, (arrays, kw, n_grad) in _vision_inputs(gen).items():
+        y, grads, head = _vision_run(mx, name, arrays, kw, n_grad)
+        y2, grads2, _ = _vision_run(mx, name, arrays, kw, n_grad, head)
+        one = [a[:1].cpu() if a.ndim and a.shape[0] == arrays[0].shape[0]
+               else a.cpu() for a in arrays]
+        cy, cgrads, _ = _vision_run(mx, name, one, kw, n_grad,
+                                    head[:1].cpu())
+        errs = {"out": ((y[:1].cpu() - cy).abs().max()
+                        / cy.abs().max()).item()}
+        for i, (g, cg) in enumerate(zip(grads, cgrads)):
+            if g.shape[0] == arrays[0].shape[0]:
+                errs[f"grad{i}"] = ((g[:1].cpu() - cg).abs().max()
+                                    / cg.abs().max()).item()
+        xs = [mx.nd.NDArray(a) for a in arrays]
+        if name == "BilinearSampler":
+            grid = mx.nd.GridGenerator(xs[1], transform_type="affine",
+                                       target_shape=xs[0].shape[2:])
+            fwd = functools.partial(mx.nd.BilinearSampler, xs[0], grid)
+        else:
+            fwd = functools.partial(getattr(mx.nd, name), *xs, **kw)
+        fwd_ms = timing.time_ms(fwd, 3, warmup=1)
+        both_ms = timing.time_ms(
+            lambda: _vision_run(mx, name, arrays, kw, n_grad, head), 2,
+            warmup=1)
+        rows[name] = {"shape": list(arrays[0].shape), "out": list(y.shape),
+                      "rel_err": errs, "fwd_ms": fwd_ms,
+                      "fwd_bwd_ms": both_ms,
+                      "bwd_bit_equal": all(torch.equal(a, b) for a, b in
+                                           zip(grads, grads2))}
+        del y, y2, grads, grads2
+    bad = {k: r["rel_err"] for k, r in rows.items()
+           if max(r["rel_err"].values()) > VISION_REL}
+    if bad:
+        raise AssertionError(f"op_set vision beyond {VISION_REL}: {bad}")
+    return rows
+
+
+def op_set_phase():
+    """20 in the docstring: the rest of the op set at published widths."""
+    import torch
+    import mxtpu_torch as mx
+    import mxtpu_torch.contrib.quantization  # noqa: F401
+    reset_launches()
+    t0 = time.perf_counter()
+    parts = {}
+    for key, part in (("updates", _opset_updates), ("sparse", _opset_sparse),
+                      ("custom", _opset_custom), ("int8", _opset_int8),
+                      ("vision", _opset_vision)):
+        t1 = time.perf_counter()
+        parts[key] = part(mx)
+        parts[key + "_seconds"] = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    launches = read_launches()
+    emit({"phase": "op_set", "card": nvidia_smi(), **parts,
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    if launches != only():
+        raise AssertionError(f"op_set launched {launches}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6398,6 +6986,8 @@ def main():
     symbol_launches = symbol_module_phase()
     torch.cuda.empty_cache()
     image_launches = image_record_phase()
+    torch.cuda.empty_cache()
+    op_set_launches = op_set_phase()
     telemetry_phase()
     launches = {k: fwd_launches[k] + train_launches[k]
                 + flywheel_launches[k] + resnet_launches[k]
@@ -6405,7 +6995,7 @@ def main():
                 + random_launches[k] + serde_launches[k]
                 + mixtral_launches[k] + bert_launches[k]
                 + gluon_launches[k] + symbol_launches[k]
-                + image_launches[k]
+                + image_launches[k] + op_set_launches[k]
                 for k in LAUNCH_COUNTERS}
 
     main_row, bwd = rows["llama3_8b"], bwd_rows["llama3_8b"]

@@ -7,7 +7,8 @@ module names (``context``, ``ndarray``, ``autograd``, ``rtc``,
 ``telemetry``, ``gluon``, ``optimizer``, ``initializer``,
 ``lr_scheduler``, ``model``, ``amp``, ``parallel.mesh``, ``symbol``,
 ``module``, ``io``, ``metric``, ``callback``, ``monitor``,
-``visualization``, ``recordio``, ``native``, ``image``) so a reader
+``visualization``, ``recordio``, ``native``, ``image``, ``operator``,
+``ndarray.sparse``, ``contrib.quantization``) so a reader
 finds each counterpart, and serves them under the reference's names
 (``mxtpu_torch.serve``, ``mxtpu_torch.rnn``, ...); ``prng`` is the
 key chain of ``jax.random`` (its float32
@@ -56,7 +57,8 @@ _LAZY = {"gluon": "mxtpu_torch.gluon", "optimizer": "mxtpu_torch.optimizer",
          "serde": "mxtpu_torch.serde", "rnn": "mxtpu_torch.gluon.rnn",
          "telemetry": "mxtpu_torch.telemetry",
          "image": "mxtpu_torch.image", "recordio": "mxtpu_torch.recordio",
-         "native": "mxtpu_torch.native"}
+         "native": "mxtpu_torch.native",
+         "operator": "mxtpu_torch.operator"}
 
 # the reference's other lazy names, each with the ROADMAP item that
 # brings it
@@ -64,7 +66,7 @@ _LATER = {"kvstore": "item 11", "kv": "item 11",
           "np": "item 10.4(c)", "npx": "item 10.4(c)",
           "profiler": "item 10.4(c)", "util": "item 10.4(c)",
           "test_utils": "item 10.4(c)", "engine": "item 10.4(c)",
-          "runtime": "item 10.4(c)", "operator": "item 10.4(b)"}
+          "runtime": "item 10.4(c)"}
 
 
 def __getattr__(name):

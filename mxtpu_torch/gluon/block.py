@@ -43,7 +43,7 @@ Queue A item 11).
 and writes the reference's ``prefix-symbol.json`` and
 ``prefix-%04d.params``; :class:`SymbolBlock` runs such a graph as a
 block. ``export_stablehlo`` (a JAX artifact) raises, naming the later
-sub-item of ROADMAP Queue A item 10.4 that holds ``contrib.deploy``.
+sub-item of ROADMAP Queue A item 10.4(d) that holds ``contrib.deploy``.
 """
 from __future__ import annotations
 
@@ -69,7 +69,7 @@ MESH_SLICE = ("mesh sharding of a Gluon block over more than one device "
               "comes with the multi-device slice (ROADMAP Queue A item 11)")
 STABLEHLO_SLICE = ("export_stablehlo writes a JAX StableHLO artifact; its "
                    "counterpart comes with contrib.deploy, the contrib/ "
-                   "sub-item of ROADMAP Queue A item 10.4")
+                   "sub-item of ROADMAP Queue A item 10.4(d)")
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,9 @@ The NDArray class, its constructors, the tape funnel and
 with the contrib ops of ``contrib_ops.py``: ``mx.nd.box_nms``,
 ``mx.nd._contrib_MultiBoxPrior``, ...), ``mx.nd.random``
 (``random.py``) and ``mx.nd.contrib`` (``contrib.py``: ``foreach``,
-``while_loop``, ``cond`` and the contrib ops). The reference's other op
-names and submodules raise ``AttributeError`` saying which ROADMAP item
-brings them.
+``while_loop``, ``cond`` and the contrib ops), ``mx.nd.sparse``
+(``sparse.py``: CSR and row-sparse arrays) and ``mx.nd.Custom`` (the
+``mx.operator`` registry).
 """
 from .ndarray import (NDArray, array, empty, zeros, ones, full, arange,
                       concat, stack, waitall, save, load)
@@ -16,30 +16,32 @@ from . import contrib_ops  # noqa: F401  (registers the contrib ops)
 from .ops import *  # noqa: F401,F403  — registered op namespace
 from .ops import OP_REGISTRY, register_op
 from .ops import __all__ as _ops_all
-from .ops_extended import LATER, LATER_SLICE
 from . import random
 
 __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
            "concat", "stack", "waitall", "save", "load", "random"] + \
     [n for n in _ops_all if n not in ("full", "concat", "stack")]
 
-_OTHER_SLICES = {
-    "sparse": "mx.nd.sparse comes with the sparse slice, ROADMAP Queue A "
-              "item 10.4",
-    "Custom": "mx.nd.Custom (the mx.operator registry) comes with ROADMAP "
-              "Queue A item 10.4",
-}
+_LAZY = {"contrib": "mxtpu_torch.ndarray.contrib",
+         "sparse": "mxtpu_torch.ndarray.sparse"}
 
 
 def __getattr__(name):
-    if name == "contrib":
+    # Custom (the mx.operator registry) and the submodules load on first
+    # use, as the reference's do
+    if name == "Custom":
+        from ..operator import Custom
+        return Custom
+    if name in _LAZY:
         import importlib
-        m = importlib.import_module("mxtpu_torch.ndarray.contrib")
-        globals()["contrib"] = m
+        m = importlib.import_module(_LAZY[name])
+        globals()[name] = m
         return m
-    if name in _OTHER_SLICES:
-        raise AttributeError(_OTHER_SLICES[name])
-    if name in LATER:
-        raise AttributeError(f"mx.nd.{name} {LATER_SLICE}")
+    if name not in OP_REGISTRY:
+        # the int8 ops register when their module is imported
+        from ..contrib import quantization  # noqa: F401
+        from .. import operator  # noqa: F401
+    if name in OP_REGISTRY:
+        return OP_REGISTRY[name]
     raise AttributeError(
         f"module 'mxtpu_torch.ndarray' has no attribute {name!r}")

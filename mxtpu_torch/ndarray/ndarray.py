@@ -42,7 +42,7 @@ __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
 _NAIVE = os.environ.get("MXNET_ENGINE_TYPE", "ThreadedEngine") == "NaiveEngine"
 
 PROFILER_SLICE = ("the per-op profiler hook comes with the profiler, "
-                  "ROADMAP Queue A item 10.4")
+                  "ROADMAP Queue A item 10.4(c)")
 
 def _sync(data: torch.Tensor) -> None:
     """Wait for the work queued on ``data``'s stream (WaitToRead)."""
@@ -622,10 +622,16 @@ class NDArray:
         return self.astype("float32")
 
     def tostype(self, stype):
-        if stype != "default":
-            raise NotImplementedError("sparse storage comes with the sparse "
-                                      "slice, ROADMAP Queue A item 10.4")
-        return self
+        """This array in storage ``stype`` ('default', 'csr' for 2-D,
+        'row_sparse'), converted on its device."""
+        if stype == "default":
+            return self
+        from .sparse import CSRNDArray, RowSparseNDArray
+        if stype == "csr":
+            return CSRNDArray.from_dense(self._data)
+        if stype == "row_sparse":
+            return RowSparseNDArray.from_dense(self._data)
+        raise ValueError(f"unknown storage type {stype!r}")
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:

@@ -15,9 +15,8 @@ array, so the ``full`` convention keeps its own window count), and the
 recurrences (``ctc_loss``, ``RNN``) are Python loops over time where
 the reference scans.
 
-``ops_extended`` brings only what this slice's Gluon needs
-(``reshape_like``, ``space_to_depth``, ``depth_to_space``); its other
-names raise, naming the ROADMAP item that holds them.
+``ops_extended`` registers the rest of the reference's op set (vision
+ops, ``linalg_*``, the update ops, the ``sample_*`` ops, ...).
 """
 from __future__ import annotations
 

@@ -19,10 +19,17 @@ the reference writes it. bfloat16 (flag 12) is written from and read
 into a bfloat16 tensor's raw bytes (numpy has no bfloat16). ``load``
 makes every float entry float32 (float64, float16 and bfloat16 too),
 as the reference's does by building each array with ``nd.array``;
-integer and bool entries keep their dtype. The port has no sparse
-NDArray yet: the reference's sparse entries (storage types 1001/1002)
-raise, naming the slice that brings them, and MXNet 1.x's (1, 2) raise
-as the reference's do.
+integer and bool entries keep their dtype. Sparse arrays
+(``mxtpu_torch.ndarray.sparse``) are written in the reference's own
+sparse layout, storage type 1001 (row_sparse) or 1002 (csr):
+
+    uint32 magic, int32 storage_type, TShape, Context, int32 type_flag,
+    uint32 n_aux, per aux (row_sparse: indices; csr: indptr, indices):
+        uint32 length, int32 values
+    uint32 n_data (stored rows or values), raw data bytes
+
+and read back as sparse arrays, their data in its own dtype. MXNet
+1.x's sparse entries (storage types 1, 2) raise, as the reference's do.
 """
 from __future__ import annotations
 
@@ -46,11 +53,6 @@ _TYPE_FLAG = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
               torch.bool: 7, torch.bfloat16: 12}
 _FLAG_TYPE = {v: k for k, v in _TYPE_FLAG.items()}
 
-SPARSE_SLICE = ("sparse .params entries (row_sparse/csr, storage types "
-                "1001/1002) load once the port has a sparse NDArray, "
-                "ROADMAP Queue A item 10.4")
-
-
 def _tensor_of(arr) -> torch.Tensor:
     """A host tensor of what ``save`` was given: an NDArray, a tensor, a
     numpy array or a number."""
@@ -69,6 +71,27 @@ def _raw_bytes(t: torch.Tensor) -> memoryview:
     if t.dtype in (torch.bfloat16, torch.bool):
         t = t.view(torch.uint8)
     return memoryview(t.numpy()).cast("B")
+
+
+def _write_sparse(f, arr) -> None:
+    """A sparse entry in the reference's layout (see the module doc)."""
+    from .ndarray.sparse import RowSparseNDArray
+    rsp = isinstance(arr, RowSparseNDArray)
+    shape = arr.shape
+    data = arr.data._data.detach().cpu()
+    if data.dtype not in _TYPE_FLAG:
+        data = data.to(torch.float32)
+    auxes = [arr.indices] if rsp else [arr.indptr, arr.indices]
+    f.write(struct.pack(f"<Ii{len(shape) + 1}Iiii", _ND_MAGIC,
+                        1001 if rsp else 1002, len(shape), *shape, 1, 0,
+                        _TYPE_FLAG[data.dtype]))
+    f.write(struct.pack("<I", len(auxes)))
+    for aux in auxes:
+        a = aux._data.detach().cpu().to(torch.int32)
+        f.write(struct.pack("<I", a.shape[0]))
+        f.write(_raw_bytes(a))
+    f.write(struct.pack("<I", data.shape[0]))
+    f.write(_raw_bytes(data))
 
 
 def _write_ndarray(f, t: torch.Tensor) -> None:
@@ -114,7 +137,7 @@ def _read_ndarray(r: _Reader, dev: torch.device) -> torch.Tensor:
             "the 1.x aux layout) are not supported; convert to dense or "
             "re-save with mxtpu")
     if stype in (1001, 1002):
-        raise MXNetError(SPARSE_SLICE)
+        return _read_sparse(r, stype, dev)
     if stype not in (0, -1):
         raise MXNetError(f"unknown storage type {stype} in .params")
     ndim = r.read("I")
@@ -134,6 +157,37 @@ def _read_ndarray(r: _Reader, dev: torch.device) -> torch.Tensor:
     return t.float() if t.is_floating_point() else t   # as nd.array does
 
 
+def _read_block(r: _Reader, n: int, dtype: torch.dtype,
+                dev: torch.device) -> torch.Tensor:
+    nbytes = n * dtype.itemsize
+    start = r.skip(nbytes)
+    raw = torch.frombuffer(r.buf, dtype=torch.uint8, count=nbytes,
+                           offset=start) if nbytes else \
+        torch.empty(0, dtype=torch.uint8)
+    return raw.to(dev, copy=True).view(dtype)
+
+
+def _read_sparse(r: _Reader, stype: int, dev: torch.device):
+    from .ndarray.ndarray import NDArray
+    from .ndarray.sparse import CSRNDArray, RowSparseNDArray
+    ndim = r.read("I")
+    shape = tuple(_np.frombuffer(r.read_bytes(4 * ndim), "<u4").tolist())
+    r.read("ii")  # ctx
+    flag = r.read("i")
+    if flag not in _FLAG_TYPE:
+        raise MXNetError(f"unknown type flag {flag} in .params")
+    dtype = _FLAG_TYPE[flag]
+    auxes = [NDArray(_read_block(r, r.read("I"), torch.int32, dev))
+             for _ in range(r.read("I"))]
+    n_data = r.read("I")
+    row = tuple(shape[1:]) if stype == 1001 else ()
+    data = _read_block(r, n_data * math.prod(row), dtype, dev)
+    data = NDArray(data.reshape((n_data,) + row))
+    if stype == 1001:
+        return RowSparseNDArray(data, auxes[0], shape)
+    return CSRNDArray(data, auxes[1], auxes[0], shape)
+
+
 def save_ndarrays(fname: str, data) -> None:
     """``mx.nd.save``: data is an NDArray, a list of them, or a dict of
     name to NDArray."""
@@ -146,8 +200,12 @@ def save_ndarrays(fname: str, data) -> None:
         arrays, names = [data], []
     with open(fname, "wb") as f:
         f.write(struct.pack("<QQQ", _LIST_MAGIC, 0, len(arrays)))
+        from .ndarray.sparse import BaseSparseNDArray
         for a in arrays:
-            _write_ndarray(f, _tensor_of(a))
+            if isinstance(a, BaseSparseNDArray):
+                _write_sparse(f, a)
+            else:
+                _write_ndarray(f, _tensor_of(a))
         f.write(struct.pack("<Q", len(names)))
         for nm in names:
             b = nm.encode("utf-8")
@@ -169,7 +227,8 @@ def load_ndarrays(fname: str, ctx: DeviceLike = None):
     if magic != _LIST_MAGIC:
         raise MXNetError(f"invalid .params file (magic {magic:#x})")
     n = r.read("Q")
-    arrays = [NDArray(_read_ndarray(r, dev)) for _ in range(n)]
+    arrays = [_read_ndarray(r, dev) for _ in range(n)]
+    arrays = [a if isinstance(a, NDArray) else NDArray(a) for a in arrays]
     n_names = r.read("Q")
     if n_names == 0:
         return arrays

@@ -3,8 +3,12 @@
 
 Every op of the port's ``OP_REGISTRY`` (``mxtpu_torch/ndarray/ops.py``)
 is available here as a graph-composing function, as the reference's
-code-generated ``mx.sym.*`` wrappers are.
+code-generated ``mx.sym.*`` wrappers are; ``Custom`` and the int8 ops
+of ``contrib.quantization`` among them (their modules register them,
+and are imported here so a graph can name them).
 """
+from .. import operator as _operator  # noqa: F401  (registers Custom)
+from ..contrib import quantization as _quantization  # noqa: F401
 from ..ndarray import ops as _ops
 from .symbol import (Symbol, var, Variable, Group, load, load_json,
                      Executor, make_symbol_function)

@@ -28,7 +28,7 @@ Where the port differs from the reference, deliberately:
 - ``bind``/``simple_bind``/``eval`` take ``ctx`` as a ``torch.device``
   (None: the card; ``eval`` without ``ctx`` runs where its arrays are).
 - ``validate`` (the mxlint graph pass) waits for ``contrib.analysis``,
-  ROADMAP Queue A item 10.4's ``contrib/`` sub-item, and raises.
+  ROADMAP Queue A item 10.4(d), and raises.
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ __all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json",
            "Executor"]
 
 ANALYSIS_SLICE = ("Symbol.validate (the mxlint graph pass) comes with "
-                  "contrib.analysis, ROADMAP Queue A item 10.4")
+                  "contrib.analysis, ROADMAP Queue A item 10.4(d)")
 
 _META = torch.device("meta")
 

@@ -227,7 +227,9 @@ def test_port_imports_no_jax():
             "mxtpu_torch.image._png, mxtpu_torch.ndarray.contrib, "
             "mxtpu_torch.ndarray.contrib_ops, mxtpu_torch.tools.im2rec, "
             "mxtpu_torch.tools.synth_images, mxtpu_torch.tools.input_ab, "
-            "mxtpu_torch.tools.decode_contention\n"
+            "mxtpu_torch.tools.decode_contention, mxtpu_torch.operator, "
+            "mxtpu_torch.ndarray.sparse, "
+            "mxtpu_torch.contrib.quantization\n"
             "assert mxtpu_torch.gluon is mxtpu_torch.gluon and "
             "mxtpu_torch.init is mxtpu_torch.initializer\n"
             "bad = [m for m in sys.modules if m == 'jax' or "

@@ -106,9 +106,32 @@ def test_contrib_names():
     for name in sorted(set(jcon.__all__) | {"box_nms", "MultiBoxPrior",
                                              "boolean_mask", "chaos"}):
         assert getattr(tmx.contrib, name) is not None, name
-    for name in ("quantization", "onnx", "text", "deploy", "analysis"):
-        with pytest.raises(AttributeError, match="item 10.4"):
+    assert inspect.ismodule(tmx.contrib.quantization)
+    for name in ("onnx", "text", "deploy", "analysis"):
+        with pytest.raises(AttributeError, match=r"item 10\.4\(d\)"):
             getattr(tmx.contrib, name)
+
+
+def test_item_10_4b_names_resolve():
+    """``mx.operator``, ``mx.nd.sparse``, ``mx.nd.Custom`` and
+    ``mx.contrib.quantization`` resolve to the port's modules, and the
+    names still to come say which item brings them: 10.4(c), 10.4(d)
+    or 11, and never 10.4(b)."""
+    assert tmx.operator.__name__ == "mxtpu_torch.operator"
+    assert tmx.nd.sparse.__name__ == "mxtpu_torch.ndarray.sparse"
+    assert tmx.nd.Custom is tmx.operator.Custom
+    assert tmx.contrib.quantization.__name__ == \
+        "mxtpu_torch.contrib.quantization"
+    assert tmx.nd.quantize_v2 is tmx.contrib.quantization.quantize
+    for name in NAMES:
+        try:
+            getattr(tmx, name)
+        except AttributeError as e:
+            msg = str(e)
+            assert "10.4(b)" not in msg, name
+            if "ROADMAP" in msg:
+                assert any(i in msg for i in ("item 10.4(c)", "item 10.4(d)",
+                                              "item 11")), (name, msg)
 
 
 @pytest.mark.parametrize("target", ["bfloat16", "float16"])

@@ -211,8 +211,10 @@ CASES = {
     "zeros_like": (lambda m: m.arr(I).zeros_like(), "exact"),
     "ones_like": (lambda m: m.arr(A).ones_like(), "exact"),
     "tostype_default": (lambda m: m.arr(A).tostype("default"), "exact"),
-    "tostype_csr": (lambda m: raises(lambda: m.arr(A).tostype("csr")),
-                    "exact"),
+    # the reference's dense tostype raises; its csr_matrix converts
+    "tostype_csr": (lambda m: (m.arr(A).tostype("csr") if m is PORT else
+                               m.nd.sparse.csr_matrix(m.arr(A)))
+                    .tostype("default"), "exact"),
     # binary dunders, NDArray and scalar operands, and reflected
     "add": (lambda m: m.arr(A) + m.arr(B), "elem"),
     "add_scalar": (lambda m: m.arr(A) + 1.5, "elem"),
@@ -464,12 +466,18 @@ def test_bfloat16_asnumpy_is_float32():
 
 
 def test_parts_of_later_slices_raise():
-    """Sparse storage still waits for its slice; ``dot`` and ``pad``
-    came with the op registry and now give the reference's values."""
+    """Parts that once waited for later slices now give the reference's
+    values: sparse storage (a dense array converts on its device, as
+    the reference's ``row_sparse_array`` converts it), and ``dot`` and
+    ``pad`` from the op registry."""
     a = PORT.arr(A)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        a.tostype("row_sparse")
     ref = REF.arr(A)
+    rsp = a.tostype("row_sparse")
+    want = jmx.nd.sparse.row_sparse_array(ref)
+    assert rsp.stype == "row_sparse"
+    np.testing.assert_array_equal(rsp.indices.asnumpy(),
+                                  want.indices.asnumpy())
+    np.testing.assert_array_equal(rsp.asnumpy(), want.asnumpy())
     np.testing.assert_allclose(a.dot(a.T).asnumpy(),
                                ref.dot(ref.T).asnumpy(), **ELEM)
     pad = dict(mode="constant", pad_width=(1, 0, 0, 2), constant_value=1.5)
@@ -478,18 +486,17 @@ def test_parts_of_later_slices_raise():
 
 
 def test_every_reference_op_names_its_slice():
-    """Each mx.nd.<op> of the reference's registry that the port lacks
-    says, when asked for, which slice brings it; the op registry's own
-    names are here."""
+    """Every mx.nd.<op> of the reference's registry resolves in the
+    port (no op names a later slice any more), to the port's op of that
+    name."""
     from mxtpu.ndarray import ops
-    have = set(tmx.nd.__all__)
-    names = [n for n in ops.__all__ if n not in have]
-    assert len(names) > 100
-    for n in names:
-        with pytest.raises(AttributeError, match="ROADMAP Queue A"):
-            getattr(tmx.nd, n)
-    assert "dot" not in names and "relu" not in names
-    assert "elu" in names and "linalg_det" in names
+    import mxtpu_torch.contrib.quantization  # noqa: F401
+    assert len(ops.__all__) > 300
+    for n in ops.__all__:
+        if n in ("OP_REGISTRY", "register_op"):
+            continue
+        assert getattr(tmx.nd, n) is tmx.nd.OP_REGISTRY[n], n
+    assert callable(tmx.nd.elu) and callable(tmx.nd.linalg_det)
 
 
 def test_profiler_hook_raises(monkeypatch):

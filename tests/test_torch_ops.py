@@ -3,9 +3,11 @@
 and shape ops of the table in ``torch_op_cases.py`` (the nn, linalg and
 indexing ops are ``test_torch_ops_nn.py``'s), every case through both
 packages' ``mx.nd`` on the same numpy inputs, values and gradients
-compared at the table's tolerances; and the registry itself: its names
-are the reference's less a written list of the names that wait for
-ROADMAP item 10.4, and each alias is the same op in both packages.
+compared at the table's tolerances, with the first half of the rest of
+the op set (``ops_extended``: activations, normalization, resizing, the
+sampling grids, deformable convolution, correlation, SVMOutput); and
+the registry itself: its names are the reference's, and each alias is
+the same op in both packages.
 """
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ import mxtpu.contrib.quantization  # noqa: F401  (registers its ops)
 import mxtpu.ndarray.contrib_ops  # noqa: F401  (registers its ops)
 import mxtpu.operator  # noqa: F401  (registers Custom)
 import mxtpu_torch as tmx
+import mxtpu_torch.contrib.quantization  # noqa: F401  (registers its ops)
 from mxtpu_torch.base import dtype_name
 
 import torch_op_cases as oc
@@ -24,38 +27,10 @@ torch.set_num_threads(2)
 
 REF, PORT = oc.Side(jmx, jmx.cpu()), oc.Side(tmx, "cpu")
 _ORDER = [n for n in oc.CASES]
-NAMES = _ORDER[:_ORDER.index(oc.NN_FROM)]
-
-# the reference's registered names that wait for ROADMAP item 10.4: the
-# rest of its ops_extended, contrib.quantization's and mx.operator's
-# Custom (each module is imported above, so the registry is the same
-# whatever else this process imported)
-LATER_10_4 = frozenset("""
-BilinearResize2D BilinearSampler Convolution_v1 Correlation Crop
-DeformableConvolution GELU GridGenerator GroupNorm IdentityAttachKLSparseReg
-LRN Pooling_v1 SVMOutput SoftmaxActivation SpatialTransformer UpSampling
-_adamw_update _contrib_BilinearResize2D _contrib_DeformableConvolution
-_contrib_index_add _random_exponential _random_gamma _random_normal
-_random_poisson _random_uniform _sample_multinomial _scatter_set_nd _shuffle
-adam_update adamw_update all_finite argmax_channel batch_take
-bilinear_resize2d broadcast_like cast_storage col2im crop det digamma
-ediff1d elu erfc fill_element_0index ftrl_update gelu groupnorm
-hard_sigmoid histogram im2col index_add index_array inverse khatri_rao
-linalg_det linalg_extractdiag linalg_extracttrian linalg_gelqf linalg_gemm
-linalg_inverse linalg_makediag linalg_maketrian linalg_potri linalg_slogdet
-linalg_sumlogdiag linalg_syevd linalg_trmm log_sigmoid lrn
-masked_log_softmax masked_softmax mish moments mp_sgd_update
-multi_all_finite nag_mom_update random_exponential random_gamma
-random_normal random_poisson random_uniform ravel_multi_index
-rmsprop_update roll rot90 sample_exponential sample_gamma
-sample_multinomial sample_normal sample_poisson sample_uniform
-scatter_set_nd searchsorted selu sgd_mom_update sgd_update shuffle
-signsgd_update slogdet softmax_activation softplus softrelu svm_output
-trace unique unravel_index upsampling
-_contrib_dequantize _contrib_quantize_v2 _contrib_quantized_conv
-_contrib_quantized_fully_connected dequantize quantize_v2
-Custom
-""".split())
+NAMES = _ORDER[:_ORDER.index(oc.NN_FROM)] + \
+    _ORDER[_ORDER.index(oc.EXT_FROM):_ORDER.index(oc.EXT_NN_FROM)]
+oc.register_custom(jmx)
+oc.register_custom(tmx)
 
 # the contrib ops the port registers (test_torch_contrib_ops.py holds
 # them against mxtpu.ndarray.contrib_ops)
@@ -94,18 +69,17 @@ def test_op_matches_mxtpu(op):
         check_case(op, case)
 
 
-def test_registry_is_the_references_less_item_10_4():
+def test_registry_is_the_references():
     from mxtpu.ndarray import ops as rops
     from mxtpu_torch.ndarray import ops as tops
-    from mxtpu_torch.ndarray.ops_extended import LATER
-    assert LATER == LATER_10_4
-    assert set(tops.OP_REGISTRY) == set(rops.OP_REGISTRY) - LATER_10_4
+    import mxtpu_torch.contrib.quantization  # noqa: F401
+    import mxtpu_torch.operator  # noqa: F401
+    assert set(tops.OP_REGISTRY) == set(rops.OP_REGISTRY)
     assert set(oc.CASES) | set(oc.ALIASES) | CONTRIB | {
         "reshape_like", "space_to_depth", "depth_to_space"} == \
         set(tops.OP_REGISTRY)
-    for name in sorted(LATER_10_4)[::9]:
-        with pytest.raises(AttributeError, match="ROADMAP Queue A item 10.4"):
-            getattr(tmx.nd, name)
+    for name in sorted(rops.OP_REGISTRY):
+        assert callable(getattr(tmx.nd, name)), name
 
 
 @pytest.mark.parametrize("alias", sorted(oc.ALIASES))
@@ -116,3 +90,4 @@ def test_alias_is_the_same_op(alias):
     assert rops.OP_REGISTRY[alias] is rops.OP_REGISTRY[first]
     assert tops.OP_REGISTRY[alias] is tops.OP_REGISTRY[first]
     assert getattr(tmx.nd, alias) is tops.OP_REGISTRY[first]
+

@@ -176,11 +176,19 @@ def test_bad_files_raise(tmp_path, monkeypatch):
         f.write(raw[:-8])
     with pytest.raises(MXNetError, match="truncated"):
         tmx.nd.load(bad, ctx="cpu")
-    # a sparse entry saved by the reference names the slice that brings it
+    # a sparse entry saved by the reference loads as a sparse array; cut
+    # short, it raises
     sp = jmx.nd.sparse.row_sparse_array(
         (np.ones((2, 3), np.float32), np.array([0, 2])), shape=(4, 3))
     jmx.nd.save(bad, [sp])
-    with pytest.raises(MXNetError, match="10.4"):
+    got = tmx.nd.load(bad, ctx="cpu")[0]
+    assert got.stype == "row_sparse"
+    np.testing.assert_array_equal(got.asnumpy(), sp.asnumpy())
+    with open(bad, "rb") as f:
+        sraw = f.read()
+    with open(bad, "wb") as f:
+        f.write(sraw[:-12])
+    with pytest.raises(MXNetError, match="truncated"):
         tmx.nd.load(bad, ctx="cpu")
     # MXNet 1.x's own sparse storage types raise as the reference's do
     with open(bad, "wb") as f:
@@ -192,3 +200,50 @@ def test_bad_files_raise(tmp_path, monkeypatch):
         tmx.nd.load(good)
     with pytest.raises(TypeError, match="cannot save"):
         tmx.nd.save(bad, [object()])
+
+
+def _sparse_pair(seed):
+    """The same CSR and row-sparse arrays in both packages."""
+    import scipy.sparse as sps
+    mat = sps.random(6, 9, density=0.3, random_state=seed, dtype=np.float32,
+                     format="csr")
+    rows = np.random.default_rng(seed).standard_normal((3, 2, 2)).astype(
+        np.float32)
+    idx = np.array([0, 3, 5], np.int32)
+    ref = {"csr": jmx.nd.sparse.csr_matrix(mat),
+           "rsp": jmx.nd.sparse.row_sparse_array((rows, idx), shape=(7, 2, 2)),
+           "dense": _ref(ARRAYS["f32"])}
+    port = {"csr": tmx.nd.sparse.csr_matrix(mat, ctx="cpu"),
+            "rsp": tmx.nd.sparse.row_sparse_array((rows, idx), shape=(7, 2, 2),
+                                                  ctx="cpu"),
+            "dense": _port(ARRAYS["f32"])}
+    return ref, port
+
+
+def test_sparse_entries_match_mxtpu_byte_for_byte(tmp_path):
+    """Sparse ``.params`` entries (storage types 1001/1002): the port's
+    file is the reference's byte for byte, and each package loads the
+    other's to the same components."""
+    ref, port = _sparse_pair(4)
+    fr, fp = str(tmp_path / "ref.params"), str(tmp_path / "port.params")
+    jmx.nd.save(fr, ref)
+    tmx.nd.save(fp, port)
+    with open(fr, "rb") as a, open(fp, "rb") as b:
+        assert a.read() == b.read()
+    back = tmx.nd.load(fr, ctx="cpu")
+    rback = jmx.nd.load(fp)
+    for k in ("csr", "rsp"):
+        assert back[k].stype == rback[k].stype == port[k].stype
+        assert back[k].shape == port[k].shape
+        np.testing.assert_array_equal(back[k].asnumpy(), ref[k].asnumpy())
+        np.testing.assert_array_equal(rback[k].asnumpy(), ref[k].asnumpy())
+        assert back[k].data.asnumpy().tobytes() == \
+            np.asarray(ref[k].data.asnumpy()).tobytes()
+        assert back[k].indices.dtype == torch.int32
+    np.testing.assert_array_equal(back["csr"].indptr.asnumpy(),
+                                  np.asarray(ref["csr"].indptr.asnumpy()))
+    # a list without names, saved again, is the same file
+    tmx.nd.save(fp, [back["csr"], back["rsp"]])
+    jmx.nd.save(fr, [ref["csr"], ref["rsp"]])
+    with open(fr, "rb") as a, open(fp, "rb") as b:
+        assert a.read() == b.read()

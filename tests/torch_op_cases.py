@@ -19,6 +19,11 @@ A case compares:
 terms cancel: its rounding error scales with the sum of |terms|, not
 with the result.
 
+The random ops' cases are exact: after one ``mx.random.seed`` both
+packages draw the same bits (the reference's draws in 64-bit mode); so
+are the optimizer update ops' (outputs and rebound states): the port
+takes a correctly rounded sqrt and divides elementwise, as XLA does.
+
 ``x64`` marks cases where the reference (x64 on in the tests) returns a
 64-bit float or int and the port the 32-bit one: values are compared,
 and the port's dtype is checked to be the 32-bit counterpart.
@@ -58,8 +63,9 @@ IDX_OOR = np.array([3, -1, 1, 5], np.int32)
 
 class Case:
     def __init__(self, args, kw=None, exact=False, grad=None, train=False,
-                 x64=False, seed=None, ctx=False, scale=0.0):
+                 x64=False, seed=None, ctx=False, scale=0.0, mutates=()):
         self.args, self.kw = args, dict(kw or {})
+        self.mutates = tuple(mutates)
         self.scale = scale
         self.exact, self.train, self.x64 = exact, train, x64
         self.seed, self.ctx = seed, ctx
@@ -72,7 +78,7 @@ class Case:
 
 def C(*args, **kw):
     opts = {k: kw.pop(k) for k in ("exact", "grad", "train", "x64", "seed",
-                                   "ctx", "scale") if k in kw}
+                                   "ctx", "scale", "mutates") if k in kw}
     return Case(list(args), kw, **opts)
 
 
@@ -330,6 +336,210 @@ CASES["RNN"] = [_rnn_case("lstm", 2, False, True),
                 _rnn_case("rnn_tanh", 2, True, True),
                 _rnn_case("rnn_relu", 1, False, False)]
 
+# -- the rest of the op set (ops_extended, Custom, contrib.quantization) --
+# EXT_FROM's half goes to test_torch_ops.py, the rest from EXT_NN_FROM to
+# test_torch_ops_nn.py; ``mutates`` also compares the state arrays an op
+# rebinds, after the call
+EXT_FROM = "digamma"
+EXT_NN_FROM = "linalg_gemm"
+_G4 = rng.standard_normal((2, 4, 3, 3)).astype(f32)
+_THETA = np.array([[0.9, 0.1, 0.05, -0.2, 1.1, 0.1],
+                   [1.2, -0.3, 0.2, 0.25, 0.8, -0.1]], f32)
+_FLOW = rng.standard_normal((2, 2, 4, 5)).astype(f32)
+_GRID = rng.uniform(-1.1, 1.1, (2, 2, 5, 4)).astype(f32)
+_IMG2 = rng.standard_normal((2, 3, 6, 6)).astype(f32)
+_OFF = (0.7 * rng.standard_normal((2, 18, 6, 6))).astype(f32)
+_OFF3 = (0.7 * rng.standard_normal((2, 54, 3, 3))).astype(f32)
+_LOWER = np.linalg.cholesky(SPD.astype(np.float64)).astype(f32)
+_MASK = np.array([[1, 0, 1, 1], [0, 1, 1, 0], [1, 1, 0, 1]], np.int32)
+_STATE = rng.uniform(0.1, 1.0, (3, 4)).astype(f32)
+_PROBS = np.array([[0.1, 0.2, 0.3, 0.4], [0.5, 0.0, 0.25, 0.25]], f32)
+_QW = rng.integers(-127, 128, (5, 4)).astype(np.int8)
+_QCW = rng.integers(-127, 128, (4, 3, 3, 3)).astype(np.int8)
+_QGW = rng.integers(-127, 128, (6, 1, 3, 3)).astype(np.int8)
+
+for _n in ("digamma", "log_sigmoid", "mish", "gelu", "selu", "softrelu",
+           "erfc"):
+    CASES[_n] = [C(P if _n == "digamma" else X)]
+CASES["digamma"].append(C(np.abs(X) + 0.5))
+CASES["erfc"].append(C(np.array([3.0, 4.0, 5.0, 6.0], f32)))   # the tail
+CASES["gelu"].append(C(4 * X))
+CASES["elu"] = [C(X), C(X, alpha=0.5)]
+CASES["hard_sigmoid"] = [C(3 * X), C(X, alpha=0.3, beta=0.4)]
+CASES["SoftmaxActivation"] = [C(X), C(IMG, mode="channel")]
+CASES["LRN"] = [C(IMG), C(IMG, alpha=1e-2, beta=0.5, knorm=1.0, nsize=3)]
+CASES["GroupNorm"] = [C(_G4, _G3[:2].repeat(2), _BE3[:2].repeat(2),
+                        num_groups=2), C(IMG, _G3, _BE3, num_groups=3)]
+CASES["UpSampling"] = [
+    C(IMG, scale=2), C(IMG, scale=2, sample_type="bilinear", num_filter=3),
+    C(IMG, IMG[:, :, :3, :3].copy(), scale=2, num_args=2),
+    C(IMG, IMG[:, :, :4, :4].copy(), scale=1, num_args=2,
+      multi_input_mode="sum")]
+CASES["BilinearResize2D"] = [C(IMG, height=9, width=8),
+                             C(IMG, scale_height=0.5, scale_width=0.5)]
+CASES["Crop"] = [C(IMG, h_w=(3, 4), offset=(1, 2)),
+                 C(IMG, h_w=(4, 4), center_crop=True),
+                 C(IMG, IMG[:, :, :3, :5].copy(), num_args=2, grad=[0])]
+CASES["GridGenerator"] = [C(_THETA, target_shape=(4, 5), x64=True, grad=[]),
+                          C(_FLOW, transform_type="warp",
+                            target_shape=(4, 5))]
+CASES["BilinearSampler"] = [C(IMG, _GRID)]
+CASES["SpatialTransformer"] = [C(IMG, _THETA, target_shape=(5, 4))]
+CASES["DeformableConvolution"] = [
+    C(IMG, _OFF, _CW, _CB, kernel=(3, 3), pad=(1, 1), num_filter=4),
+    C(IMG, _OFF3, _QGW.astype(f32) / 64, None, kernel=(3, 3),
+      stride=(2, 2), pad=(1, 1), num_filter=6, num_group=3,
+      num_deformable_group=3, no_bias=True)]
+CASES["Correlation"] = [
+    C(IMG, _IMG2, max_displacement=2, pad_size=2),
+    C(IMG, _IMG2, kernel_size=3, max_displacement=2, stride1=2, stride2=2,
+      pad_size=3),
+    C(IMG, _IMG2, max_displacement=1, is_multiply=False, pad_size=1)]
+CASES["SVMOutput"] = [C(X, _LAB, grad=[0]),
+                      C(X, _LAB, use_linear=True, margin=0.5,
+                        regularization_coefficient=2.0, grad=[0]), C(X)]
+CASES["linalg_gemm"] = [C(X, M, X @ M, alpha=0.5, beta=2.0),
+                        C(X, X, SPD, transpose_a=True),
+                        C(B3, B3, B3[:, :, :3] @ B3[:, :, :3].transpose(
+                            0, 2, 1), transpose_b=True, scale=8.0)]
+CASES["linalg_trmm"] = [C(TRI, M), C(TRI, M.T.copy(), rightside=True,
+                                     lower=False, transpose=True,
+                                     alpha=2.0)]
+CASES["linalg_potri"] = [C(_LOWER)]
+CASES["linalg_sumlogdiag"] = [C(SPD)]
+CASES["linalg_extractdiag"] = [C(X), C(SPD, offset=1), C(B3, offset=-1)]
+CASES["linalg_makediag"] = [C(ROW), C(ROW, offset=-1), C(X, offset=2)]
+CASES["linalg_extracttrian"] = [C(SPD), C(SPD, offset=1, lower=False),
+                                C(SPD, offset=-1)]
+CASES["linalg_maketrian"] = [C(ROW[:3].copy()), C(X.reshape(2, 6),
+                                                  offset=1, lower=False)]
+CASES["linalg_syevd"] = [C(SPD, grad=[], scale=4.0)]
+CASES["linalg_det"] = [C(SPD), C(np.stack([SPD, TRI]))]
+CASES["linalg_slogdet"] = [C(TRI)]
+CASES["linalg_inverse"] = [C(SPD), C(TRI)]
+CASES["linalg_gelqf"] = [C(X, grad=[])]
+CASES["histogram"] = [C(X, bins=5, range=(-2.0, 2.0), grad=[]),
+                      C(X, bins=4, grad=[]),
+                      C(X, np.array([-2, -0.5, 0, 0.5, 2], f32), grad=[])]
+CASES["khatri_rao"] = [C(X, Y[:2].copy())]
+CASES["batch_take"] = [C(X, np.array([0, 3, 1], np.int32))]
+CASES["argmax_channel"] = [E(IMG), E(X)]
+CASES["broadcast_like"] = [C(ROW.reshape(1, 4), X, grad=[0]),
+                           C(X[:, :1].copy(), X, lhs_axes=(1,),
+                             rhs_axes=(1,), grad=[0])]
+CASES["unravel_index"] = [E(np.array([0, 5, 11, 7], f32), shape=(3, 4)),
+                          E(np.array([3, 14, -3], np.int32), shape=(3, 4))]
+CASES["ravel_multi_index"] = [E(np.array([[0, 2, 1, 5], [3, 0, 1, -1]], f32),
+                                shape=(3, 4))]
+CASES["index_add"] = [C(X, np.array([0, 2, 0], np.int32), Y, grad=[0, 2])]
+CASES["moments"] = [C(B3, axes=(1,)), C(B3, axes=(0, 2), keepdims=True),
+                    C(X, scale=1.0)]
+CASES["roll"] = [C(X, shift=1, axis=1), C(B3, shift=(1, -2), axis=(0, 2)),
+                 C(X, shift=2)]
+CASES["rot90"] = [C(X), C(B3, k=2, axes=(1, 2)), C(X, k=-1)]
+CASES["ediff1d"] = [C(X)]
+CASES["searchsorted"] = [E(np.sort(ROW), X), E(np.sort(ROW), X,
+                                               side="right")]
+CASES["index_array"] = [E(B3, x64=True), E(B3, axes=(0, 2), x64=True)]
+CASES["trace"] = [C(SPD), C(B3, offset=1, axis1=1, axis2=2)]
+CASES["unique"] = [E(np.array([3, 1, 3, 2, 1], f32)), E(I)]
+CASES["scatter_set_nd"] = [C(np.zeros((3, 4), f32), np.array([5, 6], f32),
+                             np.array([[0, 1], [1, 2]], np.int32))]
+CASES["fill_element_0index"] = [C(X, np.array([9, 8, 7], f32),
+                                  np.array([0, 2, 3], f32), grad=[0, 1])]
+CASES["cast_storage"] = [C(X, stype="default", grad=[])]
+CASES["IdentityAttachKLSparseReg"] = [C(X)]
+CASES["random_uniform"] = [E(low=-1.0, high=2.0, shape=(3, 4), ctx=True,
+                             seed=5)]
+CASES["random_normal"] = [E(loc=1.0, scale=2.0, shape=(3, 4), ctx=True,
+                            seed=5)]
+CASES["random_gamma"] = [E(alpha=2.0, beta=1.5, shape=(5,), ctx=True,
+                           seed=5)]
+CASES["random_exponential"] = [E(lam=2.0, shape=(5,), ctx=True, seed=5)]
+CASES["random_poisson"] = [E(lam=3.0, shape=(6,), ctx=True, seed=5)]
+CASES["sample_uniform"] = [E(ROW[:2].copy(), ROW[:2] + 2, shape=3, seed=5)]
+CASES["sample_normal"] = [E(ROW[:2].copy(), P[0, :2].copy(), shape=(2, 3),
+                            seed=5)]
+CASES["sample_gamma"] = [E(P[0, :3].copy(), P[1, :3].copy(), shape=4,
+                           seed=5)]
+CASES["sample_exponential"] = [E(P[0, :3].copy(), shape=4, seed=5)]
+CASES["sample_poisson"] = [E(3 * P[0, :3], shape=4, seed=5)]
+CASES["sample_multinomial"] = [E(_PROBS, shape=3, seed=5),
+                               E(_PROBS[0].copy(), shape=(2,),
+                                 get_prob=True, seed=5)]
+CASES["shuffle"] = [E(X, seed=5)]
+CASES["sgd_update"] = [E(X, Y, lr=0.1, wd=0.01, grad=[0, 1]),
+                       E(X, 10 * Y, lr=0.1, rescale_grad=0.5,
+                         clip_gradient=1.0, grad=[0, 1])]
+for _n in ("sgd_mom_update", "nag_mom_update"):
+    CASES[_n] = [E(X, Y, _STATE - 0.5, lr=0.1, momentum=0.9, wd=0.01,
+                   mutates=[2], grad=[0])]
+CASES["adam_update"] = [E(X, Y, _STATE - 0.5, _STATE, lr=0.01, wd=0.01,
+                          mutates=[2, 3], grad=[0]),
+                        E(X, 10 * Y, _STATE - 0.5, _STATE, lr=0.01,
+                          clip_gradient=2.0, mutates=[2, 3], grad=[0])]
+CASES["adamw_update"] = [E(X, Y, _STATE - 0.5, _STATE, lr=0.01, wd=0.1,
+                           eta=0.5, mutates=[2, 3], grad=[0])]
+CASES["signsgd_update"] = [E(X, Y, lr=0.1, wd=0.01, grad=[0, 1])]
+CASES["rmsprop_update"] = [E(X, Y, _STATE, lr=0.01, wd=0.01, mutates=[2],
+                             grad=[0])]
+CASES["ftrl_update"] = [E(X, Y, _STATE - 0.5, _STATE, lr=0.1, lamda1=0.3,
+                          mutates=[2, 3], grad=[0])]
+CASES["mp_sgd_update"] = [E(X.astype(np.float16), Y.astype(np.float16), X,
+                            lr=0.1, wd=0.01, mutates=[2], grad=[])]
+CASES["all_finite"] = [E(X), E(XN)]
+CASES["multi_all_finite"] = [E(X, Y, num_arrays=2),
+                             E(X, XN, num_arrays=2)]
+CASES["im2col"] = [C(IMG, kernel=(3, 3), pad=(1, 1)),
+                   C(IMG, kernel=(2, 3), stride=(2, 1), dilate=(1, 2))]
+CASES["col2im"] = [C(rng.standard_normal((2, 27, 36)).astype(f32),
+                     output_size=(6, 6), kernel=(3, 3), pad=(1, 1))]
+for _n in ("masked_softmax", "masked_log_softmax"):
+    CASES[_n] = [C(X, _MASK), C(X), C(X, _MASK, axis=0, temperature=2.0)]
+CASES["Custom"] = [C(X, op_type="op_cases_scaled_square", scale=3.0)]
+CASES["_contrib_quantize_v2"] = [E(X), E(X, min_calib_range=-1.0,
+                                        max_calib_range=1.5)]
+CASES["_contrib_dequantize"] = [E(_QW, np.array(-1.5, f32),
+                                  np.array(0.5, f32))]
+CASES["_contrib_quantized_fully_connected"] = [
+    E(X, _QW, _B5, num_hidden=5, w_thr=0.8),
+    E(2 * X, _QW, None, num_hidden=5, no_bias=True, w_thr=0.8,
+      calib_min=-1.0, calib_max=1.0)]
+CASES["_contrib_quantized_conv"] = [
+    E(IMG, _QCW, _CB, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+      num_filter=4, w_thr=0.5),
+    E(IMG, _QGW, None, kernel=(3, 3), num_filter=6, num_group=3,
+      no_bias=True, w_thr=0.5, calib_min=-2.0, calib_max=2.0),
+    E(IMG1, _QCW[:, :, 1], _CB, kernel=(3,), pad=(1,), num_filter=4,
+      w_thr=0.5)]
+
+
+def register_custom(mx):
+    """Register the ``Custom`` case's op (``scale · x²``, numpy on the
+    host, as MXNet's custom-op examples are written) in ``mx``."""
+    class ScaledSquare(mx.operator.CustomOp):
+        def __init__(self, scale):
+            self.scale = scale
+
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0].asnumpy()
+            self.assign(out_data[0], req[0], self.scale * x * x)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            x = in_data[0].asnumpy()
+            g = out_grad[0].asnumpy()
+            self.assign(in_grad[0], req[0], 2.0 * self.scale * x * g)
+
+    @mx.operator.register("op_cases_scaled_square")
+    class ScaledSquareProp(mx.operator.CustomOpProp):
+        def __init__(self, scale="1.0"):
+            super().__init__(need_top_grad=True)
+            self.scale = float(scale)
+
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            return ScaledSquare(self.scale)
+
+
 # the reference's ops.py names, each with its aliases (the first name of
 # each group is the key of CASES)
 GROUPS = [
@@ -362,6 +572,24 @@ GROUPS = [
     ["BatchNorm", "batch_norm"], ["LayerNorm", "layer_norm"],
     ["Dropout", "dropout"], ["ctc_loss", "CTCLoss"],
     ["add_n", "ElementWiseSum"],
+    ["gelu", "GELU"], ["softrelu", "softplus"],
+    ["SoftmaxActivation", "softmax_activation"], ["LRN", "lrn"],
+    ["GroupNorm", "groupnorm"], ["UpSampling", "upsampling"],
+    ["BilinearResize2D", "_contrib_BilinearResize2D", "bilinear_resize2d"],
+    ["Crop", "crop"],
+    ["DeformableConvolution", "_contrib_DeformableConvolution"],
+    ["SVMOutput", "svm_output"], ["linalg_det", "det"],
+    ["linalg_slogdet", "slogdet"], ["linalg_inverse", "inverse"],
+    ["index_add", "_contrib_index_add"],
+    ["random_uniform", "_random_uniform"],
+    ["random_normal", "_random_normal"], ["random_gamma", "_random_gamma"],
+    ["random_exponential", "_random_exponential"],
+    ["random_poisson", "_random_poisson"],
+    ["sample_multinomial", "_sample_multinomial"], ["shuffle", "_shuffle"],
+    ["adamw_update", "_adamw_update"], ["scatter_set_nd", "_scatter_set_nd"],
+    ["_contrib_quantize_v2", "quantize_v2"],
+    ["_contrib_dequantize", "dequantize"],
+    ["Convolution", "Convolution_v1"], ["Pooling", "Pooling_v1"],
 ]
 ALIASES = {a: g[0] for g in GROUPS for a in g[1:]}
 
@@ -419,6 +647,7 @@ class Side:
         with scope:
             out = fn(*args, **kw)
         outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        outs += [args[i] for i in case.mutates]
         grads = []
         if case.grad:
             head = np.random.default_rng(1).standard_normal(
