@@ -589,6 +589,53 @@ host's cost of a call.
    magnitude, whether two backward calls are bit-equal, forward ms and
    forward-plus-backward ms (input copies included).
 
+21. np_runtime (ROADMAP item 10.4(c)), in two parts. Its profiler part
+   (``np_runtime_profiler``) runs inside ``slice`` after
+   ``gluon_forward`` on the same 32-layer tree: ``GluonLlama`` eager on
+   (1, 2,048) under ``mx.profiler`` (``set_config`` under
+   ``build/np_profiler``, ``start``, ``stop``): the chrome trace must
+   hold as many flash forward kernel events as the launch counter
+   advanced (32), their summed device time beside 32 × the kernel
+   table's 0.0806 ms; ``dumps(format="json")``'s counts must equal the
+   dispatches counted by a wrapper of ``autograd.invoke``; a paused
+   region (after a ``resume``, which starts a new trace) must add
+   nothing; and the eager forward's host time with the aggregate's
+   hook off and on (medians of 3, alternating). The rest runs after
+   ``op_set`` with the launch counts set to 0 before and read after
+   (none of the port's kernels): (a) llama3_8b's FFN (2,048 tokens,
+   dim 4,096, hidden 14,336, bf16) written in ``mx.np`` calls only
+   (``matmul``, silu from ``exp`` and ``reciprocal``) against
+   ``llama._ffn`` within 2e-2 relative (bf16 roundings placed
+   differently, as ``frontend``), timed beside the same function
+   through ``mx.nd``; (b) one case a category on the card against the
+   port on the CPU through ``test_utils.check_consistency`` over
+   ``[mx.cpu(), mx.gpu()]`` at (4,096, 4,096) in f32 and f64: ``exp``,
+   ``arctan2``, ``sum``/``std``, ``nanmean``/``nanmax``/``nanstd``
+   with 1 % NaNs, ``sort``/``argsort``, ``unique`` (bit-equal, as are
+   the masks' read and write), ``cumsum``, ``fft.rfft2`` and
+   ``einsum`` within their bounds, and ``solve``, ``qr``, ``svd`` and
+   ``eigh`` at 1,024 (the CPU's LAPACK at 4,096 alone would take most
+   of the phase's minute) each held by its residual on both devices
+   and the singular values and eigenvalues card against CPU; (c)
+   ``mx.np.random`` after one seed: ``uniform`` and ``normal`` at the
+   FFN weight's (14,336, 4,096) (first 2^16 elements against the CPU's:
+   equal, normal within 2 ulps), ``shuffle`` of its rows (the
+   permutation equal), ``beta(2, 5)`` at 2^20 for moments and at 2^16
+   against the CPU (parting only at a gamma near-tie), ``choice`` of
+   128,256 at 32 × 4 with and without a softmax row ``p`` (float64),
+   with and without replacement, and ``multinomial(100, p)``, all equal;
+   moments within 6 standard errors; (d) is the profiler part; (e) the
+   NaN sanitizer on a hybridized bf16 ``Dense(14336, in_units=4096)``
+   and a row normalisation, replayed as a CUDA graph: a clean replay
+   passes, a zero row's 0/0 raises ``FloatingPointError`` naming
+   ``broadcast_div`` (the eager re-run), the flag off lets it through,
+   the flag's cost on a clean replay (medians of 10, off and on);
+   ``Features()`` has CUDA, CUDNN and NCCL; ``num_gpus()`` is the
+   device count; ``with mx.cpu():`` places ``mx.nd``, ``mx.np`` and
+   ``mx.np.random`` arrays on the CPU and outside it they land on
+   ``cuda:0``; ``mx.tpu()`` is the card; ``util.get_gpu_memory(0)``
+   equals ``torch.cuda.mem_get_info``.
+
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result when no
 CUDA card is visible or when the package is not beside the script.
@@ -1038,6 +1085,7 @@ def slice_phase():
         del dense
         gluon_launches = gluon_forward_phase(cfg, params, tokens, logits)
         del logits
+        profiler_launches = np_profiler_phase(cfg, params, tokens)
         torch.cuda.empty_cache()
 
         prompts = torch.randint(0, cfg.vocab_size, (4, 128), generator=gen,
@@ -1071,7 +1119,8 @@ def slice_phase():
                  paged_engine_phase(cfg, params, dense_streams),
                  spec_engine_phase(cfg, params),
                  gateway_phase(cfg, params),
-                 fleet_phase(cfg, params), gluon_launches]
+                 fleet_phase(cfg, params), gluon_launches,
+                 profiler_launches]
     return {k: launches[k] + sum(n[k] for n in serve)
             for k in LAUNCH_COUNTERS}
 
@@ -6928,6 +6977,497 @@ def op_set_phase():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# np_runtime: mx.np and mx.npx, mx.profiler, mx.engine, mx.runtime,
+# mx.util, mx.test_utils and mx.context (ROADMAP item 10.4(c))
+# ---------------------------------------------------------------------------
+NP_TABLE_SHAPE = (4096, 4096)  # (b) each category's array
+NP_LINALG_N = 1024             # (b) solve, qr, svd, eigh: the CPU's LAPACK
+NP_RANDOM_SHAPE = (14336, 4096)   # (c) llama3_8b's FFN weight
+NP_BETA_N = 2 ** 20
+NP_CHOICE_N = 128256           # (c) llama3's vocabulary
+NP_CHOICE_SIZE = (32, 4)
+NP_MULTINOMIAL_N = 100
+NP_LINALG_REL = {"float32": 1e-3, "float64": 1e-10}   # residuals, of ||A||
+NP_CUMSUM_ATOL = {"float32": 1e-2, "float64": 1e-9}
+NAN_OP = "broadcast_div"       # the op the sanitizer must name in (e)
+
+
+def np_profiler_phase(cfg, params, tokens):
+    """(d) of ``np_runtime``: ``GluonLlama`` eager over the slice's tree
+    under ``mx.profiler``: the chrome trace's flash forward kernel
+    events against the launch counter, their summed device time, the
+    aggregate's counts against the dispatches counted by a wrapper of
+    ``autograd.invoke``, a paused region that adds nothing, and the
+    eager forward's host time with and without the aggregate's hook."""
+    import torch
+    import mxtpu_torch as mx
+    from mxtpu_torch import autograd, profiler
+    from mxtpu_torch.gluon.model_zoo import GluonLlama
+    from mxtpu_torch.ndarray import ndarray as nd_mod
+    net = GluonLlama(cfg)
+    net.collect_params().setattr("grad_req", "null")
+    net.load_pytree(params)
+    tok = mx.nd.NDArray(tokens)
+    out_dir = os.path.join(build_dir(), "np_profiler")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    profiler.set_config(filename=os.path.join(out_dir, "llama.json"))
+    counted = {}
+    invoke = autograd.invoke
+
+    def counting(raw_fn, arrays, parents, name="", *a, **kw):
+        counted[name] = counted.get(name, 0) + 1
+        return invoke(raw_fn, arrays, parents, name, *a, **kw)
+    total = {k: 0 for k in LAUNCH_COUNTERS}
+
+    def add(launches):
+        for k in LAUNCH_COUNTERS:
+            total[k] += launches[k]
+    net(tok).wait_to_read()             # the aggregate sees a warm call
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reset_launches()
+    autograd.invoke = counting
+    try:
+        profiler.start()
+        net(tok).wait_to_read()
+        torch.cuda.synchronize()
+        profiler.stop()
+    finally:
+        autograd.invoke = invoke
+    traced = read_launches()
+    add(traced)
+    trace = profiler.last_trace()
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    flash = [e for e in events if e.get("cat") == "kernel"
+             and "flash_fwd_kernel" in e.get("name", "")]
+    agg = json.loads(profiler.dumps(format="json"))
+    agg_counts = {k: v["count"] for k, v in agg.items()}
+    # a paused region adds nothing to the aggregate (a new trace runs)
+    reset_launches()
+    profiler.resume()
+    profiler.pause()
+    net(tok).wait_to_read()
+    profiler.resume()
+    profiler.stop()
+    add(read_launches())
+    after_pause = {k: v["count"] for k, v in json.loads(
+        profiler.dumps(format="json", reset=True)).items()}
+    # the hook's cost: the eager forward's host time (the call's return,
+    # from an idle card), hook off / on alternately, medians of 3 each
+    host = {"off": [], "on": []}
+    reset_launches()
+    for _ in range(3):
+        for label, hook in (("off", None), ("on", profiler._hook)):
+            nd_mod._profile_hook = hook
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            y = net(tok)
+            host[label].append((time.perf_counter() - t1) * 1e3)
+            y.wait_to_read()
+    nd_mod._profile_hook = None
+    host = {k: {"median_ms": sorted(v)[1], "all_ms": v}
+            for k, v in host.items()}
+    profiler.dumps(reset=True)
+    add(read_launches())
+    dev_ms = sum(e.get("dur", 0.0) for e in flash) / 1e3
+    row = {"phase": "np_runtime_profiler", "card": nvidia_smi(),
+           "config": "llama3_8b", "n_layers": cfg.n_layers,
+           "tokens": list(tokens.shape), "trace": os.path.relpath(trace),
+           "trace_bytes": os.path.getsize(trace),
+           "kernel_events": sum(1 for e in events
+                                if e.get("cat") == "kernel"),
+           "flash_fwd_events": len(flash),
+           "flash_fwd_launches": traced["flash_attention_fwd"],
+           "flash_fwd_device_ms": dev_ms,
+           "flash_fwd_table_ms_x_layers": 0.0806 * cfg.n_layers,
+           "aggregate": agg_counts, "dispatches_counted": counted,
+           "aggregate_after_pause": after_pause,
+           "forward_host_ms": host,
+           "seconds": time.perf_counter() - t0, "launches": total}
+    emit(row)
+    n = cfg.n_layers
+    if traced != only(flash_attention_fwd=n) or len(flash) != n:
+        raise AssertionError(f"np_runtime profiler: {len(flash)} flash "
+                             f"forward events in the trace, launches "
+                             f"{traced}, not {n}")
+    if agg_counts != counted or not counted:
+        raise AssertionError(f"np_runtime profiler: aggregate {agg_counts}"
+                             f" is not the dispatches made, {counted}")
+    if after_pause != agg_counts:
+        raise AssertionError(f"np_runtime profiler: a paused region moved "
+                             f"the aggregate to {after_pause}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    del net
+    return total
+
+
+def _np_ffn(mx, x, wg, wu, wd):
+    """llama's SwiGLU FFN written in mx.np calls only."""
+    np_ = mx.np
+    g = np_.matmul(x, wg)
+    silu = g * np_.reciprocal(1 + np_.exp(-g))
+    return np_.matmul(silu * np_.matmul(x, wu), wd)
+
+
+def _nd_ffn(mx, x, wg, wu, wd):
+    g = mx.nd.dot(x, wg)
+    silu = g * (1 / (1 + mx.nd.exp(-g)))
+    return mx.nd.dot(silu * mx.nd.dot(x, wu), wd)
+
+
+def _np_ffn_part(mx):
+    """(a) llama3_8b's FFN through mx.np against llama._ffn, and the same
+    function through mx.nd, timed."""
+    import torch
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.tools.timing import host_ms, time_ms
+    cfg = llama.CONFIGS["llama3_8b"]
+    dim, hidden, n = cfg.dim, cfg.hidden_dim, FFN_TOKENS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+    xt, wgt = rand(n, dim), rand(dim, hidden, scale=dim ** -0.5)
+    wut, wdt = rand(dim, hidden, scale=dim ** -0.5), rand(
+        hidden, dim, scale=hidden ** -0.5)
+    npa = [mx.np.array(t) for t in (xt, wgt, wut, wdt)]
+    nda = [mx.nd.array(t, ctx=mx.gpu()) for t in (xt, wgt, wut, wdt)]
+    y = _np_ffn(mx, *npa)
+    ref = llama._ffn(cfg, {"w_gate": wgt, "w_up": wut, "w_down": wdt},
+                     xt)[0]
+    rel = rel_dist(y._data, ref)
+    ynd = _nd_ffn(mx, *nda)
+    times = {}
+    for name, f in (("np", lambda: _np_ffn(mx, *npa)),
+                    ("nd", lambda: _nd_ffn(mx, *nda)),
+                    ("np_again", lambda: _np_ffn(mx, *npa)),
+                    ("nd_again", lambda: _nd_ffn(mx, *nda))):
+        times[name] = {"ms": time_ms(f, 5), "host_ms": host_ms(f, 5)}
+    row = {"tokens": n, "dim": dim, "hidden": hidden,
+           "dtype": str(y.dtype), "class": type(y).__name__,
+           "finite": bool(torch.isfinite(y._data).all()),
+           "rel_vs_llama_ffn": rel, "bound": FFN_REL_BOUND,
+           "rel_nd_vs_np": rel_dist(ynd._data, y._data),
+           "flop": 6 * n * dim * hidden, "times": times}
+    ok = (row["finite"] and rel <= FFN_REL_BOUND
+          and isinstance(y, mx.np.ndarray) and y.dtype == torch.bfloat16
+          and tuple(y.shape) == (n, dim))
+    return row, ok
+
+
+def _np_table_part(mx):
+    """(b) one case per category on the card against the port on the
+    CPU (``test_utils.check_consistency`` over [cpu, gpu]); exact results
+    bit-equal, linalg by its invariants on each device."""
+    import torch
+    tu = mx.test_utils
+    rs = np.random.default_rng(SEED + 23)
+    rows, bad = {}, []
+    for dt in ("float32", "float64"):
+        x = rs.standard_normal(NP_TABLE_SHAPE).astype(dt)
+        y = rs.standard_normal(NP_TABLE_SHAPE).astype(dt)
+        xn = x.copy()
+        xn[rs.random(NP_TABLE_SHAPE) < 0.01] = np.nan
+
+        def arr(v, ctx, dt=dt):
+            return mx.np.array(v, dtype=v.dtype.name, ctx=ctx)
+        exact = dict(rtol=0, atol=0)
+        cases = {
+            "unary_exp": (lambda a: mx.np.exp(a), [x], {}),
+            "binary_arctan2": (lambda a, b: mx.np.arctan2(a, b), [x, y], {}),
+            "reduce_sum_std": (lambda a: (mx.np.sum(a, axis=1),
+                                          mx.np.std(a, axis=0)), [x], {}),
+            "reduce_nan": (lambda a: (mx.np.nanmean(a, axis=1),
+                                      mx.np.nanmax(a, axis=0),
+                                      mx.np.nanstd(a)), [xn], {}),
+            "sort": (lambda a: (mx.np.sort(a, axis=1),
+                                mx.np.argsort(a, axis=0)), [x], exact),
+            "unique": (lambda a: mx.np.unique(mx.np.round(a * 8),
+                                              return_counts=True,
+                                              return_index=True), [x],
+                       exact),
+            "cumsum": (lambda a: mx.np.cumsum(a, axis=1), [x],
+                       dict(rtol=1e-3, atol=NP_CUMSUM_ATOL[dt])),
+            "fft_rfft2": (lambda a: mx.np.fft.rfft2(a), [x],
+                          dict(rtol=1e-3, atol=1e-2 if dt == "float32"
+                               else 1e-8)),
+            "einsum": (lambda a, b: mx.np.einsum("ij,jk->ik", a, b), [x, y],
+                       dict(rtol=1e-3, atol=1e-2 if dt == "float32"
+                            else 1e-9)),
+            "mask_read": (lambda a: a[a > 0.5], [x], exact),
+            "mask_write": (lambda a: _mask_write(mx, a), [x], exact),
+        }
+        for name, (f, ins, kw) in cases.items():
+            t0 = time.perf_counter()
+            try:
+                tu.check_consistency(f, ins, ctx_list=[mx.cpu(), mx.gpu()],
+                                     array_fn=arr, **kw)
+                ok = True
+            except AssertionError as e:
+                ok, kw = False, {**kw, "error": str(e)[:300]}
+            rows[f"{name}_{dt}"] = {"ok": ok, "seconds":
+                                    time.perf_counter() - t0,
+                                    **{k: v for k, v in kw.items()}}
+            if not ok:
+                bad.append(f"{name}_{dt}")
+        lin = _np_linalg_invariants(mx, rs, dt)
+        rows[f"linalg_{dt}"] = lin
+        if not lin["ok"]:
+            bad.append(f"linalg_{dt}")
+        torch.cuda.empty_cache()
+    return rows, not bad
+
+
+def _mask_write(mx, a):
+    b = a.copy()
+    b[b < -0.5] = 0.0
+    return b
+
+
+def _np_linalg_invariants(mx, rs, dt):
+    """solve, qr, svd and eigh on each device, each held by its
+    residual (of ||A||), and the singular values and eigenvalues card
+    against CPU."""
+    n = NP_LINALG_N
+    a = rs.standard_normal((n, n)).astype(dt) + n ** 0.5 * np.eye(n,
+                                                                  dtype=dt)
+    b = rs.standard_normal((n, 8)).astype(dt)
+    s = a @ a.T
+    res, vals = {}, {}
+    for key, ctx in (("cpu", mx.cpu()), ("gpu", mx.gpu())):
+        A, B, S = (mx.np.array(v, dtype=dt, ctx=ctx) for v in (a, b, s))
+        t0 = time.perf_counter()
+        norm = float(mx.np.linalg.norm(A))
+        snorm = float(mx.np.linalg.norm(S))
+        xs = mx.np.linalg.solve(A, B)
+        q, r = mx.np.linalg.qr(A)
+        u, sv, vh = mx.np.linalg.svd(A, full_matrices=False)
+        w, v = mx.np.linalg.eigh(S)
+        res[key] = {
+            "solve": float(mx.np.linalg.norm(A @ xs - B)) / norm,
+            "qr": float(mx.np.linalg.norm(q @ r - A)) / norm,
+            "svd": float(mx.np.linalg.norm((u * sv) @ vh - A)) / norm,
+            "eigh": float(mx.np.linalg.norm(S @ v - v * w)) / snorm,
+            "seconds": time.perf_counter() - t0}
+        vals[key] = (sv.asnumpy().astype(np.float64),
+                     w.asnumpy().astype(np.float64))
+    bound = NP_LINALG_REL[dt]
+    sv_rel = float(np.abs(vals["gpu"][0] - vals["cpu"][0]).max()
+                   / vals["cpu"][0].max())
+    w_rel = float(np.abs(vals["gpu"][1] - vals["cpu"][1]).max()
+                  / np.abs(vals["cpu"][1]).max())
+    ok = all(v <= bound for d in res.values()
+             for k, v in d.items() if k != "seconds") and \
+        sv_rel <= bound and w_rel <= bound
+    return {"n": n, "residuals": res, "svals_rel": sv_rel,
+            "eigvals_rel": w_rel, "bound": bound, "ok": ok}
+
+
+def _np_random_part(mx):
+    """(c) mx.np.random at the FFN weight's shape: the card's draws
+    against the CPU's after the same seed (the first RANDOM_CHECK
+    elements of uniform and normal, the row permutation, beta at
+    RANDOM_CHECK, choice, multinomial), and moments."""
+    import scipy.stats
+    import torch
+    from mxtpu_torch import prng
+    r = mx.np.random
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    p = torch.softmax(torch.randn(NP_CHOICE_N, generator=gen,
+                                  device="cuda", dtype=torch.float64) * 2, 0)
+    rows_h = np.arange(NP_RANDOM_SHAPE[0], dtype=np.float32)[:, None]
+
+    def draws(ctx, big, beta_n, width):
+        pv = mx.np.array(p, ctx=ctx)
+        rows = mx.np.array(np.broadcast_to(rows_h, (len(rows_h), width)),
+                           ctx=ctx)
+        with ctx:
+            out = {"uniform": r.uniform(size=big),
+                   "normal": r.normal(size=big)}
+            r.shuffle(rows)
+            out["shuffle"] = rows[:, 0]
+            out["beta"] = r.beta(2.0, 5.0, size=beta_n)
+            out["beta_check"] = r.beta(2.0, 5.0, size=RANDOM_CHECK)
+            for rep in (True, False):
+                tag = "replace" if rep else "no_replace"
+                out[f"choice_{tag}"] = r.choice(NP_CHOICE_N,
+                                                NP_CHOICE_SIZE, rep)
+                out[f"choice_p_{tag}"] = r.choice(NP_CHOICE_N,
+                                                  NP_CHOICE_SIZE, rep, pv)
+            out["multinomial"] = r.multinomial(NP_MULTINOMIAL_N, pv)
+        return out
+    order = ["uniform", "normal", "shuffle", "beta", "beta_check",
+             "choice_replace", "choice_p_replace", "choice_no_replace",
+             "choice_p_no_replace", "multinomial"]
+    t0 = time.perf_counter()
+    r.seed(SEED)
+    card = draws(mx.gpu(), NP_RANDOM_SHAPE, NP_BETA_N, NP_RANDOM_SHAPE[1])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    r.seed(SEED)
+    cpu = draws(mx.cpu(), (RANDOM_CHECK // NP_RANDOM_SHAPE[1] or 1,
+                           NP_RANDOM_SHAPE[1]), RANDOM_CHECK, 1)
+    vs = {}
+    for name in ("uniform", "normal"):
+        got = card[name]._data.reshape(-1)[:RANDOM_CHECK].cpu()
+        want = cpu[name]._data.reshape(-1)[:RANDOM_CHECK]
+        u = _f32_ulps(got, want)
+        vs[name] = {"max_ulps": u.max().item(),
+                    "ok": u.max().item() <= (2 if name == "normal" else 0)}
+    vs["shuffle"] = {"ok": bool(torch.equal(card["shuffle"]._data.cpu(),
+                                            cpu["shuffle"]._data))}
+    # beta: parts only where one of its gammas parts at a near-tie
+    key = _np_chain_key(prng, order, "beta_check")
+    k1, k2 = prng.split(key)
+    _, m1 = prng.gamma(k1, 2.0, (RANDOM_CHECK,), margins=True)
+    _, m2 = prng.gamma(k2, 5.0, (RANDOM_CHECK,), margins=True)
+    got, want = card["beta_check"]._data.cpu(), cpu["beta_check"]._data
+    far = _f32_ulps(got, want) > 1
+    near = torch.minimum(m1, m2)[far]
+    vs["beta"] = {"parted": int(far.sum()), "margins": near.tolist()[:8],
+                  "ok": bool((near <= NEAR_TIE_ULPS).all())}
+    for name in order[5:]:
+        vs[name] = {"ok": bool(torch.equal(card[name]._data.cpu(),
+                                           cpu[name]._data))}
+    pc = p.double()
+    idx = torch.arange(NP_CHOICE_N, device=pc.device, dtype=torch.float64)
+    e = (pc * idx).sum().item()
+    var = (pc * (idx - e) ** 2).sum().item()
+    mu4 = (pc * (idx - e) ** 4).sum().item()
+    bm, bv, _, bk = scipy.stats.beta(2.0, 5.0).stats(moments="mvsk")
+    stats = {
+        "uniform": _moments_ok(card["uniform"]._data, 0.5, 1 / 12, 1 / 80),
+        "normal": _moments_ok(card["normal"]._data, 0.0, 1.0, 3.0),
+        "beta": _moments_ok(card["beta"]._data, float(bm), float(bv),
+                            (float(bk) + 3) * float(bv) ** 2),
+        "choice_p_replace": _moments_ok(card["choice_p_replace"]._data,
+                                        e, var, mu4),
+        "multinomial_total": {"ok": int(card["multinomial"]._data.sum())
+                              == NP_MULTINOMIAL_N}}
+    ok = all(v["ok"] for v in vs.values()) and \
+        all(v["ok"] for v in stats.values())
+    return {"shape": list(NP_RANDOM_SHAPE), "beta_n": NP_BETA_N,
+            "choice": [NP_CHOICE_N, list(NP_CHOICE_SIZE)],
+            "card_seconds": card_s, "vs_cpu": vs, "stats": stats}, ok
+
+
+def _np_chain_key(prng, order, name):
+    key = prng.PRNGKey(SEED, "cpu")
+    for n in order:
+        key, sub = prng.split(key)
+        if n == name:
+            return sub
+    raise KeyError(name)
+
+
+def _np_engine_part(mx):
+    """(e) the NaN sanitizer on a hybridized bf16 Dense(14336,
+    in_units=4096) + row normalisation (a captured CUDA graph in predict
+    mode): a clean replay passes, a zero row's 0/0 raises naming the
+    op, the flag off lets it through; the flag's cost on a clean replay;
+    Features, num_gpus, the with-scope and get_gpu_memory."""
+    import torch
+    from mxtpu_torch import engine, runtime, util
+    from mxtpu_torch.gluon import nn
+
+    class Normalize(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            return F.broadcast_div(x, F.norm(x, axis=1, keepdims=True))
+    net = nn.HybridSequential()
+    net.add(nn.Dense(14336, in_units=4096, use_bias=False,
+                     dtype="bfloat16"), Normalize())
+    mx.random.seed(SEED)
+    net.initialize(ctx=mx.gpu())
+    net.hybridize()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    xt = torch.randn(FFN_TOKENS, 4096, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    x = mx.nd.NDArray(xt)
+    zt = xt.clone()
+    zt[7] = 0
+    z = mx.nd.NDArray(zt)
+    net(x).wait_to_read()
+    net(x).wait_to_read()
+
+    def replay_ms(flag, reps=10):
+        secs = []
+        with engine.debug_nans(flag):
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                net(x).wait_to_read()
+                secs.append((time.perf_counter() - t0) * 1e3)
+        return sorted(secs)[reps // 2]
+    cost = {"off_ms": replay_ms(False), "on_ms": replay_ms(True),
+            "off_again_ms": replay_ms(False), "on_again_ms": replay_ms(True)}
+    with engine.debug_nans(True):
+        clean = bool(torch.isfinite(net(x)._data).all())
+        try:
+            net(z).wait_to_read()
+            named = None
+        except FloatingPointError as e:
+            named = str(e)
+    through = net(z)._data
+    let_through = bool(torch.isnan(through[7]).all()) and \
+        bool(torch.isfinite(through[:7]).all())
+    feats = runtime.Features()
+    with mx.cpu():
+        scoped = [mx.nd.array([1.0]).context, mx.np.zeros((2,)).context,
+                  mx.np.random.uniform(size=(2,)).context]
+    outside = [mx.nd.array([1.0]).context, mx.np.zeros((2,)).context]
+    mem, info = util.get_gpu_memory(0), tuple(torch.cuda.mem_get_info(0))
+    row = {"captures": net.captures, "clean_replay": clean,
+           "nan_error": named, "flag_off_lets_nan_through": let_through,
+           "flag_cost": cost,
+           "features": {k: feats.is_enabled(k)
+                        for k in ("CUDA", "CUDNN", "NCCL", "TPU",
+                                  "IMAGE_CODEC", "DIST_KVSTORE")},
+           "num_gpus": mx.num_gpus(),
+           "scoped": [str(d) for d in scoped],
+           "outside": [str(d) for d in outside],
+           "tpu_is_card": mx.tpu() == torch.device("cuda", 0),
+           "gpu_memory": list(mem), "mem_get_info": list(info)}
+    ok = (net.captures == 1 and clean and named is not None
+          and NAN_OP in named and let_through
+          and all(row["features"][k] for k in ("CUDA", "CUDNN", "NCCL"))
+          and row["num_gpus"] == torch.cuda.device_count()
+          and all(d == torch.device("cpu") for d in scoped)
+          and all(d == torch.device("cuda", 0) for d in outside)
+          and row["tpu_is_card"] and mem == info)
+    del net
+    return row, ok
+
+
+def np_runtime_phase():
+    """21 in the docstring: mx.np/mx.npx, mx.np.random, mx.engine,
+    mx.runtime, mx.util, mx.test_utils and mx.context on the card."""
+    import torch
+    import mxtpu_torch as mx
+    reset_launches()
+    t0 = time.perf_counter()
+    parts, oks = {}, {}
+    for key, part in (("ffn", _np_ffn_part), ("table", _np_table_part),
+                      ("random", _np_random_part),
+                      ("engine", _np_engine_part)):
+        t1 = time.perf_counter()
+        parts[key], oks[key] = part(mx)
+        parts[key + "_seconds"] = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    launches = read_launches()
+    emit({"phase": "np_runtime", "card": nvidia_smi(), **parts, "ok": oks,
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    bad = [k for k, v in oks.items() if not v]
+    if bad:
+        raise AssertionError(f"np_runtime: {bad} failed their checks")
+    if launches != only():
+        raise AssertionError(f"np_runtime launched {launches}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6988,6 +7528,8 @@ def main():
     image_launches = image_record_phase()
     torch.cuda.empty_cache()
     op_set_launches = op_set_phase()
+    torch.cuda.empty_cache()
+    np_launches = np_runtime_phase()
     telemetry_phase()
     launches = {k: fwd_launches[k] + train_launches[k]
                 + flywheel_launches[k] + resnet_launches[k]
@@ -6995,7 +7537,7 @@ def main():
                 + random_launches[k] + serde_launches[k]
                 + mixtral_launches[k] + bert_launches[k]
                 + gluon_launches[k] + symbol_launches[k]
-                + image_launches[k] + op_set_launches[k]
+                + image_launches[k] + op_set_launches[k] + np_launches[k]
                 for k in LAUNCH_COUNTERS}
 
     main_row, bwd = rows["llama3_8b"], bwd_rows["llama3_8b"]

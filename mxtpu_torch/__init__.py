@@ -8,7 +8,9 @@ module names (``context``, ``ndarray``, ``autograd``, ``rtc``,
 ``lr_scheduler``, ``model``, ``amp``, ``parallel.mesh``, ``symbol``,
 ``module``, ``io``, ``metric``, ``callback``, ``monitor``,
 ``visualization``, ``recordio``, ``native``, ``image``, ``operator``,
-``ndarray.sparse``, ``contrib.quantization``) so a reader
+``ndarray.sparse``, ``contrib.quantization``, ``numpy`` (``mx.np``),
+``numpy_extension`` (``mx.npx``), ``profiler``, ``engine``,
+``runtime``, ``util``, ``test_utils``) so a reader
 finds each counterpart, and serves them under the reference's names
 (``mxtpu_torch.serve``, ``mxtpu_torch.rnn``, ...); ``prng`` is the
 key chain of ``jax.random`` (its float32
@@ -27,15 +29,21 @@ nothing of ``mxtpu`` (whose ``__init__`` imports jax). Entry points run
 on the card unless the caller passes ``device="cpu"`` (``ctx="cpu"``
 in ``mx.nd``).
 """
-from . import autograd, context, ndarray, rtc
+from . import autograd, context, engine, ndarray, rtc
 from .base import MXNetError
-from .context import cpu, gpu, default_device
-from .ndarray import random
+from .context import (Context, cpu, gpu, tpu, current_context, num_gpus,
+                      num_tpus, default_device)
+from .ndarray import NDArray, random
 
 nd = ndarray
 
-__all__ = ["autograd", "context", "ndarray", "nd", "random", "rtc",
-           "MXNetError", "cpu", "gpu", "default_device"]
+__all__ = ["autograd", "context", "engine", "ndarray", "nd", "NDArray",
+           "random", "rtc", "MXNetError", "Context", "cpu", "gpu", "tpu",
+           "current_context", "num_gpus", "num_tpus", "default_device"]
+
+# the NaN sanitizer, on at import as the reference's is
+if engine.env_debug_nans():
+    engine.set_debug_nans(True)
 
 # heavier subsystems load on first use, as the reference's do
 _LAZY = {"gluon": "mxtpu_torch.gluon", "optimizer": "mxtpu_torch.optimizer",
@@ -58,15 +66,17 @@ _LAZY = {"gluon": "mxtpu_torch.gluon", "optimizer": "mxtpu_torch.optimizer",
          "telemetry": "mxtpu_torch.telemetry",
          "image": "mxtpu_torch.image", "recordio": "mxtpu_torch.recordio",
          "native": "mxtpu_torch.native",
-         "operator": "mxtpu_torch.operator"}
+         "operator": "mxtpu_torch.operator",
+         "np": "mxtpu_torch.numpy", "numpy": "mxtpu_torch.numpy",
+         "npx": "mxtpu_torch.numpy_extension",
+         "numpy_extension": "mxtpu_torch.numpy_extension",
+         "profiler": "mxtpu_torch.profiler", "util": "mxtpu_torch.util",
+         "test_utils": "mxtpu_torch.test_utils",
+         "runtime": "mxtpu_torch.runtime"}
 
 # the reference's other lazy names, each with the ROADMAP item that
 # brings it
-_LATER = {"kvstore": "item 11", "kv": "item 11",
-          "np": "item 10.4(c)", "npx": "item 10.4(c)",
-          "profiler": "item 10.4(c)", "util": "item 10.4(c)",
-          "test_utils": "item 10.4(c)", "engine": "item 10.4(c)",
-          "runtime": "item 10.4(c)"}
+_LATER = {"kvstore": "item 11", "kv": "item 11"}
 
 
 def __getattr__(name):

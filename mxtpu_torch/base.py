@@ -42,7 +42,16 @@ DTYPES: Dict[str, torch.dtype] = {
     "int32": torch.int32,
     "int64": torch.int64,
     "bool": torch.bool,
+    "uint16": torch.uint16,
+    "uint32": torch.uint32,
+    "uint64": torch.uint64,
+    "complex64": torch.complex64,
+    "complex128": torch.complex128,
 }
+for _f8 in ("float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz",
+            "float8_e5m2fnuz", "float8_e8m0fnu"):
+    if hasattr(torch, _f8):
+        DTYPES[_f8] = getattr(torch, _f8)
 _NAMES = {v: k for k, v in DTYPES.items()}
 
 
@@ -53,6 +62,8 @@ def dtype_torch(dtype: Any) -> torch.dtype:
         return torch.float32
     if isinstance(dtype, torch.dtype):
         return dtype
+    if isinstance(getattr(dtype, "torch_dtype", None), torch.dtype):
+        return dtype.torch_dtype        # mx.np's scalar types
     name = dtype if isinstance(dtype, str) else _np.dtype(dtype).name
     if name not in DTYPES:
         raise TypeError(f"unsupported dtype {dtype!r} (have: "

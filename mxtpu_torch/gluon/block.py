@@ -55,6 +55,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from .. import autograd
+from .. import engine as _engine
 from .. import ndarray as nd
 from ..base import MXNetError
 from ..cuda_graphs import capture_graph, graphs_on
@@ -471,6 +472,9 @@ class HybridBlock(Block):
             outs, aux = self._replay(raw, cache_key, datas, len(flat_in),
                                      params)
             node = None
+            if _engine.is_debug_nans():
+                _engine.check_program(f"CachedOp[{self.name}]", outs,
+                                      lambda: raw(*datas))
         else:
             parent_arrays = list(flat_in) + [p.data() for p in params] + \
                 [None]

@@ -47,6 +47,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from .. import autograd
+from .. import engine as _engine
 from .. import optimizer as opt_mod
 from .. import prng
 from ..amp.loss_scaler import MAX_LOSS_SCALE
@@ -635,6 +636,11 @@ def make_fused_step(trainer, net, loss_fn: Optional[Callable] = None,
         if dynamic_amp:
             scaler._loss_scale = S.amp["scale"]
             scaler._unskipped = S.amp["unskipped"]
+        if _engine.is_debug_nans():
+            _engine.check_program(
+                "fused_step", loss, None,
+                "its parameters and optimizer state are already updated, "
+                "so an eager re-run would step again")
         return NDArray(loss.clone())
 
     def state_dict():

@@ -20,13 +20,17 @@ Where the port differs from the reference, deliberately:
 - ``asnumpy()`` of a bfloat16 array returns float32, an exact widening.
 - ``load`` takes ``ctx``, None being the card; like the reference's,
   it makes float entries float32.
-- The profiler hook waits for its slice and raises
-  ``NotImplementedError``.
+
+``mxtpu_torch.profiler`` times every dispatch while its hook is set, and
+``mxtpu_torch.engine``'s NaN sanitizer checks every op's output while it
+is on; with neither, ``apply_op`` reads two module globals and nothing
+else.
 """
 from __future__ import annotations
 
 import operator
 import os
+from time import perf_counter as _perf_counter
 from typing import Any, Callable, List, Sequence, Tuple, Union
 
 import numpy as _np
@@ -41,18 +45,16 @@ __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
 
 _NAIVE = os.environ.get("MXNET_ENGINE_TYPE", "ThreadedEngine") == "NaiveEngine"
 
-PROFILER_SLICE = ("the per-op profiler hook comes with the profiler, "
-                  "ROADMAP Queue A item 10.4(c)")
-
 def _sync(data: torch.Tensor) -> None:
     """Wait for the work queued on ``data``'s stream (WaitToRead)."""
     if data.is_cuda:
         torch.cuda.current_stream(data.device).synchronize()
 
 
-# set by a profiler: fn(op_name, dispatch_secs); none exists yet, so a
-# hook that is set raises (PROFILER_SLICE)
+# set by mxtpu_torch.profiler while it aggregates: fn(op_name, secs)
 _profile_hook = None
+# set by mxtpu_torch.engine while the NaN sanitizer is on: fn(op_name, out)
+_nan_check = None
 
 
 def _parents_of(arrays) -> List[Any]:
@@ -75,20 +77,27 @@ def apply_op(raw_fn: Callable, arrays: Sequence["NDArray"], name: str = "",
              n_out: int = 1):
     """Execute an op on NDArrays through the autograd-aware path.
 
-    ``raw_fn`` takes/returns tensors (a tuple when n_out > 1). This is
+    ``raw_fn`` takes/returns tensors (a tuple when n_out > 1; with
+    ``n_out=None``, a tuple gives a tuple of results). This is
     the single funnel every imperative op goes through — the analogue of
     Imperative::Invoke → Engine::PushAsync.
     """
-    if _profile_hook is not None:
-        raise NotImplementedError(PROFILER_SLICE)
     parents = _parents_of(arrays)
     datas = [a._data if isinstance(a, NDArray) else a for a in arrays]
-    out, node = autograd.invoke(raw_fn, datas, parents, name)
+    if _profile_hook is None:
+        out, node = autograd.invoke(raw_fn, datas, parents, name)
+    else:
+        t0 = _perf_counter()
+        out, node = autograd.invoke(raw_fn, datas, parents, name)
+        _profile_hook(name, _perf_counter() - t0)
+    if _nan_check is not None:
+        _nan_check(name, out)
     # results take the class of the first dense array input
     cls = next((type(a) for a in arrays
                 if isinstance(a, NDArray) and a.stype == "default"),
                NDArray)
-    outs = (out,) if n_out == 1 else tuple(out)
+    multi = isinstance(out, tuple) if n_out is None else n_out != 1
+    outs = tuple(out) if multi else (out,)
     results = []
     for i, o in enumerate(outs):
         r = cls(o)
@@ -97,7 +106,7 @@ def apply_op(raw_fn: Callable, arrays: Sequence["NDArray"], name: str = "",
         if _NAIVE:
             _sync(r._data)
         results.append(r)
-    return results[0] if n_out == 1 else tuple(results)
+    return tuple(results) if multi else results[0]
 
 
 def _operand(other, like: torch.Tensor):
@@ -262,11 +271,12 @@ class NDArray:
     wait_to_write = wait_to_read
 
     def asnumpy(self) -> _np.ndarray:
-        """A host copy as numpy; bfloat16 comes back as float32 (numpy
-        has no bfloat16; the widening is exact)."""
+        """A host copy as numpy; bfloat16 and the float8 types come back
+        as float32 (numpy has none of them; the widening is exact)."""
         t = self._data.detach()
-        if t.dtype == torch.bfloat16:
-            t = t.float()
+        if t.is_floating_point() and (t.dtype == torch.bfloat16
+                                      or t.element_size() == 1):
+            t = t.float()           # bfloat16 and float8: exact widening
         if t.is_cuda:
             # wait for the stream here, not inside the copy: a thread
             # blocked in a device-to-host copy stalls every other

@@ -48,6 +48,7 @@ from .context import DeviceLike, resolve_device
 __all__ = ["PRNGKey", "threefry_2x32", "split", "fold_in", "random_bits",
            "uniform", "normal", "exponential", "randint", "permutation",
            "gumbel", "categorical", "bernoulli", "gamma", "poisson",
+           "choice",
            "key_from_numpy", "key_to_numpy"]
 
 MASK = 0xFFFFFFFF
@@ -424,6 +425,60 @@ def _shuffle(key: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         order = torch.sort(random_bits(sub, 32, x.shape), stable=True)[1]
         x = x[order]
     return x
+
+
+def choice(key: torch.Tensor, a, shape: Shape = (), replace: bool = True,
+           p: Optional[torch.Tensor] = None, axis: int = 0) -> torch.Tensor:
+    """``jax.random.choice``: ``shape`` draws from ``a`` (an int n for
+    ``arange(n)``, or a tensor, drawn along ``axis``), by jax's four
+    branches: with replacement and no ``p``, ``randint`` indices (int64,
+    as in jax's 64-bit mode); with ``p``, a search of ``cumsum(p)`` for
+    ``cumsum(p)[-1] * (1 - uniform)`` in p's dtype; without replacement
+    and no ``p``, the first draws of ``permutation``; without
+    replacement and with ``p``, the top ``shape`` of ``gumbel + log p``
+    (lower index first on ties, as ``lax.top_k``)."""
+    key = _check_key(key)
+    if key.ndim != 1:
+        raise TypeError(f"choice takes one key, got {_describe(key)}")
+    shape = _shape(shape)
+    arr = torch.arange(a, device=key.device) if isinstance(a, int) else a
+    axis = axis % max(arr.ndim, 1)
+    n_inputs = arr.shape[axis]
+    n_draws = math.prod(shape)
+    if n_draws == 0:
+        return torch.zeros(shape, dtype=arr.dtype, device=arr.device)
+    if n_inputs <= 0:
+        raise ValueError("a must be greater than 0 unless no samples are "
+                         "taken")
+    if not replace and n_draws > n_inputs:
+        raise ValueError(f"Cannot take a larger sample (size {n_draws}) "
+                         f"than population (size {n_inputs}) when "
+                         "'replace=False'")
+    if p is None:
+        if replace:
+            ind = randint(key, shape, 0, n_inputs, torch.int64)
+            result = torch.index_select(arr, axis, ind.reshape(-1))
+        else:
+            perm = permutation(key, arr, axis)
+            return perm.narrow(axis, 0, n_draws).reshape(
+                arr.shape[:axis] + shape + arr.shape[axis + 1:])
+    else:
+        if not p.is_floating_point():
+            p = p.to(torch.float32)
+        if tuple(p.shape) != (n_inputs,):
+            raise ValueError(f"p must be None or a 1D vector with the same "
+                             f"size as a.shape[axis]. p has shape "
+                             f"{tuple(p.shape)} and a.shape[axis] is "
+                             f"{n_inputs}.")
+        if replace:
+            cum = torch.cumsum(p, 0)
+            r = cum[-1] * (1 - uniform(key, shape, p.dtype))
+            ind = torch.searchsorted(cum, r.reshape(-1).contiguous())
+        else:
+            g = gumbel(key, (n_inputs,), p.dtype) + xla_math.log(p)
+            ind = torch.sort(g, descending=True, stable=True)[1][:n_draws]
+        result = torch.index_select(arr, axis, ind.reshape(-1))
+    return result.reshape(arr.shape[:axis] + shape + arr.shape[axis + 1:])
 
 
 def _f64_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -41,6 +41,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from .. import autograd
+from .. import engine as _engine
 from ..base import MXNetError, dtype_name, dtype_torch
 from ..context import resolve_device
 from ..cuda_graphs import capture_graph, graphs_on
@@ -973,6 +974,14 @@ class Executor:
         self._tape = None
         if not is_train and graphs_on(self._ctx):
             outs, aux_up = self._replay(key), {}
+            if _engine.is_debug_nans():
+                values = self._values()
+
+                def rerun():
+                    with torch.no_grad():
+                        self._run(values, key, False)
+                _engine.check_program(f"executor[{self._symbol.name}]",
+                                      outs, rerun)
         elif is_train and self._diff_names():
             outs, aux_up, self._tape = self._run_for_grad(key, True)
             outs = [o.detach() for o in outs]

@@ -115,8 +115,8 @@ def test_contrib_names():
 def test_item_10_4b_names_resolve():
     """``mx.operator``, ``mx.nd.sparse``, ``mx.nd.Custom`` and
     ``mx.contrib.quantization`` resolve to the port's modules, and the
-    names still to come say which item brings them: 10.4(c), 10.4(d)
-    or 11, and never 10.4(b)."""
+    names still to come say which item brings them: 10.4(d) or 11,
+    never 10.4(b) or 10.4(c)."""
     assert tmx.operator.__name__ == "mxtpu_torch.operator"
     assert tmx.nd.sparse.__name__ == "mxtpu_torch.ndarray.sparse"
     assert tmx.nd.Custom is tmx.operator.Custom
@@ -128,10 +128,28 @@ def test_item_10_4b_names_resolve():
             getattr(tmx, name)
         except AttributeError as e:
             msg = str(e)
-            assert "10.4(b)" not in msg, name
+            assert "10.4(b)" not in msg and "10.4(c)" not in msg, name
             if "ROADMAP" in msg:
-                assert any(i in msg for i in ("item 10.4(c)", "item 10.4(d)",
-                                              "item 11")), (name, msg)
+                assert any(i in msg for i in ("item 10.4(d)", "item 11")), \
+                    (name, msg)
+
+
+def test_item_10_4c_names_resolve():
+    """``np``, ``npx``, ``profiler``, ``util``, ``test_utils``, ``engine``
+    and ``runtime`` resolve under the reference's top-level names to the
+    port's modules of the reference's module names; only the kvstore
+    waits."""
+    for name in ("np", "npx", "profiler", "util", "test_utils", "engine",
+                 "runtime"):
+        mod = getattr(tmx, name)
+        assert inspect.ismodule(mod), name
+        assert mod.__name__.split(".")[1:] == \
+            getattr(jmx, name).__name__.split(".")[1:], name
+    assert set(tmx._LATER) == {"kvstore", "kv"}
+    for name in ("Context", "tpu", "current_context", "num_gpus",
+                 "num_tpus", "NDArray"):
+        assert callable(getattr(tmx, name)) and hasattr(jmx, name), name
+    assert tmx.np.random.__name__ == "mxtpu_torch.numpy.random"
 
 
 @pytest.mark.parametrize("target", ["bfloat16", "float16"])

@@ -500,9 +500,19 @@ def test_every_reference_op_names_its_slice():
 
 
 def test_profiler_hook_raises(monkeypatch):
+    """The profiler's hook sees every dispatch with its op name and
+    host seconds, and an error it raises reaches the caller."""
     from mxtpu_torch.ndarray import ndarray as tnd
-    monkeypatch.setattr(tnd, "_profile_hook", lambda name, secs: None)
-    with pytest.raises(NotImplementedError, match="profiler"):
+    seen = []
+    monkeypatch.setattr(tnd, "_profile_hook",
+                        lambda name, secs: seen.append((name, secs)))
+    PORT.arr(A) + 1.0
+    assert [n for n, _ in seen] == ["add"] and seen[0][1] >= 0.0
+
+    def refuse(name, secs):
+        raise RuntimeError(f"hook refused {name}")
+    monkeypatch.setattr(tnd, "_profile_hook", refuse)
+    with pytest.raises(RuntimeError, match="hook refused add"):
         PORT.arr(A) + 1.0
 
 
