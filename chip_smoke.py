@@ -31,7 +31,9 @@ host's cost of a call.
    ``atol=rtol=1e-3`` (both f32). Times: the kernel,
    ``scaled_dot_product_attention`` as a yardstick only (the port never
    calls it), and the plain version; the bound is computed from the
-   shapes, and TFLOP/s from the visible pairs.
+   shapes, and TFLOP/s from the visible pairs; ``host_ms``, the host's
+   cost of one ``flash_attention`` call (its checks and the
+   ``mxtpu_torch::flash_attn_fwd`` operator's dispatch and launch).
 3. kernel_bwd: the dK/dV and dQ backward kernels against their plain
    version (``flash_attention_bwd_plain`` in f32 on the same bf16 q, k,
    v, o, dO and the kernel's lse) at the same shapes, within
@@ -357,9 +359,10 @@ host's cost of a call.
    save and the load; launch counts from 0 (none).
 14. mixtral: ``CONFIGS["mixtral_8x7b"]`` at full width (dim 4096, hidden
    14336, 8 experts, top-2, hq 32, hkv 8, vocab 32,000, rope theta 1e6)
-   and 8 of its 32 layers in bf16 (11.9 B parameters, 23.7 GB), with
+   and 4 of its 32 layers in bf16 (6.07 B parameters, 12.1 GB; 8
+   layers until the script passed 870 s with the ``contrib`` phase), with
    seeded random weights, after the earlier phases freed theirs. (a)
-   ``forward`` on (1, 2048): finite f32 logits, exactly 8 flash-forward
+   ``forward`` on (1, 2048): finite f32 logits, exactly 4 flash-forward
    launches; the choices dropped at capacity 1.25, by layer; at
    capacity E/K (C = T, nothing dropped) the logits with flash against
    ``attn_impl="dense"`` and the routed ``forward_hidden`` against the
@@ -635,6 +638,25 @@ host's cost of a call.
    ``mx.np.random`` arrays on the CPU and outside it they land on
    ``cuda:0``; ``mx.tpu()`` is the card; ``util.get_gpu_memory(0)``
    equals ``torch.cuda.mem_get_info``.
+22. contrib (ROADMAP item 10.4(d)), after ``np_runtime``, with the
+   launch counts set to 0 before and read after: (a) deploy:
+   ``GluonLlama`` at llama3_8b width in bf16 with its depth cut to 4
+   layers (random weights from SEED, an artifact of about 3.9 GB),
+   ``export_stablehlo`` on (1, 2,048) tokens → ``contrib.deploy.load``
+   → one call: the logits bit-equal to the eager Gluon forward's on the
+   same weights, the graph holding 4 ``mxtpu_torch::flash_attn_fwd``
+   nodes and a call launching the flash forward kernel exactly 4
+   times; export s, archive GB, load s and the artifact's forward ms
+   beside the Gluon forward's; (b) onnx: the zoo's ResNet-50 (f32
+   NCHW, batch 256, 224²) exported from card weights with
+   ``contrib.onnx.export_model``, then ``import_to_gluon(ctx=card)``
+   hybridized (one CUDA graph): its logits within 1e-5 of max |logit|
+   of the source net's (bit-equal reported), file MB, export and import
+   s and the replay's img/s; (c) lockcheck: the ``serve_engine``
+   phase's ``threaded_engines`` part (two engines on ``run_forever``
+   threads, 4 layers in f32) under ``contrib.analysis.lockcheck``:
+   no violation, the observed lock pairs reported. ``summary`` is held
+   on the CPU only: the card's host has no tensorboardX.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result when no
@@ -850,7 +872,7 @@ def shape_inputs(gen, b, hq, hkv, sq, skv, d, strided):
 def kernel_phase():
     import torch
     from mxtpu_torch.ops import attention as A
-    from mxtpu_torch.tools.timing import time_ms
+    from mxtpu_torch.tools.timing import host_ms, time_ms
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
     for name, b, hq, hkv, sq, skv, d, causal, strided in KERNEL_SHAPES:
@@ -884,6 +906,8 @@ def kernel_phase():
                                    reps=50),
                 plain_ms=time_ms(lambda: A.blockwise_attention(
                     q, k, v, causal=causal), reps=3, warmup=1),
+                host_ms=host_ms(lambda: A.flash_attention(
+                    q, k, v, causal=causal), reps=50),
                 bound_ms=bound, bound_by=bound_by)
             row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
             row["tflops"] = (A.attention_cost(b, hq, hkv, sq, skv, d,
@@ -1092,10 +1116,10 @@ def slice_phase():
                                 device="cuda")
         runs = []
         for _ in range(2):
-            torch.cuda.synchronize()
+            torch.cuda.synchronize()  # mxlint: disable=MXL004 — timed from an idle card
             t0 = time.perf_counter()
             out = llama.generate(cfg, params, prompts, 32)
-            torch.cuda.synchronize()
+            torch.cuda.synchronize()  # mxlint: disable=MXL004 — timed from an idle card
             runs.append((out, time.perf_counter() - t0))
         (out, t1), (out2, t2) = runs
         new = out[:, 128:]
@@ -1199,9 +1223,9 @@ def rng_phase():
     calls = {}
     for seed in RNG_SEEDS:
         def key(dev, seed=seed):
-            return prng.PRNGKey(seed, device=dev)
+            return prng.PRNGKey(seed, device=dev) # noqa: MXL301 — a check's seeded chain root, compared with the engine's
         calls[f"PRNGKey({seed})"] = key
-        calls[f"split({seed}, 3)"] = lambda dev, key=key: prng.split(
+        calls[f"split({seed}, 3)"] = lambda dev, key=key: prng.split( # noqa: MXL301 — a check's seeded chain root, compared with the engine's
             key(dev), 3)
         for d in (0, 1, 7):
             calls[f"fold_in({seed}, {d})"] = \
@@ -1220,7 +1244,7 @@ def rng_phase():
                     key(dev), (3, 5, 11), dt, -3.3, 7.1).view(it)
     differ = [name for name, f in calls.items()
               if not torch.equal(f("cuda").cpu(), f("cpu"))]
-    key_c, key_h = prng.PRNGKey(SEED, "cuda"), prng.PRNGKey(SEED, "cpu")
+    key_c, key_h = prng.PRNGKey(SEED, "cuda"), prng.PRNGKey(SEED, "cpu") # noqa: MXL301 — a check's seeded chain root, compared with the engine's
     g_ulps = ulps_of_max1(prng.gumbel(key_c, RNG_SHAPES[-1]).cpu(),
                           prng.gumbel(key_h, RNG_SHAPES[-1]))
     gen = torch.Generator().manual_seed(SEED)
@@ -1282,11 +1306,11 @@ def sampled_phase(cfg, params, prompts, greedy, greedy_s):
         return torch.tensor(vals, device="cuda")
     reset_launches()
     out, t1 = run()
-    out2, t2 = run(prng.PRNGKey(0, "cuda"))
-    other, _ = run(prng.PRNGKey(1, "cuda"))
-    traced, _ = run(prng.PRNGKey(0, "cuda"), **{
+    out2, t2 = run(prng.PRNGKey(0, "cuda")) # noqa: MXL301 — a check's seeded chain root, compared with the engine's
+    other, _ = run(prng.PRNGKey(1, "cuda")) # noqa: MXL301 — a check's seeded chain root, compared with the engine's
+    traced, _ = run(prng.PRNGKey(0, "cuda"), **{ # noqa: MXL301 — a check's seeded chain root, compared with the engine's
         k: col(*[v] * b) for k, v in SAMPLING.items()})
-    mixed, _ = run(prng.PRNGKey(0, "cuda"), **{
+    mixed, _ = run(prng.PRNGKey(0, "cuda"), **{ # noqa: MXL301 — a check's seeded chain root, compared with the engine's
         k: col(*([0.0 if k == "temperature" else v] + [v] * (b - 1)))
         for k, v in SAMPLING.items()})
     launches = read_launches()
@@ -1390,10 +1414,10 @@ def int8_phase(cfg, params, prompts):
     torch.cuda.reset_peak_memory_stats()
     runs = []
     for _ in range(2):
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # mxlint: disable=MXL004 — timed from an idle card
         t0 = time.perf_counter()
         out = llama.generate(cfg, q, prompts, 32)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # mxlint: disable=MXL004 — timed from an idle card
         runs.append((out, time.perf_counter() - t0))
     launches = read_launches()
     (out, t1), (out2, t2) = runs
@@ -1455,7 +1479,7 @@ def generate_one(cfg, params, req, n_new):
     out = llama.generate(cfg, params, prompt, n_new,
                          temperature=req.temperature, top_k=req.top_k,
                          top_p=req.top_p,
-                         rng=prng.PRNGKey(req.seed, "cuda"))
+                         rng=prng.PRNGKey(req.seed, "cuda")) # noqa: MXL301 — a check's seeded chain root, compared with the engine's
     return out[0, prompt.shape[1]:].cpu().numpy()
 
 
@@ -1477,7 +1501,7 @@ def decision_values(cfg, params, req, toks, j):
     val = lg[0, 0]
     if req.temperature:
         key = prng.key_from_numpy(resume_key(req.seed, j), "cuda")
-        sub = prng.split(key)[1]
+        sub = prng.split(key)[1] # noqa: MXL301 — a check's seeded chain root, compared with the engine's
         val = val / torch.tensor(req.temperature, device="cuda")
         if req.top_k is not None:
             kth = torch.topk(val, req.top_k).values[-1]
@@ -1606,8 +1630,9 @@ def serve_engine_phase(cfg, params):
         n = min(reqs[i].max_new_tokens, 32)
         g = generate_one(cfg, params, reqs[i], n)
         same = np.flatnonzero(g != first[i][:n])
-        agree[i] = {"tokens": n, "equal_prefix": int(same[0]) if same.size
-                    else n}
+        # mxlint: disable=MXL004 — same is host numpy
+        first_diff = int(same[0]) if same.size else n
+        agree[i] = {"tokens": n, "equal_prefix": first_diff}
 
     cfg4, p4 = f32_layers(cfg, params)
     f32 = f32_engine_vs_generate(cfg4, p4)
@@ -1742,7 +1767,7 @@ def decode_graph_owns_its_tables(cfg4, p4, steps=4):
             pad[0, :len(p)] = torch.as_tensor(p, device=dev)
             with torch.no_grad():
                 llama.prefill_slot(cfg4, p4, pad, len(p), slot, kv, sv,
-                                   prng.PRNGKey(300 + slot, dev),
+                                   prng.PRNGKey(300 + slot, dev), # noqa: MXL301 — a check's seeded chain root, compared with the engine's
                                    kn["temperature"], kn["top_k"],
                                    kn["top_p"])
         banks.append((kv, sv))
@@ -2267,7 +2292,7 @@ def spec_engine_phase(cfg, params):
     prompt[0, :len(r0.prompt)] = torch.as_tensor(r0.prompt)
     with torch.no_grad():
         tok, kb, vb, key = llama.prefill_detached(
-            cfg4, p4, prompt, len(r0.prompt), prng.PRNGKey(0, "cuda"), 0.0,
+            cfg4, p4, prompt, len(r0.prompt), prng.PRNGKey(0, "cuda"), 0.0, # noqa: MXL301 — a check's seeded chain root, compared with the engine's
             None, None)
     h = KVHandoff(k=kb.cpu(), v=vb.cpu(), true_len=len(r0.prompt),
                   token=int(tok[0]), rng=prng.key_to_numpy(key))
@@ -2632,7 +2657,7 @@ def disagg_chunk_graph(cfg, params, req):
     dev = torch.device("cuda")
     padded = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
     padded[0, :n] = torch.from_numpy(np.asarray(req.prompt, np.int32)).to(dev)
-    key = prng.PRNGKey(req.seed, device=dev)
+    key = prng.PRNGKey(req.seed, device=dev) # noqa: MXL301 — a check's seeded chain root, compared with the engine's
     knobs = (req.temperature, req.top_k, req.top_p)
     prog = _ChunkProgram(cfg, params, bucket, DISAGG_CHUNK, dev,
                          "disagg_chunk_check")
@@ -3866,7 +3891,7 @@ def train_rng_phase(cfg, params, tokens, gen):
         state = pstep.init_state(params, tx)
         losses, seconds, launches = [], [], []
         for t in range(TRAIN_STEPS):
-            key = prng.fold_in(prng.PRNGKey(seed, "cuda"), t)
+            key = prng.fold_in(prng.PRNGKey(seed, "cuda"), t) # noqa: MXL301 — a check's seeded chain root, compared with the engine's
             torch.cuda.synchronize()
             reset_launches()
             t0 = time.perf_counter()
@@ -5356,9 +5381,9 @@ def _random_vs_cpu(card, cpu, order):
 def _chain_key(order, name):
     """The subkey the draw ``name`` took after seed(SEED)."""
     from mxtpu_torch import prng
-    key = prng.PRNGKey(SEED, "cpu")
+    key = prng.PRNGKey(SEED, "cpu") # noqa: MXL301 — a check's seeded chain root, compared with the engine's
     for n in order:
-        key, sub = prng.split(key)
+        key, sub = prng.split(key) # noqa: MXL301 — a check's seeded chain root, compared with the engine's
         if n == name:
             return sub
     raise KeyError(name)
@@ -5513,7 +5538,7 @@ def serde_phase():
 # 0.009-0.093 at capacity E/K and up to 0.27 at 1.25, where a flipped
 # route also moves the slots of later tokens; planted backward faults
 # reach 0.55 and more (python -m mxtpu_torch.tools.bwd_tolerance --train).
-MIXTRAL_LAYERS = 8
+MIXTRAL_LAYERS = 4
 MOE_REL_BOUND = 0.3        # ||a - b|| / ||b||, flash/dense, routed/mixture
 MOE_TOKEN_P50_BOUND = 0.05  # the per-token median of the same distances
 MOE_TRAIN_REL_BOUND = 0.25  # flash vs dense loss and grads, 1 layer, no drops
@@ -5623,10 +5648,10 @@ def mixtral_phase():
         reset_launches()
         runs = []
         for _ in range(2):
-            torch.cuda.synchronize()
+            torch.cuda.synchronize()  # mxlint: disable=MXL004 — timed from an idle card
             t0 = time.perf_counter()
             out = llama.generate(cfg, params, prompts, 32)
-            torch.cuda.synchronize()
+            torch.cuda.synchronize()  # mxlint: disable=MXL004 — timed from an idle card
             runs.append((out, time.perf_counter() - t0))
         gen_launches = read_launches()
         (out, t1), (out2, t2) = runs
@@ -7321,7 +7346,7 @@ def _np_random_part(mx):
                                             cpu["shuffle"]._data))}
     # beta: parts only where one of its gammas parts at a near-tie
     key = _np_chain_key(prng, order, "beta_check")
-    k1, k2 = prng.split(key)
+    k1, k2 = prng.split(key) # noqa: MXL301 — a check's seeded chain root, compared with the engine's
     _, m1 = prng.gamma(k1, 2.0, (RANDOM_CHECK,), margins=True)
     _, m2 = prng.gamma(k2, 5.0, (RANDOM_CHECK,), margins=True)
     got, want = card["beta_check"]._data.cpu(), cpu["beta_check"]._data
@@ -7355,9 +7380,9 @@ def _np_random_part(mx):
 
 
 def _np_chain_key(prng, order, name):
-    key = prng.PRNGKey(SEED, "cpu")
+    key = prng.PRNGKey(SEED, "cpu") # noqa: MXL301 — a check's seeded chain root, compared with the engine's
     for n in order:
-        key, sub = prng.split(key)
+        key, sub = prng.split(key) # noqa: MXL301 — a check's seeded chain root, compared with the engine's
         if n == name:
             return sub
     raise KeyError(name)
@@ -7468,6 +7493,169 @@ def np_runtime_phase():
     return launches
 
 
+# the contrib phase: the deployed GluonLlama (llama3_8b width, depth cut
+# to 4 layers: a 3.9 GB archive) and the ONNX ResNet-50 round trip
+CONTRIB_LAYERS, CONTRIB_TOKENS = 4, 2048
+ONNX_BATCH = 256
+ONNX_LOGITS_REL = 1e-5        # of max |logit|, the imported net's replay
+# tensorboardX is not installed on the card's host (its package list,
+# probed in a chip run), so contrib.summary is held on the CPU only
+
+
+def contrib_phase():
+    """22 in the docstring: contrib.deploy, contrib.onnx and lockcheck on
+    the card."""
+    import torch
+    import mxtpu_torch as mx
+    reset_launches()
+    t0 = time.perf_counter()
+    out_dir = os.path.join(build_dir(), "contrib")
+    os.makedirs(out_dir, exist_ok=True)
+    deploy = _contrib_deploy(mx, out_dir)
+    _release_gateway()
+    onnx = _contrib_onnx(mx, out_dir)
+    _release_gateway()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    lockcheck = _contrib_lockcheck()
+    _release_gateway()
+    launches = read_launches()
+    emit({"phase": "contrib", "card": nvidia_smi(), "deploy": deploy,
+          "onnx": onnx, "lockcheck": lockcheck,
+          "summary": "held on the CPU: no tensorboardX on this host",
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    if not (deploy["bit_equal"] or deploy["rel_max"] <= 2e-2):
+        raise AssertionError(f"the deployed Llama's logits are off the "
+                             f"Gluon forward's: {deploy}")
+    if deploy["flash_nodes"] != CONTRIB_LAYERS or deploy["call_launches"] \
+            != only(flash_attention_fwd=CONTRIB_LAYERS):
+        raise AssertionError(f"the artifact does not launch the flash "
+                             f"kernel once a layer: {deploy}")
+    if not (onnx["rel_max"] <= ONNX_LOGITS_REL and onnx["captures"] == 1):
+        raise AssertionError(f"the ONNX ResNet-50 is off the source net: "
+                             f"{onnx}")
+    if lockcheck["violations"] or not lockcheck["threaded"]["ok"]:
+        raise AssertionError(f"lockcheck found violations or the threaded "
+                             f"engines failed: {lockcheck}")
+    return launches
+
+
+def _contrib_deploy(mx, out_dir):
+    """(a): export_stablehlo → deploy.load → a call, against the eager
+    Gluon forward on the same weights."""
+    import torch
+    from mxtpu_torch.contrib import deploy
+    from mxtpu_torch.gluon.model_zoo import GluonLlama
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.tools.timing import time_ms
+    cfg = replace(llama.CONFIGS["llama3_8b"], n_layers=CONTRIB_LAYERS,
+                  param_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    net = GluonLlama(cfg)
+    net.load_pytree(llama.init_params(cfg, gen, device="cuda"))
+    tokens = mx.nd.NDArray(torch.randint(
+        0, cfg.vocab_size, (1, CONTRIB_TOKENS), generator=gen,
+        device="cuda"))
+    with mx.autograd.pause(train_mode=False):
+        want = net(tokens)._data
+    t1 = time.perf_counter()
+    path = net.export_stablehlo(os.path.join(out_dir, "llama"), tokens)
+    export_s = time.perf_counter() - t1
+    size_gb = os.path.getsize(path) / 1e9
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pred = deploy.load(path, ctx=mx.gpu())
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    flash_nodes = sum(
+        1 for n in pred._program.graph.nodes
+        if n.op == "call_function"
+        and n.target is torch.ops.mxtpu_torch.flash_attn_fwd.default)
+    graph_ops = sorted({str(n.target) for n in pred._program.graph.nodes
+                        if n.op == "call_function"})
+    before = read_launches()
+    got = pred(tokens)._data
+    torch.cuda.synchronize()
+    after = read_launches()
+    call_launches = {k: after[k] - before[k] for k in LAUNCH_COUNTERS}
+    top = float(want.float().abs().max())
+    row = {"config": "llama3_8b", "layers": CONTRIB_LAYERS,
+           "tokens": CONTRIB_TOKENS, "export_s": export_s,
+           "archive_gb": size_gb, "load_s": load_s,
+           "flash_nodes": flash_nodes, "call_launches": call_launches,
+           "bit_equal": bool(torch.equal(got, want)),
+           "rel_max": float((got.float() - want.float()).abs().max()) / top,
+           "graph_ops": graph_ops}
+    with mx.autograd.pause(train_mode=False):
+        row["gluon_ms"] = time_ms(lambda: net(tokens), reps=5)
+    row["artifact_ms"] = time_ms(lambda: pred(tokens), reps=5)
+    del pred, net, got, want
+    return row
+
+
+def _contrib_onnx(mx, out_dir):
+    """(b): the zoo's ResNet-50 through ONNX and back, on the card."""
+    import torch
+    from mxtpu_torch.contrib import onnx
+    from mxtpu_torch.tools.timing import time_ms
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    images = mx.nd.NDArray(torch.randn((ONNX_BATCH, 3, 224, 224),
+                                       generator=gen, device="cuda"))
+    mx.random.seed(SEED)
+    net = mx.gluon.model_zoo.vision.get_model("resnet50_v1")
+    net.initialize(mx.initializer.Xavier(magnitude=2), ctx=mx.gpu())
+    with mx.autograd.pause(train_mode=False):
+        want = net(images)._data          # eager: resolves the shapes
+    path = os.path.join(out_dir, "resnet50_v1.onnx")
+    t1 = time.perf_counter()
+    onnx.export_model(net, input_shapes=[tuple(images.shape)],
+                      onnx_file=path)
+    export_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    block = onnx.import_to_gluon(path, ctx=mx.gpu())
+    import_s = time.perf_counter() - t1
+    block.hybridize()
+    with mx.autograd.pause(train_mode=False):
+        block(images)                     # the eager first call
+        block(images)                     # the capture
+        got = block(images)._data         # a replay
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: block(images), reps=5, warmup=1)
+    top = float(want.abs().max())
+    row = {"config": "resnet50_v1", "batch": ONNX_BATCH,
+           "file_mb": os.path.getsize(path) / 1e6, "export_s": export_s,
+           "import_s": import_s, "captures": block.captures,
+           "bit_equal": bool(torch.equal(got, want)),
+           "rel_max": float((got - want).abs().max()) / top,
+           "bound": ONNX_LOGITS_REL, "replay_ms": ms,
+           "img_per_s": ONNX_BATCH / (ms / 1e3)}
+    del block, net, got, want, images
+    return row
+
+
+def _contrib_lockcheck():
+    """(c): the serve_engine phase's threaded engines under lockcheck, on
+    4 f32 layers of seeded llama3_8b weights."""
+    import torch
+    from mxtpu_torch.contrib.analysis import lockcheck
+    from mxtpu_torch.models import llama
+    cfg4 = replace(llama.CONFIGS["llama3_8b"], n_layers=SERVE_LAYERS,
+                   dtype=torch.float32, param_dtype=torch.float32)
+    p4 = llama.init_params(cfg4, torch.Generator(device="cuda")
+                           .manual_seed(SEED), device="cuda")
+    lockcheck.install()
+    try:
+        lockcheck.reset()
+        threaded = engines_on_threads(cfg4, p4)
+        pairs = lockcheck.observed_pairs()
+        found = lockcheck.violations()
+    finally:
+        lockcheck.uninstall()
+        lockcheck.reset()
+    del p4
+    return {"threaded": threaded, "violations": found,
+            "observed_pairs": sorted(f"{a} -> {b}" for a, b in pairs)}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7530,6 +7718,8 @@ def main():
     op_set_launches = op_set_phase()
     torch.cuda.empty_cache()
     np_launches = np_runtime_phase()
+    torch.cuda.empty_cache()
+    contrib_launches = contrib_phase()
     telemetry_phase()
     launches = {k: fwd_launches[k] + train_launches[k]
                 + flywheel_launches[k] + resnet_launches[k]
@@ -7538,6 +7728,7 @@ def main():
                 + mixtral_launches[k] + bert_launches[k]
                 + gluon_launches[k] + symbol_launches[k]
                 + image_launches[k] + op_set_launches[k] + np_launches[k]
+                + contrib_launches[k]
                 for k in LAUNCH_COUNTERS}
 
     main_row, bwd = rows["llama3_8b"], bwd_rows["llama3_8b"]

@@ -29,7 +29,31 @@ nothing of ``mxtpu`` (whose ``__init__`` imports jax). Entry points run
 on the card unless the caller passes ``device="cpu"`` (``ctx="cpu"``
 in ``mx.nd``).
 """
-from . import autograd, context, engine, ndarray, rtc
+from . import base
+
+# Lockset sanitizer (rule MXL203): patch the threading lock factories
+# before any class of the port builds a lock, so every lock records its
+# real acquisition orders for the check against the static lock graph.
+# Loaded by file path: the package route (contrib.analysis) imports back
+# through contrib and would be circular this early; registering the
+# canonical name makes a later ``from mxtpu_torch.contrib.analysis
+# import lockcheck`` resolve to this same instance.
+if base.env_bool("MXTPU_ANALYSIS_LOCKCHECK", False,
+                 "Record runtime lock-acquisition orders and check them "
+                 "against the static lock graph (diagnostic)."):
+    import importlib.util as _ilu
+    import os as _os
+    import sys as _sys
+    _lc_spec = _ilu.spec_from_file_location(
+        "mxtpu_torch.contrib.analysis.lockcheck",
+        _os.path.join(_os.path.dirname(_os.path.abspath(__file__)),
+                      "contrib", "analysis", "lockcheck.py"))
+    _lockcheck = _ilu.module_from_spec(_lc_spec)
+    _sys.modules[_lc_spec.name] = _lockcheck
+    _lc_spec.loader.exec_module(_lockcheck)
+    _lockcheck.install()
+
+from . import autograd, context, engine, ndarray, rtc  # noqa: E402
 from .base import MXNetError
 from .context import (Context, cpu, gpu, tpu, current_context, num_gpus,
                       num_tpus, default_device)

@@ -42,11 +42,14 @@ Queue A item 11).
 ``hybrid_forward`` composes symbols, its parameters become variables)
 and writes the reference's ``prefix-symbol.json`` and
 ``prefix-%04d.params``; :class:`SymbolBlock` runs such a graph as a
-block. ``export_stablehlo`` (a JAX artifact) raises, naming the later
-sub-item of ROADMAP Queue A item 10.4(d) that holds ``contrib.deploy``.
+block. ``export_stablehlo`` (the reference's name) writes the
+deployment artifact: a ``torch.export`` archive of the eager inference
+forward with the weights baked in, which ``contrib.deploy.load`` runs
+without the model's class.
 """
 from __future__ import annotations
 
+import contextlib
 import re
 import threading
 from collections import OrderedDict
@@ -68,9 +71,6 @@ __all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 MESH_SLICE = ("mesh sharding of a Gluon block over more than one device "
               "comes with the multi-device slice (ROADMAP Queue A item 11)")
-STABLEHLO_SLICE = ("export_stablehlo writes a JAX StableHLO artifact; its "
-                   "counterpart comes with contrib.deploy, the contrib/ "
-                   "sub-item of ROADMAP Queue A item 10.4(d)")
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +172,17 @@ def _in_trace() -> bool:
 
 def _in_symbolic() -> bool:
     return getattr(_SYM_MODE, "active", False)
+
+
+@contextlib.contextmanager
+def _eager():
+    """Children of a hybridized block run their eager forward, as inside
+    a cached op's trace."""
+    _TRACE_DEPTH.depth = getattr(_TRACE_DEPTH, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _TRACE_DEPTH.depth -= 1
 
 
 # ---------------------------------------------------------------------------
@@ -507,15 +518,13 @@ class HybridBlock(Block):
             for p, d in zip(params, ps):
                 p._bind(d)
             _random.push_trace_key(key)
-            _TRACE_DEPTH.depth = getattr(_TRACE_DEPTH, "depth", 0) + 1
             try:
-                with autograd.pause(train_mode=training):
+                with autograd.pause(train_mode=training), _eager():
                     wrapped = [NDArray(x) if isinstance(x, torch.Tensor)
                                else x for x in xs]
                     args = _unflatten_nds(in_tree, wrapped, [0])
                     out = block.forward(*args)
             finally:
-                _TRACE_DEPTH.depth -= 1
                 _random.pop_trace_key()
                 new_vals = [p._unbind() for p in params]
             aux_params, aux_vals = [], []
@@ -620,8 +629,61 @@ class HybridBlock(Block):
             params[kind + p.name] = p.data()
         nd.save(f"{path}-{epoch:04d}.params", params)
 
-    def export_stablehlo(self, path: str, *example_inputs):
-        raise NotImplementedError(STABLEHLO_SLICE)
+    def export_stablehlo(self, path: str, *example_inputs) -> str:
+        """Serialize the inference forward as a deployment artifact
+        runnable without the model's Python class (the reference's
+        name, kept so code written for it runs): a ``torch.export``
+        archive (``torch.export.save``) at ``path + ".pt2"``, with the
+        weights baked in and shapes fixed to the example inputs'.
+        ``mxtpu_torch.contrib.deploy.load`` reloads it. The eager
+        forward is traced under ``autograd.pause(train_mode=False)``,
+        never a hybridized block's CUDA graph; the hand kernels' launches
+        become ``mxtpu_torch::`` operator nodes of the graph. Example
+        inputs that are not NDArrays go to the parameters' device.
+        Returns the archive's path."""
+        params = list(self.collect_params().values())
+        dev = next((p._data.context for p in params
+                    if p._data is not None), None)
+        ex = [x if isinstance(x, NDArray) else nd.array(x, ctx=dev)
+              for x in example_inputs]
+        if any(p._data is None for p in params):
+            with autograd.pause(train_mode=False), _eager():
+                self.forward(*ex)       # resolves deferred shapes
+        program = torch.export.export(
+            _ExportedForward(self, params), tuple(x._data for x in ex))
+        out_path = path if path.endswith(".pt2") else path + ".pt2"
+        torch.export.save(program, out_path)
+        return out_path
+
+
+class _ExportedForward(torch.nn.Module):
+    """A HybridBlock's eager inference forward over tensors, with its
+    parameters as buffers: what ``torch.export`` traces. Each call binds
+    the parameters to the buffers it is given (the tracer's stand-ins),
+    so the graph reads them as state and the archive stores them."""
+
+    def __init__(self, block: HybridBlock, params: List[Parameter]):
+        super().__init__()
+        self._block = [block]           # not a submodule: no state of its own
+        self._params = params
+        self._names = []
+        for i, p in enumerate(params):
+            name = f"p{i}_" + "".join(c if c.isalnum() else "_"
+                                      for c in p.name)
+            self.register_buffer(name, p.data()._data)
+            self._names.append(name)
+
+    def forward(self, *xs):
+        for p, name in zip(self._params, self._names):
+            p._bind(getattr(self, name))
+        try:
+            with autograd.pause(train_mode=False), _eager():
+                out = self._block[0].forward(*[NDArray(x) for x in xs])
+        finally:
+            for p in self._params:
+                p._unbind()
+        outs = out if isinstance(out, (list, tuple)) else (out,)
+        return tuple(o._data for o in outs)
 
 
 class SymbolBlock(HybridBlock):

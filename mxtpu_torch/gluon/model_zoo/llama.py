@@ -133,7 +133,10 @@ class GluonLlama(HybridBlock):
             def logits(tok, *leaves):
                 return _fl.forward(cfg, self._pytree(dict(zip(attrs,
                                                                leaves))), tok)
-            return apply_op(logits, [tokens] + arrays, "GluonLlama")
+            # the bridge into the functional model: the tape's funnel,
+            # never a Symbol trace
+            return apply_op(logits, [tokens] + arrays,  # mxlint: disable=MXL001
+                            "GluonLlama")
         if tuple(labels.shape) != tuple(tokens.shape):
             raise ValueError(
                 "GluonLlama loss mode: labels must BE the input token "
@@ -144,7 +147,8 @@ class GluonLlama(HybridBlock):
         def loss(tok, *leaves):
             return loss_fn(self._pytree(dict(zip(attrs, leaves))),
                            {"tokens": tok})
-        return apply_op(loss, [tokens] + arrays, "GluonLlama.loss")
+        return apply_op(loss, [tokens] + arrays,  # mxlint: disable=MXL001
+                        "GluonLlama.loss")
 
     def generate(self, prompt, max_new_tokens: int, **kw):
         """KV-cache autoregressive generation (functional

@@ -152,7 +152,9 @@ class Trainer:
                      [p.grad() for _, p in live],
                      [updater.states[i] for i, _ in live]):
                 return
-        for i, p in live:
+        # the fallback when the optimizer has no fused step: one
+        # dispatch per parameter, what make_fused_step removes
+        for i, p in live:  # mxlint: disable=MXL003
             updater(i, p.grad(), p.data())
 
     def make_fused_step(self, net, loss_fn=None, grad_accum=1,

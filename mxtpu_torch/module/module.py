@@ -156,7 +156,7 @@ class Module(BaseModule):
     def update(self):
         assert self.optimizer_initialized
         # the reference's per-parameter updater, in its index order
-        for i, name in enumerate(self._param_names):
+        for i, name in enumerate(self._param_names):  # mxlint: disable=MXL003
             grad = self._exec.grad_dict.get(name)
             if grad is None or self._exec.grad_req.get(name) == "null":
                 continue

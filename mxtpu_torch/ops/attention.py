@@ -27,9 +27,19 @@ serving engine's length-masked attention over the slot bank and the
 page pool, are plain PyTorch, as ``mxtpu``'s are plain ``jnp``; they
 share one online-softmax body. ``ring_attention`` and
 ``ulysses_attention`` come with later slices.
+
+The forward kernel's launch is the operator ``mxtpu_torch::flash_attn_fwd``
+(``flash_attn_fwd_lse`` when the row logsumexp is asked for), defined
+with ``torch.library`` for CUDA tensors, with a fake implementation
+that gives its output shapes: so ``torch.export`` traces a call into
+one node of the graph (``HybridBlock.export_stablehlo``), and an
+exported program launches the kernel. The wrapper's checks run before
+the operator; the base alignment, which only a real tensor has, is
+checked inside it.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -37,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from ..telemetry import perfscope
+from . import _build
 
 __all__ = ["dense_attention", "blockwise_attention", "flash_attention",
            "flash_attention_fwd", "flash_attention_bwd",
@@ -423,14 +434,30 @@ def _bwd_pair_cost(dims, causal):
     return dq[0] + dkv[0], dq[1] + dkv[1]
 
 
+def _strides_ok(t):
+    """A unit last-dim stride and the other strides nonzero multiples of
+    8 (a size-1 dim's stride is never stepped, so it may be anything):
+    what a traced (fake) tensor can already show. ``t`` is 4-D; written
+    out, as it runs three times in every kernel call."""
+    s0, s1, s2, s3 = t.stride()
+    n0, n1, n2, _ = t.shape
+    return (s3 == 1 and (n0 < 2 or (s0 and not s0 % 8))
+            and (n1 < 2 or (s1 and not s1 % 8))
+            and (n2 < 2 or (s2 and not s2 % 8)))
+
+
 def _readable(t):
-    """Whether the kernels' tensor maps take ``t`` as it lies: a unit
-    last-dim stride, the other strides nonzero multiples of 8 (a size-1
-    dim's stride is never stepped, so it may be anything) and a 16-byte
-    aligned base."""
-    strided = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
-    return (t.stride(3) == 1 and all(s and not s % 8 for s in strided)
-            and not t.data_ptr() % 16)
+    """Whether the kernels' tensor maps take ``t`` as it lies: the
+    strides of :func:`_strides_ok` and a 16-byte aligned base."""
+    return _strides_ok(t) and not t.data_ptr() % 16
+
+
+def _misaligned(who, **ts):
+    """The error for the first tensor whose base is not 16-byte aligned
+    (checked where the tensors are real: inside the operator)."""
+    name, t = next((n, t) for n, t in ts.items() if t.data_ptr() % 16)
+    return ValueError(f"{name} needs a 16-byte aligned base for {who}; got "
+                      f"data_ptr {t.data_ptr():#x}")
 
 
 def _check_layout(who, name, t, device):
@@ -439,7 +466,7 @@ def _check_layout(who, name, t, device):
     if t.dtype != torch.bfloat16:
         raise TypeError(f"{who} takes bfloat16 ({name} is {t.dtype}); the "
                         "kernel has no other instantiation")
-    if not _readable(t):
+    if not _strides_ok(t):
         raise ValueError(
             f"{name} needs a unit last-dim stride, strides that are "
             f"nonzero multiples of 8 and a 16-byte aligned base; got strides "
@@ -485,33 +512,71 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
     else. Autograd does not see through this call: under grad,
     :func:`flash_attention` wraps it in :class:`_FlashAttention`."""
     _check_kernel_args(q, k, v)
+    scale = float(scale if scale is not None
+                  else 1.0 / math.sqrt(q.shape[3]))
     return perfscope.reported(
         lambda: attention_cost(*_dims(q, k), causal, lse=return_lse),
-        _fwd_launch, q, k, v, causal, scale, return_lse)
+        _FWD_LSE_OP if return_lse else _FWD_OP, q, k, v, bool(causal),
+        scale)
 
 
 flash_attention_fwd.launches = 0
 
 
 def _fwd_launch(q, k, v, causal, scale, return_lse):
-    from ._build import check, load_kernels
-    lib = load_kernels()
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise _misaligned("flash_attention_fwd", q=q, k=k, v=v)
+    lib = _build._lib or _build.load_kernels()
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
     o = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) \
         if return_lse else None
-    with torch.cuda.device(q.device):    # the launch goes to q's card
+    # the launch goes to q's card; entering a device context costs the
+    # host more than the launch, so only when q is not on the current one
+    with (contextlib.nullcontext() if q.device.index
+          == torch.cuda.current_device() else torch.cuda.device(q.device)):
         err = lib.mxtpu_flash_attn_fwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             b, hq, hkv, sq, skv, d, float(scale), int(bool(causal)),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    check(err, "flash_attention_fwd launch")
+            torch._C._cuda_getCurrentRawStream(q.device.index))
+    _build.check(err, "flash_attention_fwd launch")
     flash_attention_fwd.launches += 1
     return (o, lse) if return_lse else o
+
+
+# the forward launch as an operator: a CUDA implementation (the launch)
+# and a fake one (the output shapes), so torch.export keeps one node per
+# call; defined on the dispatcher directly, whose call costs a few
+# microseconds less than a torch.library.custom_op's
+_LIB = torch.library.Library("mxtpu_torch", "FRAGMENT")
+_LIB.define("flash_attn_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "float scale) -> Tensor")
+_LIB.define("flash_attn_fwd_lse(Tensor q, Tensor k, Tensor v, bool causal, "
+            "float scale) -> (Tensor, Tensor)")
+_LIB.impl("flash_attn_fwd",
+          lambda q, k, v, causal, scale:
+          _fwd_launch(q, k, v, causal, scale, False), "CUDA")
+_LIB.impl("flash_attn_fwd_lse",
+          lambda q, k, v, causal, scale:
+          _fwd_launch(q, k, v, causal, scale, True), "CUDA")
+
+
+@torch.library.register_fake("mxtpu_torch::flash_attn_fwd", lib=_LIB)
+def _fwd_fake(q, k, v, causal, scale):
+    return q.new_empty(q.shape)
+
+
+@torch.library.register_fake("mxtpu_torch::flash_attn_fwd_lse", lib=_LIB)
+def _fwd_lse_fake(q, k, v, causal, scale):
+    return q.new_empty(q.shape), q.new_empty(q.shape[:3],
+                                             dtype=torch.float32)
+
+
+_FWD_OP = torch.ops.mxtpu_torch.flash_attn_fwd.default
+_FWD_LSE_OP = torch.ops.mxtpu_torch.flash_attn_fwd_lse.default
 
 
 def _check_bwd_args(who, q, k, v, do, lse):
@@ -717,7 +782,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
     counts as the kernels do (:class:`_CountedPlainAttention` under
     grad)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
     if q.device.type == "cuda":
         if grad:
             return _FlashAttention.apply(q, k, v, causal, scale)

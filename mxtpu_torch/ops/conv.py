@@ -12,6 +12,11 @@ convolution, by shape or by exception. The Pallas kernel's
 ``images_per_cell`` is a TPU grid choice that changes no result, so the
 port's signature drops it; the kernel's own grid is :func:`_conv_plan`.
 
+The launch is the operator ``mxtpu_torch::conv3x3`` (a CUDA
+implementation and a fake one that gives its output's shape, as the
+flash forward's in ``ops.attention``), so ``torch.export`` keeps one
+node per call; the base alignment is checked inside it.
+
 The kernel's work is counted here, beside it (:func:`conv_flops`,
 :func:`conv_cost`, :func:`conv_bound_ms`): the kernel and the plain
 version both report it to an active perfscope count, so a program
@@ -139,7 +144,7 @@ def conv3x3_kernel(x, w):
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"conv3x3_kernel needs x and w on one CUDA "
                              f"device ({name} is on {t.device})")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if not t.is_contiguous():
             raise ValueError(f"conv3x3_kernel needs contiguous, 16-byte "
                              f"aligned tensors ({name} has strides "
                              f"{t.stride()})")
@@ -158,11 +163,16 @@ def _launch(x, w, plan: ConvPlan):
     """Launch the kernel on checked tensors with ``plan``
     (``tools.conv_plans`` times plans other than :func:`_conv_plan`'s)."""
     return perfscope.reported(lambda: conv_cost(*_shape(x, w)),
-                              _launch_plan, x, w, plan)
+                              _CONV_OP, x, w, plan.bn, plan.split)
 
 
-def _launch_plan(x, w, plan: ConvPlan):
+def _launch_plan(x, w, bn: int, split: int):
     from ._build import check, load_kernels
+    for name, t in (("x", x), ("w", w)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"conv3x3_kernel needs contiguous, 16-byte "
+                             f"aligned tensors ({name} is at "
+                             f"{t.data_ptr():#x})")
     lib = load_kernels()
     b, h, wd, c = x.shape
     o = w.shape[-1]
@@ -172,14 +182,25 @@ def _launch_plan(x, w, plan: ConvPlan):
           == torch.cuda.current_device() else torch.cuda.device(x.device)):
         err = lib.mxtpu_conv3x3_bf16(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, c, o,
-            plan.bn, plan.split,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            bn, split, torch._C._cuda_getCurrentRawStream(x.device.index))
     check(err, "conv3x3_kernel launch")
     conv3x3_kernel.launches += 1
     return y
 
 
 conv3x3_kernel.launches = 0
+
+_LIB = torch.library.Library("mxtpu_torch", "FRAGMENT")
+_LIB.define("conv3x3(Tensor x, Tensor w, int bn, int split) -> Tensor")
+_LIB.impl("conv3x3", _launch_plan, "CUDA")
+
+
+@torch.library.register_fake("mxtpu_torch::conv3x3", lib=_LIB)
+def _conv_fake(x, w, bn, split):
+    return x.new_empty((*x.shape[:3], w.shape[-1]))
+
+
+_CONV_OP = torch.ops.mxtpu_torch.conv3x3.default
 
 
 def conv3x3(x, w):

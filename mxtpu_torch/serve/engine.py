@@ -420,9 +420,9 @@ def resume_key(seed: int, n_emitted: int) -> np.ndarray:
     samples token ``n_emitted + 1`` from the same subkey, on the same
     logits, as the fault-free run. Computed on the CPU; returns the
     (2,) uint32 key as ``mxtpu``'s does."""
-    key = prng.PRNGKey(int(seed), device="cpu")
+    key = prng.PRNGKey(int(seed), device="cpu")  # noqa: MXL301 — chain ROOT: resume_key defines the oracle
     for _ in range(int(n_emitted)):
-        key = prng.split(key)[0]
+        key = prng.split(key)[0]  # noqa: MXL301 — this IS the chain primitive resume_key replays
     return prng.key_to_numpy(key)
 
 
@@ -1190,7 +1190,7 @@ class ServeEngine:
         """The request's key chain on the engine's device: ``PRNGKey(seed)``,
         or the explicit resume state ``req.rng``."""
         if req.rng is None:
-            return prng.PRNGKey(req.seed, device=self.device)
+            return prng.PRNGKey(req.seed, device=self.device)  # noqa: MXL301 — chain position 0 is PRNGKey(seed) by definition
         return prng.key_from_numpy(np.asarray(req.rng, np.uint32),
                                    self.device)
 

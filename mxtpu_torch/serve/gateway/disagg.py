@@ -925,7 +925,7 @@ class PrefillWorker:
             padded = torch.from_numpy(padded).to(self.device)
             # the request's key chain as the engine seats it: position
             # 0 is PRNGKey(seed), a resume key continues mid-chain
-            key = (prng.PRNGKey(req.seed, device=self.device)
+            key = (prng.PRNGKey(req.seed, device=self.device)  # noqa: MXL301 — chain position 0 is PRNGKey(seed); the rng branch is a mid-chain resume key
                    if req.rng is None else prng.key_from_numpy(
                        np.asarray(req.rng, np.uint32), self.device))
             if self.stream_chunk and self.wire_page_size:

@@ -52,9 +52,6 @@ from ..ndarray import random as _random
 __all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json",
            "Executor"]
 
-ANALYSIS_SLICE = ("Symbol.validate (the mxlint graph pass) comes with "
-                  "contrib.analysis, ROADMAP Queue A item 10.4(d)")
-
 _META = torch.device("meta")
 
 
@@ -437,8 +434,17 @@ class Symbol:
                 return None
         return entry_structs, var_structs
 
-    def validate(self, params=None, **input_shapes):
-        raise NotImplementedError(ANALYSIS_SLICE)
+    def validate(self, params: Optional[Dict[str, Any]] = None,
+                 **input_shapes):
+        """Static graph-validity check (mxlint rule MXL100): shape and
+        dtype inference node by node on the meta device, returning a
+        list of :class:`mxtpu_torch.contrib.analysis.GraphIssue`, empty
+        when the graph is consistent. The first inconsistent node is
+        reported with its op name and inferred input shapes; the ONNX
+        exporter runs the same pass before conversion."""
+        from ..contrib.analysis.graph import validate_graph
+        return validate_graph(self, params=params,
+                              input_shapes=input_shapes)
 
     # -- serialization -------------------------------------------------------
     def tojson(self) -> str:

@@ -574,7 +574,7 @@ class HBMLedger:
         (non-reentrant) lock: releasing there would wait on that lock
         forever. So this only queues the release (a deque append takes
         no lock); the next call into the ledger applies it."""
-        self._pending.append((category, name))
+        self._pending.append((category, name))  # noqa: MXL201 — a finalizer takes no lock; deque.append is atomic
 
     def breakdown(self) -> Dict[str, int]:
         with self._lock:

@@ -277,7 +277,7 @@ def test_utils_match_mxtpu(tmp_path):
     assert not tmx.gluon.utils.check_sha1(str(f), "0" * 40)
 
 
-def test_later_slices_raise():
+def test_later_slices_raise(tmp_path):
     from mxtpu_torch.parallel import mesh as tmesh
     net = mlp(tmx, "r_")
     with pytest.raises(NotImplementedError, match="item 11"):
@@ -286,8 +286,16 @@ def test_later_slices_raise():
         net.shard(tmesh.create_mesh(dp=2), None)
     with pytest.raises(NotImplementedError, match="item 11"):
         net.shard(None, None)
-    with pytest.raises(NotImplementedError, match="item 10.4"):
-        net.export_stablehlo("x")
+    # ported: export_stablehlo writes a torch.export archive that
+    # contrib.deploy loads and runs without the net
+    enet = mlp(tmx, "e_")
+    enet.initialize(ctx="cpu")
+    x = tmx.nd.array(X, ctx="cpu")
+    path = enet.export_stablehlo(str(tmp_path / "e"), x)
+    assert path.endswith(".pt2")
+    np.testing.assert_array_equal(
+        tmx.contrib.deploy.load(path, ctx="cpu")(x).asnumpy(),
+        enet(x).asnumpy())
     with pytest.raises(OSError, match="x.rec"):     # ported: no such file
         tmx.io.ImageRecordIter(path_imgrec="x.rec", data_shape=(3, 8, 8),
                                ctx="cpu")

@@ -229,7 +229,16 @@ def test_port_imports_no_jax():
             "mxtpu_torch.tools.synth_images, mxtpu_torch.tools.input_ab, "
             "mxtpu_torch.tools.decode_contention, mxtpu_torch.operator, "
             "mxtpu_torch.ndarray.sparse, "
-            "mxtpu_torch.contrib.quantization\n"
+            "mxtpu_torch.contrib.quantization, mxtpu_torch.contrib.text, "
+            "mxtpu_torch.contrib.summary, mxtpu_torch.contrib.deploy, "
+            "mxtpu_torch.contrib.onnx, mxtpu_torch.contrib.onnx._export, "
+            "mxtpu_torch.contrib.onnx._import, "
+            "mxtpu_torch.contrib.analysis, "
+            "mxtpu_torch.contrib.analysis.rules, "
+            "mxtpu_torch.contrib.analysis.deep, "
+            "mxtpu_torch.contrib.analysis.graph, "
+            "mxtpu_torch.contrib.analysis.lockcheck, "
+            "mxtpu_torch.tools.mxlint, mxtpu_torch.tools.op_host_ab\n"
             "assert mxtpu_torch.gluon is mxtpu_torch.gluon and "
             "mxtpu_torch.init is mxtpu_torch.initializer\n"
             "bad = [m for m in sys.modules if m == 'jax' or "

@@ -107,9 +107,15 @@ def test_contrib_names():
                                              "boolean_mask", "chaos"}):
         assert getattr(tmx.contrib, name) is not None, name
     assert inspect.ismodule(tmx.contrib.quantization)
-    for name in ("onnx", "text", "deploy", "analysis"):
-        with pytest.raises(AttributeError, match=r"item 10\.4\(d\)"):
-            getattr(tmx.contrib, name)
+    # ported: the six names resolve to the port's modules of the
+    # reference's names (tensorboard is summary in both)
+    for name in ("onnx", "text", "summary", "tensorboard", "deploy",
+                 "analysis"):
+        mine, ref = getattr(tmx.contrib, name), getattr(jcon, name)
+        assert inspect.ismodule(mine), name
+        assert mine.__name__ == ref.__name__.replace("mxtpu.",
+                                                     "mxtpu_torch.", 1)
+    assert tmx.contrib.tensorboard is tmx.contrib.summary
 
 
 def test_item_10_4b_names_resolve():

@@ -279,15 +279,21 @@ def test_dropout_symbol_train_vs_test():
     assert np.allclose(out_train[out_train > 0], 2.0)
 
 
-def test_parameter_var_and_later_sub_items():
+def test_parameter_var_and_later_sub_items(tmp_path):
     p = tmx.gluon.Parameter("w", shape=(2, 3))
     v = p.var()
     assert v.name == "w" and v.attr("__shape__") == "(2, 3)"
     assert v.tojson() == jmx.gluon.Parameter("w", shape=(2, 3)).var().tojson()
-    with pytest.raises(NotImplementedError, match="item 10.4"):
-        tmx.gluon.nn.Dense(2, in_units=2).export_stablehlo("x")
-    with pytest.raises(NotImplementedError, match="item 10.4"):
-        v.validate()
+    # ported: export_stablehlo writes a loadable archive, and a var whose
+    # shape is declared validates clean
+    net = tmx.gluon.nn.Dense(2, in_units=2)
+    net.initialize(ctx="cpu")
+    x = tmx.nd.array(np.ones((3, 2), np.float32), ctx="cpu")
+    path = net.export_stablehlo(str(tmp_path / "x"), x)
+    from mxtpu_torch.contrib import deploy
+    np.testing.assert_array_equal(deploy.load(path, ctx="cpu")(x).asnumpy(),
+                                  net(x).asnumpy())
+    assert v.validate() == []
 
 
 # ---------------------------------------------------------------------------
