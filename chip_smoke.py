@@ -259,6 +259,29 @@ host's cost of a call.
    bit. Save, wait and restore seconds; launches exactly 4 steps' (2
    forward and 1 of each backward kernel a layer) plus 2 forward a
    held-out evaluation (step 0's and each gated candidate's).
+   (e) ``mesh``, between ``train`` and ``flywheel`` (multi-device
+   training, ROADMAP item 11a), with the launch counts set to 0 before
+   each step or call and read after: (a) ``dist.initialize`` makes a
+   one-rank NCCL group on the card (a ``file://`` store under
+   ``build/``) and ``create_mesh(dp=-1)`` a DeviceMesh over it; the
+   train phase's model, seed and batch through ``make_train_step(
+   loss_fn(cfg, mesh), adamw(3e-4), mesh, sharding_rules(cfg))`` for 3
+   steps, losses bit-equal to the unsharded step's on the same weights,
+   8 forward and 4 of each backward flash launch a step, step seconds
+   beside the unsharded ones (the train phase's steps: the same weights,
+   batch and optimizer), and the collectives the port issued and DTensor
+   ran (``CommDebugMode`` around the first step, which its hook slows):
+   none at world size 1, so one card cannot show their cost. (b) The slice's
+   bf16 weights at 32 layers, ``forward`` of its (1, 2048) tokens with
+   ``attn_impl="ring"`` and ``"ulysses"`` on a one-rank sp mesh (plain
+   attention, no kernel): logits within 5e-2 of the flash logits of the
+   same weights. (c) ``GluonLlama`` at 4 layers ``shard``-ed on the mesh
+   by the rules, ``make_fused_step``: one CUDA graph (the capture call
+   launches twice a step's kernels, replays none), sgd losses within
+   1e-4 of the classic Gluon step's. (d) 4 gloo ranks of this host's
+   torch on its CPU (``CUDA_VISIBLE_DEVICES`` empty) run the tests'
+   tiny Llama on dp=2 × tp=2: losses and every gradient within 1e-5 of
+   the largest magnitude of the one-rank CPU run's.
 
 7. kernel_conv: the conv3x3 implicit-GEMM kernel against its plain
    version (``conv3x3_plain`` in f32 on the same bf16 values) within
@@ -662,6 +685,7 @@ Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result when no
 CUDA card is visible or when the package is not beside the script.
 """
+import contextlib
 import functools
 import json
 import math
@@ -3831,6 +3855,7 @@ def train_phase():
         losses.append(loss.item())
     ntok = tokens.numel()
     READINGS["train"] = train_readings(cfg, tokens, seconds, builds)
+    READINGS["train_steps"] = (losses, seconds)      # for the mesh phase
     final = pstep.make_eval_step(llama.loss_fn(cfg))(state.params,
                                                      batch).item()
     emit({"phase": "train", "steps": TRAIN_STEPS, "lr": TRAIN_LR,
@@ -3862,6 +3887,276 @@ def train_phase():
     del params
     torch.cuda.empty_cache()
     return {k: total[k] + keyed[k] for k in want}
+
+
+MESH_CPU_RANKS = 4          # (d): gloo ranks on the host's CPU
+MESH_CPU_AXES = {"dp": 2, "tp": 2}
+MESH_CPU_TOL = 1e-5         # (d) vs the one-rank run, of the largest |x|
+MESH_CPU_TIMEOUT = 300
+
+
+def _tiny_mesh_run(mesh):
+    """The tests' tiny Llama (f32) on seeded numpy weights and tokens:
+    the loss gradients (whole, by leaf) and TRAIN_STEPS sgd losses
+    through ``make_train_step``, on ``mesh`` (None: one rank)."""
+    import torch
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.parallel import optim, sharding as S, step as pstep
+    from mxtpu_torch.parallel._tree import path_str, tree_flatten_with_path
+    cfg = replace(llama.CONFIGS["tiny"], dtype=torch.float32, remat=False)
+    rng = np.random.default_rng(SEED)
+    shapes = llama.init_params(cfg, torch.Generator(), device="meta")
+    tree = llama.params_to_numpy({
+        k: ({kk: torch.from_numpy(rng.standard_normal(tuple(vv.shape))
+                                  .astype(np.float32) * 0.1)
+             for kk, vv in v.items()} if isinstance(v, dict) else
+            torch.from_numpy(rng.standard_normal(tuple(v.shape))
+                             .astype(np.float32) * 0.1))
+        for k, v in shapes.items()})
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16)))
+    rules = None if mesh is None else llama.sharding_rules(cfg)
+    params = llama.params_from_numpy(tree, device="cpu")
+    if mesh is not None:
+        params = S.shard_pytree(params, mesh, rules)
+    leaves = [t.requires_grad_() for _, t in tree_flatten_with_path(params)]
+    names = [path_str(q) for q, _ in tree_flatten_with_path(params)]
+    with S.spmd(mesh):
+        loss = llama.loss_fn(cfg, mesh)(params, {
+            "tokens": tokens if mesh is None else S.mcon(mesh, tokens,
+                                                         ("dp", "fsdp"))})
+        loss = loss if mesh is None else S.mcon(mesh, loss)
+        grads = torch.autograd.grad(loss, leaves)
+    grads = {n: S.to_full(g).detach().numpy() for n, g in zip(names, grads)}
+    tx = optim.sgd(0.1)
+    state = pstep.init_state(llama.params_from_numpy(tree, device="cpu"), tx,
+                             mesh, rules)
+    step = pstep.make_train_step(llama.loss_fn(cfg, mesh), tx, mesh, rules)
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, loss = step(state, {"tokens": tokens})
+        losses.append(float(loss))
+    return losses, grads
+
+
+def mesh_cpu_rank(rank, world, store, out):
+    """One gloo rank of (d): the tiny Llama on MESH_CPU_AXES; rank 0
+    writes the results to ``out``."""
+    import pickle
+    import torch
+    from mxtpu_torch.parallel import dist
+    from mxtpu_torch.parallel.mesh import create_mesh
+    torch.set_num_threads(1)
+    dist.initialize(num_processes=world, process_id=rank, device="cpu",
+                    init_method=f"file://{store}", timeout=MESH_CPU_TIMEOUT)
+    res = _tiny_mesh_run(create_mesh(**MESH_CPU_AXES))
+    if rank == 0:
+        with open(out, "wb") as f:
+            pickle.dump((res, torch.__version__), f)
+    dist.shutdown()
+
+
+def mesh_cpu_ranks():
+    """(d): MESH_CPU_RANKS gloo ranks of this host's torch on its CPU
+    against the one-rank CPU run: the largest difference of the losses
+    and of each gradient, over the largest magnitude."""
+    import pickle
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(build_dir(), "mesh_cpu")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    store, out = os.path.join(work, "store"), os.path.join(work, "out.pkl")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke as c; c.mesh_cpu_rank({r}, {MESH_CPU_RANKS}, "
+         f"{store!r}, {out!r})"], cwd=here, env=env)
+        for r in range(MESH_CPU_RANKS)]
+    try:
+        codes = [p.wait(timeout=MESH_CPU_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    seconds = time.perf_counter() - t0
+    if any(codes):
+        raise AssertionError(f"the CPU ranks exited with {codes}")
+    with open(out, "rb") as f:
+        (losses, grads), torch_version = pickle.load(f)
+    shutil.rmtree(work, ignore_errors=True)
+    want_losses, want_grads = _tiny_mesh_run(None)
+
+    def rel(a, b):
+        return float(np.abs(np.asarray(a) - np.asarray(b)).max()
+                     / max(np.abs(np.asarray(b)).max(), 1e-30))
+    rels = {"losses": rel(losses, want_losses)}
+    rels.update({n: rel(grads[n], want_grads[n]) for n in want_grads})
+    return {"ranks": MESH_CPU_RANKS, "mesh": MESH_CPU_AXES,
+            "backend": "gloo", "torch": torch_version, "losses": losses,
+            "one_rank_losses": want_losses, "rel": rels,
+            "bound": MESH_CPU_TOL, "seconds": seconds}
+
+
+def _mesh_steps(cfg, params, tx, batch, mesh=None, rules=None):
+    """TRAIN_STEPS steps of ``make_train_step`` from ``params`` (on
+    ``mesh`` by ``rules``): losses, step seconds, launches, the
+    collectives the port issued in each step and those DTensor ran in
+    the first (counted by ``CommDebugMode``, whose dispatch hook slows
+    the step it watches)."""
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.parallel import collectives, step as pstep
+    state = pstep.init_state(params, tx, mesh, rules)
+    step = pstep.make_train_step(llama.loss_fn(cfg, mesh), tx, mesh, rules)
+    losses, seconds, launches, issued, dtensor = [], [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        reset_launches()
+        before = sum(collectives.issued.values())
+        comm = CommDebugMode() if not dtensor else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with comm:
+            state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches.append(read_launches())
+        issued.append(sum(collectives.issued.values()) - before)
+        if not dtensor:
+            dtensor.append(comm.get_total_counts())
+        losses.append(loss.item())
+    del state, step
+    torch.cuda.empty_cache()
+    return losses, seconds, launches, issued, dtensor
+
+
+def mesh_phase():
+    """(a)-(d) of ``mesh``: the train step on a one-rank NCCL mesh
+    against the unsharded one, ring and Ulysses forwards on a one-rank
+    sp mesh, the fused Gluon step on the mesh, and the multi-rank
+    parity on the host's CPU."""
+    import torch
+    from mxtpu_torch.models import llama
+    from mxtpu_torch.parallel import dist, optim
+    from mxtpu_torch.parallel.mesh import create_mesh
+    from mxtpu_torch.parallel.sharding import shard_pytree, to_full
+    t_phase = time.perf_counter()
+    work = os.path.join(build_dir(), "mesh_nccl")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    dist.initialize(num_processes=1, process_id=0, device="cuda:0",
+                    init_method=f"file://{os.path.join(work, 'store')}",
+                    timeout=MESH_CPU_TIMEOUT)
+    try:
+        mesh = create_mesh(dp=-1)
+        backend = torch.distributed.get_backend()
+        if not mesh.distributed or backend != "nccl":
+            raise AssertionError(f"the mesh is not a NCCL group: {backend}")
+        # (a) the train phase's model, seed and tokens
+        cfg = replace(llama.CONFIGS["llama3_8b"], n_layers=TRAIN_LAYERS)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = llama.init_params(cfg, gen, device="cuda")
+        tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen,
+                               device="cuda")
+        batch = {"tokens": tokens}
+        # the unsharded step on these weights and batch: the train
+        # phase's, or run here when this phase runs alone
+        one = READINGS.get("train_steps") or \
+            _mesh_steps(cfg, params, optim.adamw(TRAIN_LR), batch)[:2]
+        sharded = _mesh_steps(cfg, params, optim.adamw(TRAIN_LR), batch,
+                              mesh, llama.sharding_rules(cfg))
+        del params
+        torch.cuda.empty_cache()
+        per_step = only(flash_attention_fwd=2 * cfg.n_layers,
+                        flash_attention_bwd_dkv=cfg.n_layers,
+                        flash_attention_bwd_dq=cfg.n_layers)
+        row_a = {"config": "llama3_8b", "n_layers": cfg.n_layers,
+                 "world_size": dist.process_count(), "backend": backend,
+                 "losses": sharded[0], "unsharded_losses": one[0],
+                 "bit_equal": sharded[0] == one[0],
+                 "step_seconds": sharded[1],
+                 "unsharded_step_seconds": one[1], "launches": sharded[2],
+                 "port_collectives": sharded[3],
+                 "dtensor_collectives_first_step": sharded[4][0],
+                 "note": "world size 1: the collectives move nothing; one "
+                         "card cannot show their cost"}
+        if sharded[0] != one[0]:
+            raise AssertionError(f"sharded losses {sharded[0]} != unsharded "
+                                 f"{one[0]}")
+        if any(n != per_step for n in sharded[2]):
+            raise AssertionError(f"a sharded step launched {sharded[2]}, "
+                                 f"not {per_step}")
+
+        # (b) ring and Ulysses at full width: the forward phase's weights
+        fcfg = replace(llama.CONFIGS["llama3_8b"], param_dtype=torch.bfloat16)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = llama.init_params(fcfg, gen, device="cuda")
+        tokens = torch.randint(0, fcfg.vocab_size, (1, 2048), generator=gen,
+                               device="cuda")
+        with torch.no_grad():
+            flash = llama.forward(fcfg, params, tokens)
+        sp_mesh = create_mesh(dp=1, sp=-1)
+        placed = shard_pytree(params, sp_mesh, llama.sharding_rules(fcfg))
+        del params
+        row_b = {}
+        for impl in ("ring", "ulysses"):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                got = to_full(llama.forward(replace(fcfg, attn_impl=impl),
+                                            placed, tokens, sp_mesh))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            rel = rel_dist(got, flash)
+            row_b[impl] = {"rel_vs_flash": rel, "seconds": secs,
+                           "finite": bool(torch.isfinite(got).all()),
+                           "launches": read_launches()}
+            del got
+            if not (row_b[impl]["finite"] and rel <= LOGITS_REL_BOUND):
+                raise AssertionError(f"{impl} logits {rel} from flash's "
+                                     f"(bound {LOGITS_REL_BOUND})")
+            if row_b[impl]["launches"] != only():
+                raise AssertionError(f"{impl} launched kernels: "
+                                     f"{row_b[impl]['launches']}")
+        del placed, flash
+        torch.cuda.empty_cache()
+
+        # (c) the fused Gluon step on the mesh, against the classic step
+        tokens = batch["tokens"]
+        classic = gluon_llama_steps(cfg, tokens, "sgd", GLUON_SGD_LR)
+        fused = gluon_fused_steps(cfg, tokens, "sgd", GLUON_SGD_LR,
+                                  TRAIN_STEPS, mesh=mesh,
+                                  rules=llama.sharding_rules(cfg))
+        at_capture = {k: 2 * v for k, v in per_step.items()}
+        row_c = {"losses": fused[0], "classic_losses": classic[0],
+                 "bit_equal": fused[0] == classic[0],
+                 "step_seconds": fused[1], "classic_step_seconds": classic[1],
+                 "launches": fused[2], "num_compiles": fused[3],
+                 "peak_gb": fused[4]}
+        if fused[2][0] != at_capture or any(n != only()
+                                            for n in fused[2][1:]):
+            raise AssertionError(f"mesh fused launched {fused[2]}")
+        if any(c != 1 for c in fused[3]):
+            raise AssertionError(f"mesh fused built {fused[3]} variants")
+        # at world size 1 the mesh changes no op: bit for bit
+        if fused[0] != classic[0]:
+            raise AssertionError(f"mesh fused losses {fused[0]} != classic "
+                                 f"{classic[0]}")
+    finally:
+        dist.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (d) multi-rank parity on the host's own torch
+    row_d = mesh_cpu_ranks()
+    if not all(r <= MESH_CPU_TOL for r in row_d["rel"].values()):
+        raise AssertionError(f"CPU ranks vs one rank: {row_d['rel']}")
+    emit({"phase": "mesh", "card": nvidia_smi(), "train": row_a,
+          "ring_ulysses": row_b, "gluon_fused": row_c, "cpu_ranks": row_d,
+          "seconds": time.perf_counter() - t_phase})
+    runs = sharded[2] + classic[2] + fused[2]
+    return {k: sum(n[k] for n in runs) for k in LAUNCH_COUNTERS}
 
 
 def train_rng_phase(cfg, params, tokens, gen):
@@ -4139,9 +4434,10 @@ RNN_VOCAB, RNN_EMBED, RNN_HIDDEN, RNN_LAYERS = 33278, 650, 650, 2
 RNN_BPTT, RNN_BATCH, RNN_STEPS = 35, 32, 3
 
 
-def _fused_net(cfg):
+def _fused_net(cfg, mesh=None, rules=None):
     """GluonLlama over the train phase's seeded weights, hybridized and
-    sharded on the one-device mesh ``make_fused_step`` takes."""
+    sharded on ``mesh`` by ``rules`` (default: the one-device mesh
+    ``make_fused_step`` takes, everything replicated)."""
     import torch
     from mxtpu_torch.gluon.model_zoo import GluonLlama
     from mxtpu_torch.models import llama
@@ -4151,20 +4447,23 @@ def _fused_net(cfg):
     net = GluonLlama(cfg)
     net.load_pytree(llama.init_params(cfg, gen, device="cuda"))
     net.hybridize()
-    net.shard(create_mesh(dp=-1), ShardingRules([(r".*", P())]))
+    net.shard(mesh or create_mesh(dp=-1),
+              rules or ShardingRules([(r".*", P())]))
     return net
 
 
-def gluon_fused_steps(cfg, tokens, opt, lr, steps, edit_at=None):
-    """``Trainer.make_fused_step`` on GluonLlama: the losses, step
-    seconds and launches of each step, the captures, and the peak GB.
-    With ``edit_at``, ``trainer.set_learning_rate(2 lr)`` before that
+def gluon_fused_steps(cfg, tokens, opt, lr, steps, edit_at=None, mesh=None,
+                      rules=None):
+    """``Trainer.make_fused_step`` on GluonLlama (sharded on ``mesh`` by
+    ``rules``, default the one-device mesh): the losses, step seconds
+    and launches of each step, the captures, and the peak GB. With
+    ``edit_at``, ``trainer.set_learning_rate(2 lr)`` before that
     step."""
     import torch
     import mxtpu_torch as mx
     from mxtpu_torch.gluon import Trainer
     torch.cuda.reset_peak_memory_stats()
-    net = _fused_net(cfg)
+    net = _fused_net(cfg, mesh, rules)
     trainer = Trainer(net.collect_params(), opt, {"learning_rate": lr})
     step = trainer.make_fused_step(net)      # net(tokens, tokens) -> loss
     tok = mx.nd.NDArray(tokens)
@@ -7698,6 +7997,8 @@ def main():
     _release_gateway()        # what the serving tier's cycles still hold
     train_launches = train_phase()
     torch.cuda.empty_cache()
+    mesh_launches = mesh_phase()
+    torch.cuda.empty_cache()
     flywheel_launches = flywheel_phase()
     _release_gateway()
     resnet_launches = resnet_phase()
@@ -7722,7 +8023,7 @@ def main():
     contrib_launches = contrib_phase()
     telemetry_phase()
     launches = {k: fwd_launches[k] + train_launches[k]
-                + flywheel_launches[k] + resnet_launches[k]
+                + mesh_launches[k] + flywheel_launches[k] + resnet_launches[k]
                 + probe_launches[k] + frontend_launches[k]
                 + random_launches[k] + serde_launches[k]
                 + mixtral_launches[k] + bert_launches[k]

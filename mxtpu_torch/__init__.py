@@ -100,7 +100,7 @@ _LAZY = {"gluon": "mxtpu_torch.gluon", "optimizer": "mxtpu_torch.optimizer",
 
 # the reference's other lazy names, each with the ROADMAP item that
 # brings it
-_LATER = {"kvstore": "item 11", "kv": "item 11"}
+_LATER = {"kvstore": "item 11b", "kv": "item 11b"}
 
 
 def __getattr__(name):

@@ -33,10 +33,14 @@ How a call runs:
 - **otherwise** (training mode without recording, or on the CPU):
   ``raw`` runs plainly.
 
-``shard(mesh, rules)`` takes a one-device mesh (``parallel.mesh``):
-every parameter stays whole on that device (``hybridize(mesh=,
-rules=)`` is sugar for it). A mesh across devices raises (ROADMAP
-Queue A item 11).
+``shard(mesh, rules)`` (``hybridize(mesh=, rules=)`` is sugar for it)
+places every parameter on a mesh (``parallel.mesh``) by the rule table:
+on a mesh of a process group each becomes a DTensor laid out by its
+rule, inputs are laid out replicated on the mesh (a DTensor the caller
+laid out passes as it is), and a call runs with the mesh ambient and
+plain tensors taken as replicated (``parallel.sharding.spmd``), so the
+model's ``constrain``s and ring/Ulysses attention bind to it. On the
+one-device placement each parameter stays whole on its device.
 
 ``export`` traces the block with ``F = mx.sym`` (each child's
 ``hybrid_forward`` composes symbols, its parameters become variables)
@@ -65,13 +69,10 @@ from ..cuda_graphs import capture_graph, graphs_on
 from ..ndarray import NDArray
 from ..ndarray import random as _random
 from ..ndarray.ndarray import _parents_of
+from ..parallel import sharding as _sharding
 from .parameter import (DeferredInitializationError, Parameter, ParameterDict)
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock"]
-
-MESH_SLICE = ("mesh sharding of a Gluon block over more than one device "
-              "comes with the multi-device slice (ROADMAP Queue A item 11)")
-
 
 # ---------------------------------------------------------------------------
 # naming
@@ -294,14 +295,21 @@ class Block:
     def shard(self, mesh, rules) -> "Block":
         """Place every Parameter on ``mesh`` by the rule table, keyed on
         parameter names (reference ``Block.shard``), and mark the block
-        tree with the mesh ``Trainer.make_fused_step`` needs. On a
-        one-device mesh each parameter stays whole, on the mesh's device
-        (or where it is, for a mesh built without devices); gradient
-        buffers are re-created zeroed, so do not call it mid-accumulation.
-        Compiled caches of this block and its children are cleared."""
+        tree with the mesh ``Trainer.make_fused_step`` needs. On a mesh
+        of a process group each parameter becomes a DTensor laid out by
+        its rule (every rank holds the same values, and keeps its
+        chunk); on the one-device placement it stays whole, on the
+        mesh's device (or where it is, for a mesh built without
+        devices). Gradient buffers are re-created zeroed, in the same
+        layout, so do not call it mid-accumulation. Compiled caches of
+        this block and its children are cleared."""
         from ..parallel.mesh import Mesh
-        if not isinstance(mesh, Mesh) or mesh.size != 1:
-            raise NotImplementedError(MESH_SLICE)
+        from ..parallel.sharding import global_device_put
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"shard takes a parallel.mesh.Mesh "
+                            f"(create_mesh), not {type(mesh).__name__}")
+        if rules is None:
+            raise TypeError("shard needs a ShardingRules table")
         for p in self.collect_params().values():
             if p._data is None:
                 if p._deferred_init:
@@ -313,10 +321,14 @@ class Block:
                     "initialize() before shard()")
             placement = rules.sharding(mesh, p.name)
             placement._check_axes()
-            if mesh.device is not None and \
+            if mesh.distributed:
+                with autograd.pause():
+                    p._data._set_data(global_device_put(
+                        p._data._data.detach(), placement))
+            elif mesh.device is not None and \
                     p._data._data.device != mesh.device:
                 p.reset_ctx(mesh.device)
-            if p._grad_req != "null":      # grads live on the same device
+            if p._grad_req != "null":      # grads take the same layout
                 p._data.attach_grad(p._grad_req)
             p._sharding = placement
 
@@ -474,10 +486,39 @@ class HybridBlock(Block):
             raw = self._build_raw(training, in_tree, len(flat_in), cache_key)
             self._raw_cache[cache_key] = raw
         datas = [a._data if isinstance(a, NDArray) else a for a in flat_in]
+        mesh = getattr(self, "_mesh", None)
+        if mesh is not None and mesh.distributed:
+            # inputs live on the params' mesh: replicated, unless the
+            # caller laid them out on it already
+            from ..parallel.sharding import global_device_put, replicated
+            datas = [global_device_put(d, replicated(mesh))
+                     if isinstance(d, torch.Tensor) and not
+                     _sharding.is_dtensor(d) else d for d in datas]
         datas += [p.data()._data for p in params]
         device = next((d.device for d in datas
                        if isinstance(d, torch.Tensor)), torch.device("cpu"))
         datas.append(_random._next_key(device))
+        with _sharding.spmd(mesh):
+            outs, aux, node = self._run_cached(raw, cache_key, datas,
+                                               flat_in, params, training)
+        # write mutated aux state back into the real parameters
+        with autograd.pause():
+            for p, v in zip(self._aux_params_for[cache_key], aux):
+                p.set_data(v.detach())
+        out_nds = []
+        for i, o in enumerate(outs):
+            r = NDArray(o)
+            if node is not None:
+                r._ag = (node, i)
+            out_nds.append(r)
+        res = _unflatten_nds(self._out_tree_for[cache_key], out_nds, [0])
+        return res[0] if len(res) == 1 else res
+
+    def _run_cached(self, raw, cache_key, datas, flat_in, params, training):
+        """``raw`` on ``datas``: as the signature's CUDA graph in predict
+        mode on the card, else through the tape's funnel. Returns
+        (outputs, aux, tape node or None)."""
+        device = datas[-1].device
         if graphs_on(device) and not training \
                 and not autograd.is_recording():
             outs, aux = self._replay(raw, cache_key, datas, len(flat_in),
@@ -494,18 +535,7 @@ class HybridBlock(Block):
                  for a in parent_arrays])
             (outs, aux), node = autograd.invoke(
                 raw, datas, parents, f"CachedOp[{self.name}]", has_aux=True)
-        # write mutated aux state back into the real parameters
-        with autograd.pause():
-            for p, v in zip(self._aux_params_for[cache_key], aux):
-                p.set_data(v.detach())
-        out_nds = []
-        for i, o in enumerate(outs):
-            r = NDArray(o)
-            if node is not None:
-                r._ag = (node, i)
-            out_nds.append(r)
-        res = _unflatten_nds(self._out_tree_for[cache_key], out_nds, [0])
-        return res[0] if len(res) == 1 else res
+        return outs, aux, node
 
     def _build_raw(self, training: bool, in_tree, n_in: int, cache_key):
         params = self._cached_op_params

@@ -27,6 +27,14 @@ before the capture:
 
 On the CPU the same step body runs eagerly, once per call.
 
+On a mesh of a process group the step's tensors are DTensors in the
+layout ``shard`` gave the parameters (the optimizer state is made from
+them, so it takes their layout), the step runs with the mesh ambient
+and plain tensors taken as replicated (``parallel.sharding.spmd``),
+each gradient is reduced to its parameter's layout (the mesh's
+gradient reduction), AMP's overflow decision is agreed by an all-reduce
+over the group, and the loss comes back whole on every rank.
+
 The update rules are pure functions of (w, g, state) and 0-d tensors
 lr, wd, rescale and t, one per optimizer family, computing the
 reference's ``_pure_*`` ops in the same order. With dynamic AMP
@@ -55,7 +63,8 @@ from ..base import MXNetError
 from ..cuda_graphs import capture_graph, graphs_on
 from ..ndarray import NDArray
 from ..ndarray import random as _random
-from ..parallel.mesh import use_mesh
+from ..parallel import sharding as _sharding
+from ..parallel.step import _all_finite, _reduce_grad
 from .block import _TRACE_DEPTH
 
 __all__ = ["make_fused_step"]
@@ -346,6 +355,7 @@ def make_fused_step(trainer, net, loss_fn: Optional[Callable] = None,
     live = [p for p in params if p.grad_req != "null"]
     frozen = [p for p in params if p.grad_req == "null"]
     device = params[0]._data._data.device
+    on_mesh = mesh.distributed
 
     def ints(values):
         # fold-in data as device tensors made here, never inside a capture
@@ -415,8 +425,10 @@ def make_fused_step(trainer, net, loss_fn: Optional[Callable] = None,
                 f"{tuple(loss.shape)} — reduce (e.g. .mean()) in loss_fn")
         # differentiate the scaled loss (AMP); the caller sees the true one
         target = loss * scale if scale is not None else loss
+        if on_mesh:
+            target = _sharding.mcon(mesh, target)   # the loss, every rank
         grads = torch.autograd.grad(target, leaves, allow_unused=True)
-        grads = [torch.zeros_like(w) if g is None else g
+        grads = [torch.zeros_like(w) if g is None else _reduce_grad(g, w)
                  for w, g in zip(live_vals, grads)]
         return loss.detach(), aux, grads
 
@@ -452,8 +464,7 @@ def make_fused_step(trainer, net, loss_fn: Optional[Callable] = None,
             aux = [froz[j] for j in mutated_idx]
         hyper = S.hyper
         if dynamic_amp:
-            finite = torch.stack([torch.isfinite(g).all()
-                                  for g in grads]).all()
+            finite = _all_finite(None, grads, on_mesh)
             t = S.amp["t"] + 1                  # applied-update count
             # unscale by division in float32, cast back
             grads = [(g.to(torch.float32) / scale).to(g.dtype)
@@ -608,7 +619,7 @@ def make_fused_step(trainer, net, loss_fn: Optional[Callable] = None,
         sig = tuple((tuple(b.shape), b.dtype) for b in raw)
         var = box["variants"].get(sig)
         graphs = graphs_on(device)
-        with use_mesh(mesh):
+        with _sharding.spmd(mesh):
             if var is None:
                 var = _Variant()
                 var.graph = None
@@ -641,7 +652,7 @@ def make_fused_step(trainer, net, loss_fn: Optional[Callable] = None,
                 "fused_step", loss, None,
                 "its parameters and optimizer state are already updated, "
                 "so an eager re-run would step again")
-        return NDArray(loss.clone())
+        return NDArray(_sharding.to_full(loss).clone())
 
     def state_dict():
         """What a resume needs, as one tree of tensors: every parameter

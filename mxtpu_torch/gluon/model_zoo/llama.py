@@ -129,10 +129,13 @@ class GluonLlama(HybridBlock):
         attrs = list(self._paths)
         arrays = [ps[a] for a in attrs]
         cfg = self._cfg
+        # the shard() mesh rides into the functional core (its
+        # constrains, and ring/ulysses attention's sp axis)
+        mesh = getattr(self, "_mesh", None)
         if labels is None:
             def logits(tok, *leaves):
-                return _fl.forward(cfg, self._pytree(dict(zip(attrs,
-                                                               leaves))), tok)
+                return _fl.forward(cfg, self._pytree(dict(zip(attrs, leaves))),
+                                   tok, mesh)
             # the bridge into the functional model: the tape's funnel,
             # never a Symbol trace
             return apply_op(logits, [tokens] + arrays,  # mxlint: disable=MXL001
@@ -142,7 +145,7 @@ class GluonLlama(HybridBlock):
                 "GluonLlama loss mode: labels must BE the input token "
                 f"sequence (got {labels.shape} vs {tokens.shape}); the "
                 "causal shift is internal")
-        loss_fn = _fl.loss_fn(cfg)
+        loss_fn = _fl.loss_fn(cfg, mesh)
 
         def loss(tok, *leaves):
             return loss_fn(self._pytree(dict(zip(attrs, leaves))),

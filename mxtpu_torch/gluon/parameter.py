@@ -2,7 +2,7 @@
 ``mxtpu/gluon/parameter.py`` (reference ``python/mxnet/gluon/parameter.py``).
 
 A Parameter owns one NDArray on one device (the reference's multi-device
-copies wait for ROADMAP Queue A item 11). Deferred shape inference keeps
+copies wait for ROADMAP Queue A item 11b). Deferred shape inference keeps
 the reference's semantics: unknown dims are 0 until the first forward
 resolves them. During a hybridized call (the CachedOp of
 ``gluon.block``) the parameter is *bound* to the tensor the call was

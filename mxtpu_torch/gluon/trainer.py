@@ -12,7 +12,7 @@ scale shrinks. ``make_fused_step`` builds the one-program step of
 ``gluon/fused.py``.
 
 A distributed or ``tpu_sync`` kvstore, or a kvstore object, waits for
-the multi-device slice (ROADMAP Queue A item 11) and raises.
+ROADMAP Queue A item 11b and raises.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from .parameter import Parameter, ParameterDict
 __all__ = ["Trainer", "opt_fingerprint"]
 
 KVSTORE_SLICE = ("a distributed kvstore comes with the multi-device slice "
-                 "(ROADMAP Queue A item 11); use kvstore='device' or None")
+                 "(ROADMAP Queue A item 11b); use kvstore='device' or None")
 
 # attributes that change every step and never enter a fingerprint
 _FP_BASE_SKIP = frozenset({"_index_update_count", "num_update",

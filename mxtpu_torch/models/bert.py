@@ -17,6 +17,7 @@ the tanh approximation, as ``jax.nn.gelu(approximate=True)`` is.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -27,6 +28,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..context import DeviceLike, resolve_device
 from ..ops.attention import dense_attention
+from ..parallel.collectives import PartialOver, shard_map
+from ..parallel.mesh import Mesh
+from ..parallel.sharding import P, ShardingRules, spmd
 from ._numpy_tree import params_from_numpy, params_to_numpy
 
 __all__ = ["BertConfig", "CONFIGS", "init_params", "forward", "mlm_logits",
@@ -132,12 +136,25 @@ def init_params(cfg: BertConfig, generator: Optional[torch.Generator] = None,
     }
 
 
-def sharding_rules(cfg: Optional[BertConfig] = None):
-    """``mxtpu``'s tp/fsdp placement rules: raises until the multi-device
-    slice."""
-    raise NotImplementedError(
-        "sharding rules come with the multi-device slice (ROADMAP Queue A "
-        "item 11)")
+def sharding_rules(cfg: Optional[BertConfig] = None) -> ShardingRules:
+    """``mxtpu``'s placement: tp over attention heads and the FFN inner
+    dim, fsdp over the first axis of the big tables (llama's recipe).
+    With ``scan_layers`` (the default) the per-layer params carry a
+    leading layer dim, never sharded."""
+    scan = cfg.scan_layers if cfg is not None else True
+    return ShardingRules([
+        (r".*tok_emb", P("fsdp", "tp")),
+        (r".*pos_emb", P(None, "tp")),
+        (r".*qkv_w", P(None, "fsdp", "tp") if scan else P("fsdp", "tp")),
+        (r".*attn_out_w", P(None, "tp", "fsdp") if scan
+         else P("tp", "fsdp")),
+        (r".*ffn_in_w", P(None, "fsdp", "tp") if scan
+         else P("fsdp", "tp")),
+        (r".*ffn_out_w", P(None, "tp", "fsdp") if scan
+         else P("tp", "fsdp")),
+        (r".*mlm_w", P("fsdp", "tp")),
+        (r".*", P()),
+    ])
 
 
 # ---------------------------------------------------------------------------
@@ -223,28 +240,55 @@ def mlm_logits(cfg: BertConfig, params, seq_out):
     return h @ params["tok_emb"].float().T + params["mlm_bias"].float()
 
 
-def loss_fn(cfg: BertConfig):
+def _loss_sums(cfg: BertConfig, params, batch):
+    """(Σ w·nll over the MLM positions, Σ w, Σ the NSP label log-probs
+    (0 without labels), the batch rows) of one batch."""
+    seq_out, pooled = forward(cfg, params, batch["tokens"],
+                              batch.get("token_types"), batch["mask"])
+    pos = batch["mlm_positions"].long()                      # (B, P)
+    gathered = seq_out.gather(
+        1, pos[..., None].expand(-1, -1, seq_out.shape[-1]))
+    logp = torch.log_softmax(mlm_logits(cfg, params, gathered), dim=-1)
+    lab = batch["mlm_labels"].long()
+    nll = -logp.gather(-1, lab[..., None])[..., 0]
+    w = batch["mlm_weights"].float()
+    nsp_sum = torch.zeros((), dtype=torch.float32, device=w.device)
+    if "nsp_labels" in batch:
+        nsp = pooled @ params["nsp_w"].float() + params["nsp_b"].float()
+        nsp_logp = torch.log_softmax(nsp, dim=-1)
+        nsp_lab = batch["nsp_labels"].long()
+        nsp_sum = nsp_logp.gather(-1, nsp_lab[:, None]).sum()
+    rows = torch.full((), float(pos.shape[0]), device=w.device)
+    return (nll * w).sum(), w.sum(), nsp_sum, rows
+
+
+def loss_fn(cfg: BertConfig, mesh=None):
     """Pretraining loss over batches {'tokens', 'mask', 'mlm_positions',
     'mlm_labels', 'mlm_weights'[, 'token_types', 'nsp_labels']}: the
-    weighted MLM cross-entropy, plus NSP's when labels are present."""
+    weighted MLM cross-entropy, plus NSP's when labels are present.
+
+    On a mesh of a process group (``make_train_step(..., mesh)`` lays
+    the params out by :func:`sharding_rules` and the batch rows over
+    dp/fsdp) each rank runs its batch rows on the weights gathered whole
+    (fsdp's gather; their gradients are reduce-scattered back), and the
+    four sums are added over the batch axes before the two means."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh (create_mesh), "
+                        f"not {type(mesh).__name__}")
+    batch_axes = ("dp", "fsdp")
+    sums = partial(_loss_sums, cfg)
+    if mesh is not None and mesh.distributed:
+        sums = shard_map(sums, mesh, (P(), P(batch_axes)),
+                         (PartialOver(batch_axes),) * 4,
+                         grad_partial=(batch_axes, ()))
 
     def loss(params, batch):
-        seq_out, pooled = forward(cfg, params, batch["tokens"],
-                                  batch.get("token_types"), batch["mask"])
-        pos = batch["mlm_positions"].long()                  # (B, P)
-        gathered = seq_out.gather(
-            1, pos[..., None].expand(-1, -1, seq_out.shape[-1]))
-        logp = torch.log_softmax(mlm_logits(cfg, params, gathered), dim=-1)
-        lab = batch["mlm_labels"].long()
-        nll = -logp.gather(-1, lab[..., None])[..., 0]
-        w = batch["mlm_weights"].float()
-        total = (nll * w).sum() / w.sum().clamp_min(1.0)
-        if "nsp_labels" in batch:
-            nsp = pooled @ params["nsp_w"].float() + params["nsp_b"].float()
-            nsp_logp = torch.log_softmax(nsp, dim=-1)
-            nsp_lab = batch["nsp_labels"].long()
-            total = total - nsp_logp.gather(-1, nsp_lab[:, None]).mean()
-        return total
+        with spmd(mesh):
+            num, den, nsp_sum, rows = sums(params, batch)
+            total = num / den.clamp_min(1.0)
+            if "nsp_labels" in batch:
+                total = total - nsp_sum / rows
+            return total
     return loss
 
 

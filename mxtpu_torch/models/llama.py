@@ -29,8 +29,24 @@ dQ kernels. A config with ``moe_experts > 0`` (Mixtral) swaps each
 layer's SwiGLU for the expert bank of :mod:`mxtpu_torch.parallel.moe`:
 routed with a capacity in ``forward`` and the loss (whose load-balancing
 aux ``loss_fn`` adds), the exact dropless mixture on every serving path.
-What waits for later slices, and raises here: ring/ulysses attention
-and mesh sharding.
+
+Over a mesh of a process group (``forward``, ``forward_hidden`` and
+``loss_fn`` take ``mesh=``), the params are DTensors laid out by
+:func:`sharding_rules` (``parallel.shard_pytree`` or ``init_state``)
+and the activations DTensors laid out as the reference constrains them
+(``_ACT``: batch over dp/fsdp, sequence over sp). Each stage runs on
+each rank's local shards (``parallel.collectives.shard_map``), Megatron
+style: the embedding is a row-blocked lookup summed over ``tp``
+(:mod:`mxtpu_torch.parallel.sparse_embed`); a layer takes its weights
+with fsdp gathered (DTensor's all-gather; the gradients go back by
+reduce-scatter), projects the rank's tokens onto its ``tp`` heads and
+FFN columns, and sums the row-parallel products over ``tp``; attention
+runs on the rank's heads (the flash kernels over the whole sequence,
+gathered over ``sp`` when it is split, or ring/Ulysses attention over
+``sp``); the MoE bank routes every token and runs the rank's ``ep``
+experts; the final norm and the cross-entropy run on the rank's rows.
+Serving over a mesh (the ``mesh=`` of the cached, slot
+and paged paths) waits for ROADMAP Queue A item 11b and raises.
 
 Numerics follow ``mxtpu``: ``rms_norm`` and RoPE compute in f32, and
 the three einsums that ask for f32 results from ``cfg.dtype`` operands
@@ -54,8 +70,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .. import prng
 from ..context import DeviceLike, resolve_device
 from ..ops.attention import (dense_attention, flash_attention, gather_pages,
-                             paged_decode_attention, slot_decode_attention)
-from ..parallel.moe import moe_ffn, moe_ffn_dense
+                             paged_decode_attention, ring_attention,
+                             slot_decode_attention, ulysses_attention)
+from ..parallel.collectives import (PartialOver, allgather, allreduce,
+                                    axis_index, pvary, shard_map)
+from ..parallel.mesh import Mesh, axis_size
+from ..parallel.moe import moe_ffn, moe_ffn_dense, routed_block
+from ..parallel.sharding import (P, ShardingRules, constrain, is_dtensor,
+                                 mcon, spmd)
+from ..parallel.sparse_embed import sharded_embedding_lookup
 from ._numpy_tree import params_from_numpy, params_to_numpy
 
 __all__ = ["LlamaConfig", "CONFIGS", "init_params", "rms_norm",
@@ -66,7 +89,7 @@ __all__ = ["LlamaConfig", "CONFIGS", "init_params", "rms_norm",
            "prefill_slot", "prefill_detached", "prefill_detached_chunk",
            "inject_slot_kv", "paged_cache_specs", "init_paged_cache",
            "decode_slots_paged", "prefill_slot_paged", "inject_paged_kv",
-           "copy_page", "decode_slots_spec",
+           "copy_page", "decode_slots_spec", "sharding_rules",
            "chunked_softmax_xent", "loss_fn", "train_step_flops",
            "params_from_numpy",
            "params_to_numpy", "Llama"]
@@ -85,7 +108,7 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16      # activation/compute dtype
     param_dtype: Any = torch.float32
-    attn_impl: str = "flash"         # flash | dense (ring | ulysses: later)
+    attn_impl: str = "flash"         # flash | dense | ring | ulysses
     remat: bool = True               # recompute each layer in the backward
     remat_policy: Optional[str] = None   # None | "dots_no_batch"
     scan_layers: bool = True         # picks the aux average; layers loop
@@ -122,8 +145,52 @@ CONFIGS: Dict[str, LlamaConfig] = {
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "mesh sharding comes with the multi-device slice (ROADMAP "
-            "Queue A item 11); pass mesh=None")
+            "serving over a mesh comes with ROADMAP Queue A item 11b; "
+            "pass mesh=None")
+
+
+def _check_mesh(mesh) -> Optional[Mesh]:
+    """``mesh`` if it is one a process group spans (the DTensor path),
+    None for no mesh or the one-device placement."""
+    if mesh is None:
+        return None
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh (create_mesh), "
+                        f"not {type(mesh).__name__}")
+    return mesh if mesh.distributed else None
+
+
+# ---------------------------------------------------------------------------
+# sharding
+# ---------------------------------------------------------------------------
+def sharding_rules(cfg: Optional[LlamaConfig] = None) -> ShardingRules:
+    """``mxtpu``'s Megatron tp + fsdp placement: the stacked layer dim
+    is never sharded; embedding rows over tp (the lookup sums over tp),
+    lm_head columns over tp (vocab-parallel). A MoE config's expert
+    banks gain a leading E dim over ep, with the same fsdp/tp layout per
+    expert."""
+    L = None
+    moe = bool(cfg and cfg.moe_experts)
+    ffn_up = P(L, "ep", "fsdp", "tp") if moe else P(L, "fsdp", "tp")
+    ffn_dn = P(L, "ep", "tp", "fsdp") if moe else P(L, "tp", "fsdp")
+    return ShardingRules([
+        (r"tok_embed$", P("tp", "fsdp")),
+        (r"layers/w[qkv]$", P(L, "fsdp", "tp")),       # column parallel
+        (r"layers/wo$", P(L, "tp", "fsdp")),           # row parallel
+        (r"layers/moe_gate$", P()),
+        (r"layers/w_(gate|up)$", ffn_up),
+        (r"layers/w_down$", ffn_dn),
+        (r"norm", P()),
+        (r"lm_head$", P("fsdp", "tp")),
+        (r".*", P()),
+    ])
+
+
+# the reference's activation spec (sequence over sp); inside a layer
+# q, k and v take its _QKV layout: batch over dp/fsdp, heads over tp,
+# sequence over sp
+_BATCH = ("dp", "fsdp")
+_ACT = P(_BATCH, "sp", None)                  # (batch, seq, dim)
 
 
 # ---------------------------------------------------------------------------
@@ -222,11 +289,23 @@ def apply_rope(x, cos, sin):
     return out.to(x.dtype)
 
 
-def _attention(cfg: LlamaConfig, q, k, v):
+def _attention(cfg: LlamaConfig, q, k, v, mesh: Optional[Mesh] = None):
+    """Causal attention on local tensors. Ring and Ulysses attention
+    need a mesh (its ``sp`` axis: of size 1 they are plain attention).
+    Flash and dense attention on a rank's part of a sequence split over
+    ``sp`` gather the whole sequence and keep this rank's part."""
     if cfg.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} needs sequence parallelism over "
-            "torch.distributed, a later slice; use 'flash' or 'dense'")
+        if mesh is None:
+            raise ValueError(
+                f"attn_impl={cfg.attn_impl!r} needs a mesh with an 'sp' "
+                "axis; pass mesh= to forward/loss_fn or use 'flash'")
+        kernel = ring_attention if cfg.attn_impl == "ring" \
+            else ulysses_attention
+        return kernel(q, k, v, axis_name="sp", causal=True, mesh=mesh)
+    if mesh is not None and axis_size("sp", mesh) > 1:
+        i, s = axis_index("sp", mesh), q.shape[2]
+        qf, kf, vf = (allgather(t, "sp", dim=2, mesh=mesh) for t in (q, k, v))
+        return _attention(cfg, qf, kf, vf)[:, :, i * s:(i + 1) * s]
     if cfg.attn_impl == "dense":
         return dense_attention(q, k, v, causal=True)
     if cfg.attn_impl != "flash":
@@ -255,29 +334,42 @@ def _head(cfg: LlamaConfig, params, dt):
 
 
 def _qkv(cfg: LlamaConfig, lp, h, cos, sin):
-    """Projections + RoPE → q (b, h, s, hd), k and v (b, kvh, s, hd)."""
+    """Projections + RoPE → q (b, h, s, hd), k and v (b, kvh, s, hd),
+    the head counts the weights' (a rank's tp heads on a mesh)."""
     b, s, _ = h.shape
     hd, dt = cfg.head_dim, h.dtype
-    q = (h @ _wq8(lp["wq"], dt)).reshape(b, s, cfg.n_heads, hd)
-    k = (h @ _wq8(lp["wk"], dt)).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (h @ _wq8(lp["wv"], dt)).reshape(b, s, cfg.n_kv_heads, hd)
+    wq, wk, wv = (_wq8(lp[n], dt) for n in ("wq", "wk", "wv"))
+    q = (h @ wq).reshape(b, s, wq.shape[-1] // hd, hd)
+    k = (h @ wk).reshape(b, s, wk.shape[-1] // hd, hd)
+    v = (h @ wv).reshape(b, s, wv.shape[-1] // hd, hd)
     q = apply_rope(q.transpose(1, 2), cos, sin)
     k = apply_rope(k.transpose(1, 2), cos, sin)
     return q, k, v.transpose(1, 2)
 
 
-def _ffn(cfg: LlamaConfig, lp, h, serving: bool = False):
+def _tp(collective, t, mesh):
+    """``collective`` (pvary or allreduce) over ``tp`` on ``mesh``; the
+    identity with no mesh."""
+    return t if mesh is None else collective(t, "tp", mesh)
+
+
+def _ffn(cfg: LlamaConfig, lp, h, serving: bool = False, mesh=None):
     """FFN residual delta: dense SwiGLU, or the MoE expert bank when
     ``cfg.moe_experts`` is set. Returns (delta, aux), aux the MoE
     load-balancing term (a zero f32 scalar for dense configs).
     ``serving`` switches MoE to the exact dropless mixture
     (:func:`moe_ffn_dense`: routing is a pure per-token function), so
-    generation never depends on batch composition."""
+    generation never depends on batch composition. On a mesh of a
+    process group ``h`` and the weights are a rank's shards (see
+    :func:`_layer`)."""
     dt = h.dtype
     if cfg.moe_experts:
         b, s, d = h.shape
         mp = {"gate": lp["moe_gate"], "w_gate": lp["w_gate"],
               "w_up": lp["w_up"], "w_down": lp["w_down"]}
+        if mesh is not None and mesh.distributed:
+            # each ep rank backpropagates its experts' share
+            return _local_moe(cfg, mesh, mp, pvary(h, "ep", mesh))
         if serving:
             out, aux = moe_ffn_dense(mp, h.reshape(b * s, d),
                                      top_k=cfg.moe_top_k)
@@ -285,24 +377,131 @@ def _ffn(cfg: LlamaConfig, lp, h, serving: bool = False):
             out, aux = moe_ffn(mp, h.reshape(b * s, d), top_k=cfg.moe_top_k,
                                capacity_factor=cfg.moe_capacity)
         return out.reshape(b, s, d), aux
+    h = _tp(pvary, h, mesh)
     gate = torch.nn.functional.silu(h @ _wq8(lp["w_gate"], dt))
     up = h @ _wq8(lp["w_up"], dt)
-    return (gate * up) @ _wq8(lp["w_down"], dt), \
+    return _tp(allreduce, (gate * up) @ _wq8(lp["w_down"], dt), mesh), \
         torch.zeros((), dtype=torch.float32, device=h.device)
 
 
-def _layer(cfg: LlamaConfig, cos, sin, x, lp):
+def _layer(cfg: LlamaConfig, cos, sin, x, lp, mesh=None):
     """One transformer block. x: (b, s, dim) in cfg.dtype. Returns (x,
-    the FFN's aux)."""
+    the FFN's aux). ``mesh`` is ring/Ulysses attention's ``sp`` axis.
+    On a mesh of a process group (inside :func:`_mesh_hidden`'s
+    ``shard_map``) the block runs on a rank's shards: x its rows and
+    part of the sequence, cos and sin that part's, the weights laid out
+    as :func:`_layer_specs` (the rank's tp heads and columns), and the
+    row-parallel products summed over tp."""
     b, s, _ = x.shape
-    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    # the tp ranks' heads and columns each read all of h: its cotangent
+    # is the sum of theirs (Megatron's f, jax's pvary)
+    h = _tp(pvary, rms_norm(x, lp["attn_norm"], cfg.norm_eps), mesh)
     q, k, v = _qkv(cfg, lp, h, cos, sin)
-    o = _attention(cfg, q, k, v)
-    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
-    x = x + o @ _wq8(lp["wo"], x.dtype)
+    o = _attention(cfg, q, k, v, mesh)
+    o = o.transpose(1, 2).reshape(b, s, q.shape[1] * cfg.head_dim)
+    x = x + _tp(allreduce, o @ _wq8(lp["wo"], x.dtype), mesh)
     h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-    delta, aux = _ffn(cfg, lp, h)
+    delta, aux = _ffn(cfg, lp, h, mesh=mesh)
     return x + delta, aux
+
+
+# ---------------------------------------------------------------------------
+# the mesh path: each stage on each rank's local shards
+# ---------------------------------------------------------------------------
+_TOKENS = ("dp", "fsdp", "sp")     # the axes a layer's tokens split over
+_AUX = PartialOver(_TOKENS + ("ep",))
+
+
+def _layer_specs(cfg: LlamaConfig):
+    """The layout a layer's weights take in :func:`_layer` on a mesh: the
+    rules' minus fsdp (gathered), with the layer dim gone."""
+    specs = {"attn_norm": P(), "ffn_norm": P(), "wq": P(None, "tp"),
+             "wk": P(None, "tp"), "wv": P(None, "tp"), "wo": P("tp", None)}
+    if cfg.moe_experts:
+        specs.update(moe_gate=P(), w_gate=P("ep"), w_up=P("ep"),
+                     w_down=P("ep"))
+    else:
+        specs.update(w_gate=P(None, "tp"), w_up=P(None, "tp"),
+                     w_down=P("tp", None))
+    return specs
+
+
+def _layer_grad_partial(cfg: LlamaConfig):
+    """Per weight, the axes its local gradient is a part of: the token
+    axes (each rank sees its tokens), and ``ep`` for the router (each
+    rank backpropagates its experts' share)."""
+    return {k: _TOKENS + (("ep",) if k == "moe_gate" else ())
+            for k in _layer_specs(cfg)}
+
+
+def _local_moe(cfg: LlamaConfig, mesh, mp, h):
+    """The routed expert bank on one rank's tokens: every token is
+    gathered and routed (the capacity is the global batch's), this
+    rank's ``ep`` experts contribute, the contributions are summed over
+    ``ep``, and the rank keeps its tokens' rows. The aux, the same on
+    every rank, counts on the first rank of the token and ep axes."""
+    b, s, d = h.shape
+    hf = allgather(allgather(h, _BATCH, dim=0, mesh=mesh), "sp", dim=1,
+                   mesh=mesh)
+    B, S = hf.shape[:2]
+    e0 = axis_index("ep", mesh) * mp["w_gate"].shape[0]
+    out, aux = routed_block(mp, hf.reshape(B * S, d), e0, cfg.moe_top_k,
+                            cfg.moe_capacity, "auto", axis_size("ep", mesh))
+    out = allreduce(out, "ep", mesh).reshape(B, S, d)
+    bi, si = axis_index(_BATCH, mesh), axis_index("sp", mesh)
+    first = all(axis_index(a, mesh) == 0 for a in _TOKENS + ("ep",))
+    return out[bi * b:(bi + 1) * b, si * s:(si + 1) * s], \
+        aux * (1.0 if first else 0.0)
+
+
+def _mesh_hidden(cfg: LlamaConfig, params, tokens, mesh, with_aux):
+    """forward_hidden over a mesh of a process group (see the module
+    doc); the layers are local regions, recomputed in the backward under
+    ``cfg.remat``."""
+    s = tokens.shape[1]
+    x = constrain(_embed(cfg, params, tokens, mesh), *_ACT)
+    # this rank's part of the sequence, and its positions
+    n, j = axis_size("sp", mesh), axis_index("sp", mesh)
+    cos, sin = (t[j * s // n:(j + 1) * s // n]
+                for t in rope_tables(cfg, s, device=x.device))
+    body = _remat(cfg, partial(_layer, cfg, cos, sin, mesh=mesh))
+    layer = shard_map(body, mesh, (_ACT, _layer_specs(cfg)), (_ACT, _AUX),
+                      grad_partial=((), _layer_grad_partial(cfg)))
+    stacked = {k: _unstack(v) for k, v in params["layers"].items()}
+    auxes = []
+    for i in range(cfg.n_layers):
+        x, a = layer(x, {k: v[i] for k, v in stacked.items()})
+        auxes.append(a)
+    norm = shard_map(partial(rms_norm, eps=cfg.norm_eps), mesh, (_ACT, P()),
+                     _ACT, grad_partial=((), _TOKENS))
+    x = norm(x, params["final_norm"])
+    if not with_aux:
+        return x
+    # every aux has one layout: average the local parts
+    from torch.distributed.tensor import DTensor
+    loc = [a.to_local() for a in auxes]
+    aux = torch.stack(loc).mean() if cfg.scan_layers else \
+        sum(a / cfg.n_layers for a in loc)
+    return x, DTensor.from_local(aux, auxes[0].device_mesh,
+                                 auxes[0].placements, run_check=False)
+
+
+def _unstack(t):
+    """The layers of a stacked DTensor (its layer dim unsharded), each a
+    DTensor of the same layout: split locally, so no op on the stack
+    goes through DTensor's sharding search."""
+    from torch.distributed.tensor import DTensor, Shard
+    pl = []
+    for p in t.placements:
+        if p.is_shard():
+            if p.dim == 0:
+                raise ValueError("the stacked layer dim must not be sharded")
+            p = Shard(p.dim - 1)
+        pl.append(p)
+    return [DTensor.from_local(x, t.device_mesh, pl, run_check=False,
+                               shape=t.shape[1:], stride=x.new_empty(
+                                   t.shape[1:], device="meta").stride())
+            for x in t.to_local().unbind(0)]
 
 
 def _layer_params(params, i: int):
@@ -313,10 +512,16 @@ def _layer_params(params, i: int):
     return {k: pick(v) for k, v in params["layers"].items()}
 
 
-def _embed(cfg: LlamaConfig, params, tokens):
+def _embed(cfg: LlamaConfig, params, tokens, mesh=None):
     """Gather the token rows, then cast them; an int8 table dequantises
-    the gathered rows only (its scale is per dim channel)."""
+    the gathered rows only (its scale is per dim channel). On a mesh of
+    a process group the table's rows are blocked over ``tp`` and the
+    lookup sums over it."""
     emb = params["tok_embed"]
+    if mesh is not None:
+        return sharded_embedding_lookup(emb, tokens, mesh, axis="tp",
+                                        ids_spec=P(_BATCH, None)
+                                        ).to(cfg.dtype)
     if isinstance(emb, dict):
         return emb["q8"][tokens.long()].to(cfg.dtype) * \
             emb["s8"][0].to(cfg.dtype)
@@ -371,16 +576,35 @@ def forward_hidden(cfg: LlamaConfig, params, tokens, mesh=None,
     outputs are (``"dots_no_batch"``), as the reference's
     ``jax.checkpoint`` policies do. The layers are a Python loop;
     ``cfg.scan_layers`` only picks how the aux is averaged, as the
-    reference rounds it (the mean of the stacked auxes, or Σ a/n)."""
-    _no_mesh(mesh)
+    reference rounds it (the mean of the stacked auxes, or Σ a/n).
+
+    ``mesh``: a mesh over a process group runs the layers on DTensors
+    (the params laid out by :func:`sharding_rules`; the tokens, the
+    global batch on every rank or a DTensor, laid out on the batch axes);
+    ring/Ulysses attention takes the mesh's ``sp`` axis. The one-device
+    placement is the one-device path."""
     if isinstance(params["tok_embed"], dict):
         raise TypeError("an int8 tree serves (prefill, chunked_prefill, "
                         "decode_step, generate); forward and loss_fn take "
                         "float trees, as mxtpu's do")
+    dmesh = _check_mesh(mesh)
+    if dmesh is None:
+        return _hidden(cfg, params, tokens, mesh, with_aux)
+    if not is_dtensor(params["tok_embed"]):
+        raise ValueError(
+            "on a mesh the params must be laid out on it first: "
+            "parallel.shard_pytree(params, mesh, llama.sharding_rules(cfg)) "
+            "or parallel.init_state")
+    with spmd(dmesh):
+        tokens = mcon(dmesh, tokens, _BATCH, None)
+        return _mesh_hidden(cfg, params, tokens, dmesh, with_aux)
+
+
+def _hidden(cfg: LlamaConfig, params, tokens, mesh, with_aux):
     s = tokens.shape[1]
     x = _embed(cfg, params, tokens)
     cos, sin = rope_tables(cfg, s, device=x.device)
-    layer = _remat(cfg, partial(_layer, cfg, cos, sin))
+    layer = _remat(cfg, partial(_layer, cfg, cos, sin, mesh=mesh))
     # unbind once: its backward stacks the per-layer grads in one pass
     stacked = {k: v.unbind(0) for k, v in params["layers"].items()}
     auxes = []
@@ -405,8 +629,17 @@ def _logits(cfg: LlamaConfig, params, x):
 
 
 def forward(cfg: LlamaConfig, params, tokens, mesh=None):
-    """tokens: (batch, seq) int → logits (batch, seq, vocab) f32."""
-    return _logits(cfg, params, forward_hidden(cfg, params, tokens, mesh))
+    """tokens: (batch, seq) int → logits (batch, seq, vocab) f32; on a
+    mesh of a process group a DTensor laid out (batch over dp/fsdp, seq
+    over sp)."""
+    x = forward_hidden(cfg, params, tokens, mesh)
+    dmesh = _check_mesh(mesh)
+    if dmesh is None:
+        return _logits(cfg, params, x)
+    with spmd(dmesh):
+        head = _head(cfg, params, cfg.dtype)
+        return shard_map(lambda xl, hl: torch.matmul(xl.float(), hl.float()),
+                         dmesh, (_ACT, P()), _ACT)(x, head)
 
 
 # ---------------------------------------------------------------------------
@@ -492,28 +725,48 @@ def loss_fn(cfg: LlamaConfig, mesh=None):
     dict with 'tokens' (b, s) and optional 'mask' (b, s); predicts token
     t+1 from the prefix up to t. Large vocabs take the chunked path
     (:func:`chunked_softmax_xent`). A MoE config adds
-    ``cfg.moe_aux_weight`` times the load-balancing aux."""
-    _no_mesh(mesh)
+    ``cfg.moe_aux_weight`` times the load-balancing aux.
 
-    def loss(params, batch):
-        tokens = batch["tokens"]
-        x, moe_aux = forward_hidden(cfg, params, tokens, with_aux=True)
+    On a mesh of a process group the loss takes DTensor params and a
+    batch laid out on the batch axes (``make_train_step(...,
+    mesh)`` does both); the cross-entropy runs on each rank's batch rows
+    against the gathered head, and the loss is a replicated DTensor."""
+    chunk = _resolve_ce_chunk(cfg)
+    dmesh = _check_mesh(mesh)
+
+    def sums(x, head, tokens, mask):
+        """(Σ mask · nll, Σ mask) of next-token prediction."""
         x = x[:, :-1]
         targets = tokens[:, 1:].long()
-        mask = batch.get("mask")
         mask = (torch.ones(targets.shape, device=x.device) if mask is None
                 else mask[:, 1:].float())
-        head = _head(cfg, params, cfg.dtype)
-        chunk = _resolve_ce_chunk(cfg)
         if chunk:
             nll = chunked_softmax_xent(x, head, targets, chunk)
         else:
             logp = torch.log_softmax(x.float() @ head.float(), dim=-1)
             nll = -logp.gather(-1, targets[..., None])[..., 0]
-        ce = (nll * mask).sum() / mask.sum().clamp_min(1.0)
-        if cfg.moe_experts:
-            ce = ce + cfg.moe_aux_weight * moe_aux
-        return ce
+        return (nll * mask).sum(), mask.sum()
+
+    if dmesh is not None:
+        # each rank its rows against the gathered head; the head's
+        # cotangent is the sum of the rows' parts
+        row = P(_BATCH, None)
+        sums = shard_map(sums, dmesh, (P(_BATCH, None, None), P(), row, row),
+                         (PartialOver(_BATCH),) * 2,
+                         grad_partial=((), _BATCH, (), ()))
+
+    def loss(params, batch):
+        with spmd(dmesh):
+            tokens = batch["tokens"]
+            x, moe_aux = forward_hidden(cfg, params, tokens, mesh=mesh,
+                                        with_aux=True)
+            x = mcon(dmesh, x, _BATCH, None, None)      # the whole sequence
+            num, den = sums(x, _head(cfg, params, cfg.dtype), tokens,
+                            batch.get("mask"))
+            ce = num / den.clamp_min(1.0)
+            if cfg.moe_experts:
+                ce = ce + cfg.moe_aux_weight * moe_aux
+            return ce
     return loss
 
 
@@ -861,8 +1114,8 @@ def generate(cfg: LlamaConfig, params, prompt, max_new_tokens: int, *,
 # captures it once as a CUDA graph). Where ``mxtpu`` donates the bank to
 # each program, these write it in place.
 
-_SLOT_MESH = ("the slot bank's mesh placement comes with the multi-device "
-              "slice (ROADMAP Queue A item 11)")
+_SLOT_MESH = ("the slot bank's mesh placement comes with ROADMAP Queue A "
+              "item 11b")
 
 
 def slot_cache_specs(cfg: LlamaConfig, mesh):

@@ -6,7 +6,7 @@ The reference's DataParallelExecutorGroup sliced each batch over a GPU
 list; here, as in ``mxtpu``, one executor runs the whole batch, so a
 ``context`` list collapses to its first entry (None: the card). The
 ``"local"`` and ``"device"`` kvstores are the identity, as in the
-reference; a distributed one raises (ROADMAP Queue A item 11).
+reference; a distributed one raises (ROADMAP Queue A item 11b).
 """
 from __future__ import annotations
 

@@ -272,8 +272,11 @@ class NDArray:
 
     def asnumpy(self) -> _np.ndarray:
         """A host copy as numpy; bfloat16 and the float8 types come back
-        as float32 (numpy has none of them; the widening is exact)."""
+        as float32 (numpy has none of them; the widening is exact). An
+        array laid out on a mesh (a DTensor) is gathered whole."""
         t = self._data.detach()
+        if type(t).__name__ == "DTensor":
+            t = t.full_tensor()
         if t.is_floating_point() and (t.dtype == torch.bfloat16
                                       or t.element_size() == 1):
             t = t.float()           # bfloat16 and float8: exact widening

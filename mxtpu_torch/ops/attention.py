@@ -25,8 +25,11 @@ counts the same whichever ran; :func:`attention_bound_ms` and
 :func:`slot_decode_attention` and :func:`paged_decode_attention`, the
 serving engine's length-masked attention over the slot bank and the
 page pool, are plain PyTorch, as ``mxtpu``'s are plain ``jnp``; they
-share one online-softmax body. ``ring_attention`` and
-``ulysses_attention`` come with later slices.
+share one online-softmax body. :func:`ring_attention` and
+:func:`ulysses_attention`, sequence parallelism over a mesh axis, are
+plain PyTorch too, as the reference's are plain ``jnp``: they run on
+each rank's sequence shard (inside ``parallel.collectives.shard_map``)
+and move K/V or heads with the port's collectives.
 
 The forward kernel's launch is the operator ``mxtpu_torch::flash_attn_fwd``
 (``flash_attn_fwd_lse`` when the row logsumexp is asked for), defined
@@ -53,6 +56,7 @@ __all__ = ["dense_attention", "blockwise_attention", "flash_attention",
            "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
            "flash_attention_bwd_plain", "slot_decode_attention",
+           "ring_attention", "ulysses_attention",
            "paged_decode_attention", "gather_pages", "visible_pairs",
            "attention_cost", "bwd_cost", "BWD_WORK", "attention_bound_ms",
            "bwd_bound_ms"]
@@ -799,3 +803,65 @@ def flash_attention(q, k, v, *, causal: bool = False,
     return perfscope.reported(
         lambda: attention_cost(*_dims(q, k), causal), blockwise_attention,
         q, k, v, causal=causal, scale=scale, kv_block=kv_block)
+
+
+def ring_attention(q, k, v, *, axis_name: str = "sp", causal: bool = False,
+                   scale: Optional[float] = None, kv_block: int = 512,
+                   mesh=None):
+    """Ring attention over the ``axis_name`` mesh axis (of ``mesh`` or
+    the ambient mesh), on this rank's sequence shard (b, h, s/n, d).
+    Each of the n steps folds the K/V shard this rank holds into the
+    online softmax (a shard that started on rank j holds positions
+    from j·s/n), then hands it on round the ring; the backward rotates
+    the cotangents the other way. ``kv_block`` is unused (each step
+    takes its shard whole, as the reference's does)."""
+    from ..parallel.collectives import _group, ppermute_ring
+    k, v = _repeat_kv(q, k, v)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    _, n, my = _group(axis_name, mesh)
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    m = torch.full((b, h, sq), _NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    o = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    for i in range(n):
+        # after i rotations this rank holds the shard of rank (my - i)
+        kv_off = ((my - i) % n) * skv
+        m, l, o = _online_block(q, k, v, m, l, o, scale, causal, my * sq,
+                                kv_off)
+        if i < n - 1:
+            k = ppermute_ring(k, axis_name, mesh=mesh)
+            v = ppermute_ring(v, axis_name, mesh=mesh)
+    return _finalize(m, l, o, q.dtype)
+
+
+def ulysses_attention(q, k, v, *, axis_name: str = "sp",
+                      causal: bool = False, scale: Optional[float] = None,
+                      kv_block: int = 512, mesh=None):
+    """Ulysses sequence parallelism (DeepSpeed-Ulysses) on this rank's
+    sequence shard (b, h, s/n, d): two all-to-alls in (Q, then K and V)
+    make each rank hold the full sequence of h/n heads,
+    :func:`blockwise_attention` runs there, and one all-to-all out
+    restores the sequence shard. K and V cross unrepeated (their GQA
+    head count) when it divides by n."""
+    from ..parallel.collectives import _group, alltoall
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    _, n, _ = _group(axis_name, mesh)
+    h, h_kv = q.shape[1], k.shape[1]
+    if h % n:
+        raise ValueError(f"{h} heads not divisible over {n} "
+                         f"'{axis_name}' ranks (Ulysses reshard)")
+
+    def seq_to_heads(x):            # (b, h, s/n, d) -> (b, h/n, s, d)
+        return alltoall(x, axis_name, split_dim=1, concat_dim=2, mesh=mesh)
+
+    if h_kv % n == 0:
+        qh, kh, vh = seq_to_heads(q), seq_to_heads(k), seq_to_heads(v)
+        kh, vh = _repeat_kv(qh, kh, vh)
+    else:
+        k, v = _repeat_kv(q, k, v)
+        qh, kh, vh = seq_to_heads(q), seq_to_heads(k), seq_to_heads(v)
+    oh = blockwise_attention(qh, kh, vh, causal=causal, scale=scale,
+                             kv_block=kv_block)
+    return alltoall(oh, axis_name, split_dim=2, concat_dim=1, mesh=mesh)

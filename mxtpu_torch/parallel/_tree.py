@@ -76,3 +76,21 @@ def tree_flatten_with_path(tree: Any, prefix: Tuple = ()
 def path_str(path: Tuple) -> str:
     """A path of :func:`tree_flatten_with_path` as ``a/b/0``."""
     return "/".join(key_str(k) for k in path)
+
+
+def tree_map_with_path(fn: Callable, tree: Any, prefix: Tuple = ()) -> Any:
+    """``fn(path, leaf)`` over the leaves of ``tree``, keeping its
+    structure; paths are those of :func:`tree_flatten_with_path`."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, prefix + (DictKey(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map_with_path(fn, v,
+                                               prefix + (GetAttrKey(f),))
+                            for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map_with_path(fn, v, prefix + (SequenceKey(i),))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)

@@ -1,16 +1,23 @@
-"""Device meshes, their one-device subset — the port of
-``mxtpu/parallel/mesh.py`` (reference device lists and KVStore
-topology, ``src/kvstore/comm.h``).
+"""Device meshes — the port of ``mxtpu/parallel/mesh.py`` (reference
+device lists and KVStore topology, ``src/kvstore/comm.h``).
 
-A mesh names up to six logical axes (``dp``, ``fsdp``, ``pp``, ``ep``,
-``sp``, ``tp``) over the devices it spans. The port runs one device per
-process, so a mesh here is a placement on that one device: every axis
-resolves to 1 (``create_mesh(dp=-1)`` absorbs the one device), and an
-axis above 1 raises, naming ROADMAP Queue A item 11, which brings
-meshes across cards. ``Mesh.device`` is the device the mesh names, or
+A mesh names six logical axes (``dp``, ``fsdp``, ``pp``, ``ep``, ``sp``,
+``tp``, in that order: ``dp`` outermost) over the devices it spans. The
+port runs one device per process, so a mesh spans the ranks of the
+process group :func:`mxtpu_torch.parallel.dist.initialize` joined: it
+holds a ``torch.distributed`` ``DeviceMesh`` on the group's device type
+(``cuda`` over NCCL, ``cpu`` over gloo), and sharding on it is DTensor's
+(:mod:`.sharding`). The ``DeviceMesh`` has a dim for each axis above 1,
+in ``MESH_AXES`` order (``Mesh.dm_axes``; one dim of size 1 when every
+axis is 1): an axis of size 1 splits nothing, and DTensor's sharding
+search grows with the mesh's dims.
+
+In a process with no group, a mesh whose axes are all 1 is a placement
+on the one device (``Mesh.device_mesh`` is None): specs are checked but
+split nothing. ``Mesh.device`` is then the device the mesh names, or
 None for "the device the parameters already live on" (a mesh built
 without ``devices``), so ``net.shard(create_mesh(dp=-1), rules)`` keeps
-a net where it was initialized, on the card or on the CPU.
+a net where it was initialized. An axis above 1 without a group raises.
 """
 from __future__ import annotations
 
@@ -18,16 +25,17 @@ import contextlib
 import math
 import threading
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["Mesh", "MeshConfig", "create_mesh", "current_mesh", "use_mesh",
-           "mesh_axes", "axis_size", "MESH_AXES", "MULTI_DEVICE_SLICE"]
+from . import dist
 
+__all__ = ["Mesh", "MeshConfig", "create_mesh", "current_mesh", "use_mesh",
+           "mesh_axes", "axis_size", "MESH_AXES"]
+
+# canonical axis order: dp outermost, tp innermost (the reference's)
 MESH_AXES = ("dp", "fsdp", "pp", "ep", "sp", "tp")
-MULTI_DEVICE_SLICE = ("a mesh over more than one device comes with the "
-                      "multi-device slice (ROADMAP Queue A item 11)")
 
 
 @dataclass(frozen=True)
@@ -61,10 +69,19 @@ class MeshConfig:
 
 @dataclass(frozen=True)
 class Mesh:
-    """A one-device mesh: its axis sizes (all 1) and its device."""
+    """Axis names and sizes, this process's device, and the
+    ``DeviceMesh`` over the group's ranks (None for the one-device
+    placement of a process without a group)."""
     axis_names: Tuple[str, ...]
     sizes: Tuple[int, ...]
     device: Optional[torch.device] = None
+    device_mesh: Any = None
+    dm_axes: Tuple[str, ...] = ()
+
+    @property
+    def distributed(self) -> bool:
+        """Whether sharding on this mesh is DTensor's."""
+        return self.device_mesh is not None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -82,19 +99,41 @@ class Mesh:
 def create_mesh(config: Optional[MeshConfig] = None,
                 devices: Optional[Sequence] = None,
                 **axis_sizes) -> Mesh:
-    """``create_mesh(dp=-1)`` or ``create_mesh(MeshConfig(...))`` over
-    ``devices`` (default: the one device the parameters occupy)."""
+    """``create_mesh(dp=2, tp=2)`` or ``create_mesh(MeshConfig(...))``.
+
+    With a process group, the mesh spans its ranks (one device each,
+    the group's: ``devices`` must be None). Without one it is the
+    one-device placement on ``devices[0]`` (default: the device the
+    parameters occupy), and every axis must resolve to 1."""
     if config is None:
         config = MeshConfig(**axis_sizes) if axis_sizes else MeshConfig()
     elif axis_sizes:
         raise ValueError("pass either a MeshConfig or axis kwargs, not both")
+    if dist.process_count() > 1 or dist.device() is not None:
+        if devices is not None:
+            raise ValueError(
+                "a mesh over a process group spans its ranks, one device "
+                "each; pass devices=None")
+        sizes = config.resolve(dist.process_count())
+        shape = tuple(sizes[a] for a in MESH_AXES)
+        dm_axes = tuple(a for a in MESH_AXES if sizes[a] > 1) or MESH_AXES[:1]
+        from torch.distributed.device_mesh import init_device_mesh
+        dev = dist.device()
+        dm = init_device_mesh(dev.type, tuple(sizes[a] for a in dm_axes),
+                              mesh_dim_names=dm_axes)
+        return Mesh(MESH_AXES, shape, dev, dm, dm_axes)
     devices = list(devices) if devices is not None else [None]
-    explicit = [a for a in MESH_AXES if getattr(config, a) not in (1, -1)]
-    if len(devices) != 1 or explicit:
-        raise NotImplementedError(
-            f"{MULTI_DEVICE_SLICE} (asked for {len(devices)} devices, axes "
-            f"{ {a: getattr(config, a) for a in explicit} })")
-    sizes = config.resolve(1)
+    if len(devices) != 1:
+        raise ValueError(
+            f"a mesh over {len(devices)} devices needs one process per "
+            "device: call mxtpu_torch.parallel.dist.initialize in each")
+    try:
+        sizes = config.resolve(1)
+    except ValueError as e:
+        raise ValueError(
+            f"{e}: without a process group a mesh is one device; call "
+            "mxtpu_torch.parallel.dist.initialize in each of the mesh's "
+            "processes first") from None
     device = devices[0]
     return Mesh(MESH_AXES, tuple(sizes[a] for a in MESH_AXES),
                 None if device is None else torch.device(device))

@@ -1,5 +1,5 @@
-"""Mixture-of-Experts: the port of ``mxtpu/parallel/moe.py`` on one
-device.
+"""Mixture-of-Experts: the port of ``mxtpu/parallel/moe.py``, on one
+device or with the expert banks sharded over a mesh's ``ep`` axis.
 
 Token-choice top-k gating over a bank of SwiGLU experts, GShard's
 capacity-factored dispatch (a gather and scatter-add, or the one-hot
@@ -12,8 +12,19 @@ Numerics follow ``mxtpu``: the router's logits are computed in
 ``x.dtype`` and upcast, the softmax, gates and aux are f32, and the
 experts run in ``x.dtype``. Top-k keeps the lower index among equal
 probabilities, as ``lax.top_k`` does (``torch.topk`` does not:
-bf16 router logits tie often). Expert parallelism over a mesh's
-``ep`` axis comes with the multi-device slice; ``mesh`` must be None.
+bf16 router logits tie often).
+
+Over a mesh of a process group (``mesh=``), the layer runs on each
+rank's expert block (:func:`~mxtpu_torch.parallel.collectives.shard_map`):
+the banks are laid out ``P("ep")`` (any fsdp/tp layout is gathered),
+the tokens are replicated, every rank routes all of them (the capacity
+positions are the global ones, as the reference's), dispatches to and
+runs its E/ep experts, and combines their share of each token; the
+shares are summed over ``ep`` (a partial value the caller's next
+re-layout reduces). The router's cotangent is the sum of the ranks'
+parts; the load-balancing aux is counted on ``ep`` rank 0 only.
+``"auto"`` picks the einsum dispatch when ``ep`` > 1, as the reference
+does. For ``top_k <= 2`` the sharded sums equal the unsharded ones.
 """
 from __future__ import annotations
 
@@ -24,16 +35,43 @@ import torch
 import torch.nn.functional as F
 
 from ..context import DeviceLike, resolve_device
+from .collectives import PartialOver, axis_index, shard_map
+from .mesh import Mesh, axis_size
+from .sharding import P
 
 __all__ = ["init_moe_params", "moe_ffn", "moe_ffn_dense",
-           "load_balance_loss"]
+           "load_balance_loss", "routed_block"]
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "expert parallelism over a mesh comes with the multi-device "
-            "slice (ROADMAP Queue A item 11); pass mesh=None")
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh (create_mesh), "
+                        f"not {type(mesh).__name__}")
+
+
+_BANK = {"gate": P(), "w_gate": P("ep"), "w_up": P("ep"), "w_down": P("ep")}
+
+
+def _on_experts(fn, mesh, params, x):
+    """``fn(params, x, e0)`` on each rank's expert block (e0: its first
+    expert) with replicated tokens; returns (out, aux) summed over
+    ``ep``. On no mesh, or the one-device placement, ``fn`` runs whole
+    with e0 = 0."""
+    if mesh is None or not mesh.distributed:
+        return fn(params, x, 0)
+    ep = axis_size("ep", mesh)
+
+    def local(p, xl):
+        idx = axis_index("ep", mesh)
+        out, aux = fn(p, xl, idx * p["w_gate"].shape[0])
+        # the aux is the same on every rank: count it once
+        return out, aux * (1.0 if idx == 0 else 0.0)
+
+    bank = {k: _BANK[k] for k in params}
+    return shard_map(local, mesh, in_specs=(bank, P()),
+                     out_specs=(PartialOver(("ep",)), PartialOver(("ep",))),
+                     grad_partial=(("ep",), ("ep",)) if ep > 1 else ()
+                     )(params, x)
 
 
 def init_moe_params(dim: int, hidden: int, n_experts: int,
@@ -129,26 +167,46 @@ def moe_ffn(params, x, *, top_k: int = 2, capacity_factor: float = 1.25,
     column for dropped choices, a zero pad row for empty slots) with
     ``index_put``, gathers the tokens and combines with ``index_add``
     in ``x.dtype``; ``"einsum"`` is GShard's one-hot dispatch and
-    combine. ``"auto"`` picks gather, as the reference does without a
-    mesh. Each live token gets at most ``top_k`` contributions added
+    combine. ``"auto"`` picks einsum when the mesh's ``ep`` axis is
+    above 1, else gather. Each live token gets at most ``top_k`` contributions added
     onto zero, so for ``top_k <= 2`` the sum is the same in any order,
     atomics included; for ``top_k >= 3`` the order matters: on the CPU
     ``index_add`` adds in slot order (expert-major), sequentially as
     XLA's CPU scatter does, while the card's atomics add in any order."""
-    _no_mesh(mesh)
-    T, d = x.shape
-    E = params["gate"].shape[-1]
-    K = top_k
-    C = T if no_drop else max(
-        1, int(math.ceil(T * K / E * capacity_factor)))
-    dt = x.dtype
+    _check_mesh(mesh)
     if dispatch not in ("auto", "gather", "einsum"):
         raise ValueError(
             f"dispatch={dispatch!r}: use 'auto', 'gather' or 'einsum'")
-    if dispatch == "auto":
-        dispatch = "gather"
+    ep = axis_size("ep", mesh)
+    return _on_experts(
+        lambda p, xl, e0: routed_block(p, xl, e0, top_k, capacity_factor,
+                                       dispatch, ep, no_drop), mesh,
+        params, x)
 
+
+def routed_block(params, x, e0: int, top_k: int, capacity_factor: float,
+                 dispatch: str, ep: int, no_drop: bool = False):
+    """:func:`moe_ffn` on local tensors: every token of ``x`` routed over
+    all E experts, the capacity C of the whole ``x``, and the
+    contributions of the bank's experts [e0, e0 + its E) (the bank is
+    one ``ep`` rank's block of an ``ep``-way split). Returns (out, aux)."""
+    T, d = x.shape
+    E = params["gate"].shape[-1]
+    C = T if no_drop else max(
+        1, int(math.ceil(T * top_k / E * capacity_factor)))
+    if dispatch == "auto":
+        dispatch = "einsum" if ep > 1 else "gather"
+    return _moe_block(params, x, e0, top_k, C, dispatch)
+
+
+def _moe_block(params, x, e0: int, K: int, C: int, dispatch: str):
+    """The routed layer over experts [e0, e0 + the bank's E): every
+    token is routed over all E, and the bank's experts contribute."""
+    T, d = x.shape
+    dt = x.dtype
+    El = params["w_gate"].shape[0]
     probs, idx, gate_vals, pos, keep = _route(params, x, K, C)
+    E = probs.shape[-1]
 
     if dispatch == "gather":
         slot_tok = torch.full((E, C + 1), T, dtype=torch.int64,
@@ -160,8 +218,8 @@ def moe_ffn(params, x, *, top_k: int = 2, capacity_factor: float = 1.25,
             pc = torch.where(keep[:, k], pos[:, k], C)    # C = trash col
             slot_tok = slot_tok.index_put((idx[:, k], pc), tids)
             slot_gate = slot_gate.index_put((idx[:, k], pc), gate_vals[:, k])
-        slot_tok = slot_tok[:, :C]
-        slot_gate = slot_gate[:, :C]
+        slot_tok = slot_tok[e0:e0 + El, :C]
+        slot_gate = slot_gate[e0:e0 + El, :C]
         xpad = torch.cat([x, x.new_zeros((1, d))], dim=0)
         eout = _experts(params, xpad[slot_tok])              # (E, C, d)
         out = x.new_zeros((T + 1, d)).index_add(
@@ -177,6 +235,7 @@ def moe_ffn(params, x, *, top_k: int = 2, capacity_factor: float = 1.25,
             contrib = onehot[:, :, None] * slot[:, None, :]
             dmask = dmask + contrib
             combine = combine + contrib * gate_vals[:, k][:, None, None]
+        dmask, combine = dmask[:, e0:e0 + El], combine[:, e0:e0 + El]
         xin = torch.einsum("tec,td->ecd", dmask.to(dt), x)
         eout = _experts(params, xin)
         out = torch.einsum("tec,ecd->td", combine.to(dt), eout)
@@ -192,11 +251,18 @@ def moe_ffn_dense(params, x, *, top_k: int = 2, mesh=None):
     composition changes a token's result; work is linear in T at E/K×
     the routed path's. Static shapes and no host reads, so the engine's
     captured decode, paged and verify steps run it inside their CUDA
-    graphs. Returns (out, aux) like :func:`moe_ffn`."""
-    _no_mesh(mesh)
+    graphs. Returns (out, aux) like :func:`moe_ffn`; over a mesh, each
+    rank runs its ``ep`` block of experts."""
+    _check_mesh(mesh)
+    return _on_experts(lambda p, xl, e0: _dense_block(p, xl, e0, top_k),
+                       mesh, params, x)
+
+
+def _dense_block(params, x, e0: int, top_k: int):
     dt = x.dtype
     probs, idx, gate_vals = _gates(params, x, top_k)
-    w = torch.zeros_like(probs).scatter(1, idx, gate_vals)      # (T, E)
+    El = params["w_gate"].shape[0]
+    w = torch.zeros_like(probs).scatter(1, idx, gate_vals)[:, e0:e0 + El]
     # x broadcast over the experts' batch dim: each product reads its
     # (E, ., .) weight in place (an einsum to (T, E, h) would first copy
     # every expert's weight into another layout)

@@ -1,4 +1,4 @@
-"""The training step on one device — the port of
+"""The training step, on one device or over a mesh — the port of
 ``mxtpu/parallel/step.py``.
 
 The reference jits the whole step (forward, backward, optimizer update)
@@ -8,11 +8,23 @@ optimizer transform (``mxtpu_torch.parallel.optim``) computes the
 updates, and the params are updated in place under ``torch.no_grad()``,
 which is the torch analogue of donation: the state passed in is spent.
 
-One device only: a ``mesh`` or sharding rules that place anything
-raise; they come with the multi-device slice (ROADMAP Queue A item
-11). ``has_rng`` steps draw on :mod:`mxtpu_torch.prng`, the port of
-the ``jax.random`` key chain, so a loss that draws from its key sees
-the reference's numbers.
+Over a mesh of a process group (:mod:`.mesh`), ``init_state`` lays the
+params out by the rule table as DTensors (``shard_pytree``), and the
+optimizer's per-parameter moments, made from them, take their
+parameter's layout while its scalars stay plain (replicated), which is
+:func:`opt_state_shardings`. The step lays the batch out on
+``batch_spec(mesh)`` (on dim 1 with ``grad_accum > 1``, dim 0 being the
+microbatch index), runs the loss under ``use_mesh(mesh)`` with plain
+tensors taken as replicated (DTensor's ``implicit_replication``),
+reduces each gradient to its parameter's layout (``redistribute``: an
+all-reduce over the axes the batch splits, a reduce-scatter where the
+parameter is sharded too), and updates the DTensors in place. The loss
+and aux come back as plain tensors, the same on every rank. With no
+mesh, or the one-device placement, the step is the one-device step.
+
+``has_rng`` steps draw on :mod:`mxtpu_torch.prng`, the port of the
+``jax.random`` key chain, so a loss that draws from its key sees the
+reference's numbers.
 
 Telemetry, as the reference's: ``init_state`` accounts the params, the
 optimizer state and the model state in perfscope's HBM ledger, and the
@@ -30,9 +42,16 @@ import torch
 
 from .. import prng, telemetry
 from ..telemetry import perfscope, watcher
-from ._tree import tree_leaves, tree_map
+from . import collectives, dist
+from ._tree import (path_str, tree_flatten_with_path, tree_leaves, tree_map,
+                    tree_map_with_path)
+from .mesh import Mesh
+from .sharding import (P, Placement, ShardingRules, batch_spec,
+                       global_device_put, is_dtensor, mcon, shard_pytree,
+                       spmd, to_full)
 
-__all__ = ["TrainState", "init_state", "make_train_step", "make_eval_step"]
+__all__ = ["TrainState", "init_state", "make_train_step", "make_eval_step",
+           "opt_state_shardings"]
 
 
 class TrainState(NamedTuple):
@@ -51,21 +70,49 @@ class TrainState(NamedTuple):
                    model_state=model_state)
 
 
-def _one_device(mesh, rules) -> None:
-    """Raise unless the placement asked for is one device: no mesh, and
-    rules (a sequence of (pattern, spec) pairs) that replicate all."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh sharding comes with the multi-device slice (ROADMAP "
-            "Queue A item 11); pass mesh=None")
+def _check(mesh, rules) -> ShardingRules:
+    """The rule table (a :class:`ShardingRules` or a sequence of
+    (pattern, spec) pairs), checked against the mesh: rules that place a
+    parameter need one."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh (create_mesh), "
+                        f"not {type(mesh).__name__}")
     if rules is None:
-        return
-    if not isinstance(rules, (list, tuple)) or any(
-            len(tuple(spec)) for _, spec in rules):
-        raise NotImplementedError(
-            "sharding rules that place a parameter come with the "
-            "multi-device slice (ROADMAP Queue A item 11); pass rules=None "
-            "or only replicated (empty) specs")
+        return ShardingRules([(r".*", P())])
+    if not isinstance(rules, ShardingRules):
+        rules = ShardingRules(list(rules))
+    if mesh is None and any(len(tuple(s)) for _, s in rules._rules):
+        raise ValueError("sharding rules that place a parameter need a "
+                         "mesh; pass mesh=create_mesh(...)")
+    return rules
+
+
+def _on_mesh(mesh) -> bool:
+    return mesh is not None and mesh.distributed
+
+
+def opt_state_shardings(tx, params: Any, mesh: Mesh, rules=None):
+    """The placement tree of ``tx.init(params)``: a state leaf whose path
+    ends with a parameter's path and has its shape takes that
+    parameter's placement; everything else (counts, scalars)
+    replicates. ``init_state`` needs no table (moments made from a
+    DTensor take its layout); this is the reference's for inspection."""
+    rules = _check(mesh, rules)
+    plist = [(tuple(str(k[0]) for k in path), tuple(leaf.shape),
+              rules.spec(path_str(path)))
+             for path, leaf in tree_flatten_with_path(params)]
+    abstract = tx.init(tree_map(
+        lambda p: torch.empty(tuple(p.shape), dtype=p.dtype, device="meta"),
+        params))
+
+    def spec_for(path, leaf):
+        p = tuple(str(k[0]) for k in path)
+        for ppath, pshape, pspec in plist:
+            if len(p) >= len(ppath) and p[-len(ppath):] == ppath \
+                    and tuple(leaf.shape) == pshape:
+                return Placement(mesh, pspec)
+        return Placement(mesh, P())
+    return tree_map_with_path(spec_for, abstract)
 
 
 def _detached_copy(tree):
@@ -75,11 +122,19 @@ def _detached_copy(tree):
 def init_state(params: Any, tx, mesh=None, rules=None,
                model_state: Any = ()) -> TrainState:
     """Copy the params and model state (the step updates the state in
-    place, so the caller's tensors are never aliased) and build the
-    optimizer state on their device."""
-    _one_device(mesh, rules)
-    state = TrainState.create(_detached_copy(params), tx,
-                              _detached_copy(model_state))
+    place, so the caller's tensors are never aliased), laid out by the
+    rule table over a mesh, and build the optimizer state from them."""
+    rules = _check(mesh, rules)
+    params, model_state = _detached_copy(params), _detached_copy(model_state)
+    if _on_mesh(mesh):
+        params = shard_pytree(params, mesh, rules)
+        if model_state != ():
+            model_state = shard_pytree(model_state, mesh, rules)
+    elif mesh is not None and mesh.device is not None:
+        params = tree_map(lambda t: t.to(mesh.device), params)
+        model_state = tree_map(lambda t: t.to(mesh.device), model_state)
+    with spmd(mesh):
+        state = TrainState.create(params, tx, model_state)
     # the HBM ledger: the training state's footprint (one trainer per
     # process is the deployed shape, so fixed names last-write-win)
     led = perfscope.ledger()
@@ -120,9 +175,16 @@ def make_train_step(loss_fn: Callable[..., Any], tx, mesh=None, rules=None,
     ``torch.where`` on the device (no host sync) — and the step returns
     a trailing ``skipped`` bool tensor. The state passed in is updated
     in place and must not be used again; the returned state holds the
-    same params tensors.
+    same params tensors. Over a mesh, ``state`` comes from
+    :func:`init_state` on the same mesh and rules, and the batch is the
+    global batch, the same on every rank (each takes its chunk).
     """
-    _one_device(mesh, rules)
+    rules = _check(mesh, rules)
+    on_mesh = _on_mesh(mesh)
+    if on_mesh:
+        bspec = P(None, *batch_spec(mesh)) if grad_accum > 1 \
+            else batch_spec(mesh)
+        bplace = Placement(mesh, bspec)
     if has_state and loss_has_aux:
         raise ValueError("has_state already uses the aux slot for "
                          "model_state; fold extra aux into it")
@@ -135,14 +197,32 @@ def make_train_step(loss_fn: Callable[..., Any], tx, mesh=None, rules=None,
         with torch.enable_grad():
             out = loss_fn(*args)
             loss, aux = out if has_aux else (out, None)
+            if on_mesh:
+                loss = mcon(mesh, loss)          # the loss, on every rank
             leaves = tree_leaves(live)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = iter([torch.zeros_like(p) if g is None else g
-                      for g, p in zip(grads, leaves)])
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, leaves)]
+        if on_mesh:
+            grads = [_reduce_grad(g, p) for g, p in zip(grads, leaves)]
+        grads = iter(grads)
         return loss.detach(), _detach(aux), \
             tree_map(lambda _: next(grads), params)
 
     def step(state: TrainState, batch, rng=None):
+        if on_mesh:
+            batch = tree_map(lambda t: global_device_put(t, bplace)
+                             if isinstance(t, torch.Tensor) else t, batch)
+        with spmd(mesh):
+            out = _step(state, batch, rng)
+        if not on_mesh:
+            return out
+        new, loss, *rest = out
+        return (new, to_full(loss)) + tuple(
+            tree_map(lambda t: to_full(t) if is_dtensor(t) else t, r)
+            for r in rest)
+
+    def _step(state: TrainState, batch, rng=None):
         mstate = state.model_state
         if grad_accum > 1:
             loss, grads, auxes = 0.0, None, []
@@ -167,18 +247,20 @@ def make_train_step(loss_fn: Callable[..., Any], tx, mesh=None, rules=None,
                 mstate, aux = aux, None
 
         with torch.no_grad():
-            updates, opt_state = tx.update(grads, state.opt_state,
-                                           state.params)
+            if on_mesh:
+                updates, opt_state = _local_update(tx, grads, state)
+            else:
+                updates, opt_state = tx.update(grads, state.opt_state,
+                                               state.params)
             params = tree_leaves(state.params)
             if not skip_nonfinite:
                 for p, u in zip(params, tree_leaves(updates)):
-                    p.add_(u.to(p.dtype))
+                    # in place on the shard: both have the param's layout
+                    _local(p).add_(_local(u).to(p.dtype))
                 new = TrainState(state.params, opt_state, state.step + 1,
                                  mstate)
                 return (new, loss, aux) if loss_has_aux else (new, loss)
-            finite = torch.isfinite(loss)
-            for g in tree_leaves(grads):
-                finite = finite & torch.isfinite(g).all()
+            finite = _all_finite(loss, tree_leaves(grads), on_mesh)
 
             def sel(new_v, old_v):
                 return torch.where(finite, new_v, old_v)
@@ -211,12 +293,72 @@ def make_train_step(loss_fn: Callable[..., Any], tx, mesh=None, rules=None,
     return dispatch
 
 
+def _local(t):
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _local_update(tx, grads, state):
+    """``tx.update`` on each rank's shards: every gradient, moment and
+    parameter of a leaf has the parameter's layout, and the port's
+    transforms (sgd, adamw) read nothing across entries. The updates and
+    the new state are DTensors of the layouts they came in."""
+    from torch.distributed.tensor import DTensor
+    updates, opt_state = tx.update(tree_map(_local, grads),
+                                   tree_map(_local, state.opt_state),
+                                   tree_map(_local, state.params))
+
+    def wrap(u, ref):
+        if not is_dtensor(ref):
+            return u
+        return DTensor.from_local(u, ref.device_mesh, ref.placements,
+                                  run_check=False, shape=ref.shape,
+                                  stride=ref.stride())
+    return tree_map(wrap, updates, state.params), \
+        tree_map(wrap, opt_state, state.opt_state)
+
+
+def _reduce_grad(g, p):
+    """The gradient in its parameter's layout: the mesh's gradient
+    reduction (a sum over the ranks that hold parts of it)."""
+    if not is_dtensor(p):
+        return g
+    if tuple(g.placements) != tuple(p.placements):
+        collectives.count("grad_reduce")
+        g = g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _all_finite(loss, grads, on_mesh: bool):
+    """Whether the loss (None: none) and every gradient are finite, on
+    every rank: each rank checks its shards, then one all-reduce (min)
+    over the group, when it has more than one rank."""
+    ts = grads if loss is None else [loss] + list(grads)
+    finite = torch.stack([torch.isfinite(_local(t)).all() for t in ts]).all()
+    if on_mesh and dist.process_count() > 1:
+        import torch.distributed as tdist
+        flag = finite.to(torch.int32)
+        collectives.count("all_reduce")
+        tdist.all_reduce(flag, op=tdist.ReduceOp.MIN)
+        finite = flag.bool()
+    return finite
+
+
 def make_eval_step(apply_fn: Callable, mesh=None):
-    """``step(params, batch) -> apply_fn(params, batch)`` without grad."""
-    _one_device(mesh, None)
+    """``step(params, batch) -> apply_fn(params, batch)`` without grad;
+    over a mesh the batch is laid out on ``batch_spec(mesh)`` and the
+    outputs come back as plain tensors, the same on every rank."""
+    _check(mesh, None)
+    on_mesh = _on_mesh(mesh)
+    bplace = Placement(mesh, batch_spec(mesh)) if on_mesh else None
 
     @torch.no_grad()
     def step(params, batch):
-        return apply_fn(params, batch)
+        if not on_mesh:
+            return apply_fn(params, batch)
+        batch = tree_map(lambda t: global_device_put(t, bplace)
+                         if isinstance(t, torch.Tensor) else t, batch)
+        with spmd(mesh):
+            out = apply_fn(params, batch)
+        return tree_map(to_full, out)
 
     return step

@@ -7,7 +7,7 @@ CUDA is a visible card, CUDNN, NCCL, MKLDNN and OPENMP are torch's
 backends, X64 and INT64_TENSOR_SIZE hold (torch computes in float64 and
 indexes with int64 everywhere), IMAGE_CODEC is a codec header the native
 IO library can build against (``mxtpu_torch.native``; nothing is built
-to find it), DIST_KVSTORE waits for the kvstore (ROADMAP item 11), and
+to find it), DIST_KVSTORE waits for the kvstore (ROADMAP item 11b), and
 TPU is false.
 """
 from __future__ import annotations

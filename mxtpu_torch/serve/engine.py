@@ -52,7 +52,7 @@ f32, the cached path casts its probabilities to bf16), so a near-tie
 token can differ: invariance to scheduling, not equality across the two
 formulations, is the contract there.
 
-Mesh serving (ROADMAP Queue A item 11) raises until its slice.
+Mesh serving (ROADMAP Queue A item 11b) raises until its slice.
 """
 from __future__ import annotations
 
@@ -612,7 +612,7 @@ class ServeEngine:
     ``MXTPU_KV_INT8_PAGES``, off). ``speculate_k`` drafted tokens a step
     (``MXTPU_SERVE_SPECULATE_K``, 0) need ``paged=True``; ``drafter(history,
     k)`` drafts them (:func:`ngram_drafter` by default). ``mesh`` raises
-    until its slice (ROADMAP Queue A item 11)."""
+    until its slice (ROADMAP Queue A item 11b)."""
 
     def __init__(self, cfg, params, *, max_slots: Optional[int] = None,
                  max_len: Optional[int] = None,
@@ -644,7 +644,7 @@ class ServeEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh serving comes with the multi-device slice (ROADMAP "
-                "Queue A item 11); pass mesh=None")
+                "Queue A item 11b); pass mesh=None")
         # canonical ("cuda" is cuda:<current>), to compare with the params'
         self.device = torch.empty(0, device=resolve_device(device)).device
         off = sorted({str(t.device) for t in _tensor_leaves(params)

@@ -139,8 +139,16 @@ def test_max_seq_len_raises():
     tp = tb.params_from_numpy(tree, device="cpu")
     with pytest.raises(ValueError, match="max_seq_len"):
         tb.forward(_port_cfg(jcfg), tp, torch.zeros((1, 65), dtype=int))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tb.sharding_rules(_port_cfg(jcfg))
+    # ported (item 11a): the rule table gives every weight the
+    # reference's spec, stacked and listed layouts alike
+    for scan in (True, False):
+        jc, _, t = _ref(scan)
+        want = jb.sharding_rules(jc)
+        got = tb.sharding_rules(_port_cfg(jc))
+        for path, _leaf in jax.tree_util.tree_flatten_with_path(t)[0]:
+            name = "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                            for k in path)
+            assert tuple(got.spec(name)) == tuple(want.spec(name)), name
 
 
 def _assert_grads_close(got, want, what=""):

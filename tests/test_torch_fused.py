@@ -428,7 +428,9 @@ def test_mesh_subset_and_shard_checks():
         assert tmesh.current_mesh() is mesh
         assert tmesh.mesh_axes() == tmesh.MESH_AXES
     for bad in (dict(tp=2), dict(dp=4)):
-        with pytest.raises(NotImplementedError, match="item 11"):
+        # without a process group a mesh is one device (item 11a: a
+        # mesh over ranks comes from dist.initialize)
+        with pytest.raises(ValueError, match="dist.initialize"):
             tmesh.create_mesh(**bad)
     net = tmx.gluon.nn.Dense(4, prefix="s_")
     net.initialize(ctx="cpu")                    # deferred in_units

@@ -280,11 +280,13 @@ def test_utils_match_mxtpu(tmp_path):
 def test_later_slices_raise(tmp_path):
     from mxtpu_torch.parallel import mesh as tmesh
     net = mlp(tmx, "r_")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # ported (item 11a): shard takes a parallel.mesh.Mesh, and a mesh
+    # over two devices needs a process group
+    with pytest.raises(TypeError, match="Mesh"):
         net.hybridize(mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="dist.initialize"):
         net.shard(tmesh.create_mesh(dp=2), None)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="Mesh"):
         net.shard(None, None)
     # ported: export_stablehlo writes a torch.export archive that
     # contrib.deploy loads and runs without the net

@@ -147,7 +147,9 @@ def test_generate_refuses_what_this_slice_lacks(pair):
         tl.generate(tcfg, tparams, prompt, 2, top_k=0)
     with pytest.raises(NotImplementedError, match="mesh"):
         tl.generate(tcfg, tparams, prompt, 2, mesh=object())
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # ported (item 11a): ring attention needs a mesh's sp axis, and says
+    # so as the reference does
+    with pytest.raises(ValueError, match="'sp' axis"):
         tl.forward(replace(tcfg, attn_impl="ring"), tparams, prompt)
 
 
@@ -179,6 +181,9 @@ def test_port_imports_no_jax():
             "mxtpu_torch.tools.module_tolerance, mxtpu_torch.rpc, "
             "mxtpu_torch.ndarray.random, mxtpu_torch.serde, "
             "mxtpu_torch.xla_math, mxtpu_torch.parallel.moe, "
+            "mxtpu_torch.parallel.dist, mxtpu_torch.parallel.mesh, "
+            "mxtpu_torch.parallel.sharding, mxtpu_torch.parallel.collectives, "
+            "mxtpu_torch.parallel.pipeline, mxtpu_torch.parallel.sparse_embed, "
             "mxtpu_torch.models.bert, mxtpu_torch.serve.gateway, "
             "mxtpu_torch.serve.gateway.replica, "
             "mxtpu_torch.serve.gateway.gateway, "

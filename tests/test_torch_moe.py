@@ -96,9 +96,10 @@ def test_dispatches_agree_and_refuse_unknown(bank):
     np.testing.assert_array_equal(a.numpy(), c.numpy())
     with pytest.raises(ValueError, match="dispatch"):
         tm.moe_ffn(tp, xt, dispatch="alltoall")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # ported (item 11a): expert parallelism takes a parallel.mesh.Mesh
+    with pytest.raises(TypeError, match="Mesh"):
         tm.moe_ffn(tp, xt, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="Mesh"):
         tm.moe_ffn_dense(tp, xt, mesh=object())
 
 

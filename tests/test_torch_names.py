@@ -79,7 +79,10 @@ def test_parallel_name_resolves_or_names_item_11(name):
     try:
         obj = getattr(tpar, name)
     except AttributeError as e:
-        assert "ROADMAP Queue A item 11" in str(e), name
+        # only the elastic names still wait, for item 11c
+        assert "ROADMAP Queue A item 11c" in str(e), name
+        assert name in tpar._LATER and name.startswith(
+            ("Elastic", "Fused", "Journaled", "Step")), name
         return
     ref = getattr(jpar, name)
     assert callable(obj) == callable(ref) and \

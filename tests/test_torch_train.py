@@ -264,9 +264,11 @@ def test_skip_nonfinite_keeps_the_state_as_mxtpu_does(ref):
 def test_step_refuses_what_one_device_lacks(ref):
     jcfg, _, tree = ref
     lf = tl.loss_fn(_port_cfg(jcfg))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # ported (item 11a): the step takes a parallel.mesh.Mesh, and rules
+    # that place a parameter need one
+    with pytest.raises(TypeError, match="mesh"):
         tstep.make_train_step(lf, optim.sgd(0.1), mesh=object())
-    with pytest.raises(NotImplementedError, match="rules"):
+    with pytest.raises(ValueError, match="rules"):
         tstep.make_train_step(lf, optim.sgd(0.1),
                               rules=[(r".*", ("fsdp",))])
     # has_rng is ported: the step passes its key to the loss
